@@ -1,0 +1,70 @@
+"""The port's copies of the host-only modules against the originals.
+
+`lanpaint_tpu_torch/config.py` and `sigmas.py` are copies (importing the
+JAX package's would import jax).  Defaults, validation and the derived
+properties must agree, and every scheduler must give the same ladder,
+bit for bit.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from lanpaint_tpu import config as jconfig
+from lanpaint_tpu import sigmas as jsigmas
+from lanpaint_tpu_torch import config as tconfig
+from lanpaint_tpu_torch import sigmas as tsigmas
+
+
+def test_config_defaults_match():
+    want = dataclasses.asdict(jconfig.LanPaintConfig())
+    got = dataclasses.asdict(tconfig.LanPaintConfig())
+    assert got == want
+    assert [f.name for f in dataclasses.fields(tconfig.LanPaintConfig)] == \
+        [f.name for f in dataclasses.fields(jconfig.LanPaintConfig)]
+    assert [k.value for k in tconfig.ModelKind] == [k.value for k in jconfig.ModelKind]
+
+
+@pytest.mark.parametrize("bad", [dict(n_steps=-1), dict(inner_patience=0),
+                                 dict(step_size=0.0), dict(beta=-1.0),
+                                 dict(step_size=float("nan"))])
+def test_config_validation_matches(bad):
+    with pytest.raises(ValueError) as want:
+        jconfig.LanPaintConfig(**bad)
+    with pytest.raises(ValueError) as got:
+        tconfig.LanPaintConfig(**bad)
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(inner_patience=3), dict(inner_min_steps=5),
+                                dict(inner_patience=2, inner_min_steps=2),
+                                dict(inner_threshold=0.1), dict(inner_threshold=0.0,
+                                                                inner_patience=4)])
+def test_config_derived_properties_match(kw):
+    j, t = jconfig.LanPaintConfig(**kw), tconfig.LanPaintConfig(**kw)
+    assert t.patience_eff == j.patience_eff
+    assert t.semantic_stop_possible == j.semantic_stop_possible
+
+
+def test_sigma_tables_match():
+    for j, t in ((jsigmas.EpsSigmaTable(), tsigmas.EpsSigmaTable()),
+                 (jsigmas.FlowSigmaTable(shift=3.0), tsigmas.FlowSigmaTable(shift=3.0))):
+        np.testing.assert_array_equal(np.asarray(t.sigmas), np.asarray(j.sigmas))
+        assert t.sigma_min == j.sigma_min and t.sigma_max == j.sigma_max
+
+
+@pytest.mark.parametrize("scheduler", sorted(jsigmas.SCHEDULERS))
+def test_calculate_sigmas_matches(scheduler):
+    assert sorted(tsigmas.SCHEDULERS) == sorted(jsigmas.SCHEDULERS)
+    for table_cls in (lambda m: m.EpsSigmaTable(), lambda m: m.FlowSigmaTable(shift=1.15)):
+        jt, tt = table_cls(jsigmas), table_cls(tsigmas)
+        for steps in (1, 4, 20, 33):
+            want = jsigmas.calculate_sigmas(jt, scheduler, steps)
+            got = tsigmas.calculate_sigmas(tt, scheduler, steps)
+            np.testing.assert_array_equal(np.asarray(got), np.asarray(want),
+                                          err_msg=f"{scheduler} x {steps}")
+            for denoise in (1.0, 0.6):
+                np.testing.assert_array_equal(
+                    np.asarray(tsigmas.apply_denoise(tt, scheduler, steps, denoise)),
+                    np.asarray(jsigmas.apply_denoise(jt, scheduler, steps, denoise)))

@@ -1,0 +1,52 @@
+"""The port imports without JAX: the machine with the card has none.
+
+In a fresh interpreter where `import jax` (and flax) fails, the package
+and its api, engine and UNet modules import, and nothing of the JAX
+package gets loaded along the way.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+PROBE = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["flax"] = None
+import lanpaint_tpu_torch
+import lanpaint_tpu_torch.api
+import lanpaint_tpu_torch.engine
+import lanpaint_tpu_torch.models.unet
+import lanpaint_tpu_torch.models.zoo
+import lanpaint_tpu_torch.models.bridge
+import lanpaint_tpu_torch.ops.attention
+import lanpaint_tpu_torch.ops.norms
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "flax", "lanpaint_tpu", "triton")
+                and sys.modules[m] is not None)
+print("LOADED", loaded)
+"""
+
+
+def test_port_imports_without_jax():
+    proc = subprocess.run([sys.executable, "-c", PROBE], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "LOADED []" in proc.stdout, proc.stdout
+
+
+def test_port_sources_name_no_jax():
+    pkg = REPO / "lanpaint_tpu_torch"
+    for path in sorted(pkg.rglob("*.py")):
+        if "_build" in path.relative_to(pkg).parts:  # build outputs, not sources
+            continue
+        for no, line in enumerate(path.read_text().splitlines(), 1):
+            code = line.split("#", 1)[0].strip()
+            bad = (code.startswith(("import jax", "from jax", "import flax", "from flax",
+                                    "from lanpaint_tpu ", "from lanpaint_tpu.",
+                                    "import lanpaint_tpu "))
+                   or code.startswith("import lanpaint_tpu.") and
+                   not code.startswith("import lanpaint_tpu_torch"))
+            assert not bad, f"{path.relative_to(REPO)}:{no}: {line.strip()}"
