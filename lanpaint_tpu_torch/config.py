@@ -61,10 +61,10 @@ class LanPaintConfig:
     # Record a per-inner-step trace buffer (device-side equivalent of
     # model_options["lanpaint_semantic_trace"], earlystop.py:315-334).
     record_trace: bool = False
-    # Fused think-step kernels for the pointwise Langevin update.  Not
-    # ported yet: the engine raises NotImplementedError when this is set
-    # and the latent lives on a CUDA device (CPU tensors take the plain
-    # path, as the JAX package does off-TPU).
+    # Fused think-step kernels for the pointwise Langevin update
+    # (ops/fused.py): two Triton launches per iteration on a CUDA latent,
+    # with in-kernel normals; on the CPU their plain versions, fed the
+    # unfused path's draws.  Off by default, as in the JAX package.
     use_fused_kernels: bool = False
 
     def __post_init__(self):

@@ -40,6 +40,24 @@ One `torch.Generator` is consumed, per `lanpaint_update` call:
 draws consumed instead of step 2, row i for iteration i (row index clamped
 to n_max - 1), exactly as `lanpaint_tpu/engine.py` consumes it.  Draw 1 is
 still taken from the generator.
+
+Fused kernels (`config.use_fused_kernels`, ops/fused.py).  The pointwise
+work of an iteration runs as two launches on flat (B, M) views of the
+latent: the half step before the model (warm iterations only: the cold
+step evaluates the model at x_t) and the finish after it (every Langevin
+iteration, warm or cold as a compile-time flag).  Only the mask-mixed `a`
+is built latent-sized; every other coefficient stays in two (B, 24)
+tables.  On a CUDA latent the kernels draw their own normals: step 2 is
+replaced by ONE int64 draw (a one-element tensor on the card) from the
+generator per call, the Philox seed; launch 2i (half) and 2i + 1 (finish)
+key their streams with seed + launch.  `noise_feed` is refused there.  On
+the CPU the plain fused versions take step 2's draws (or the feed's),
+mapped as half (eps_y1, eps_v1, v_stat), warm finish (eps_y2, eps_v2,
+v_stat) and cold finish (eps_y1, eps_v1, v_stat), which reproduces the
+unfused path's draws.  The one difference from the unfused path, as in
+the TPU kernel: the warm finish's non-finite select does not OR in the
+half step's (identical results unless a damped half step overflowed from
+finite coefficients).
 """
 
 from __future__ import annotations
@@ -50,6 +68,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from .config import LanPaintConfig, ModelKind
+from .ops import fused as fused_ops
 from .ops.sho import OUCoeffs, SHOCoeffs, ou_apply, ou_coeffs, sho_apply, sho_coeffs
 from .schedule import Times, bcast_to, from_vp, noise_scaling, to_vp, vp_to_model_coords
 
@@ -170,13 +189,15 @@ def lanpaint_update(
     lanpaint.py:122), and diagnostics.
     """
     device = x.device
-    if config.use_fused_kernels and device.type == "cuda":
-        raise NotImplementedError(
-            "use_fused_kernels: the fused think-step kernels are not ported "
-            "to CUDA yet; use LanPaintConfig(use_fused_kernels=False)")
+    fused = config.use_fused_kernels
+    on_card = fused and device.type == "cuda"
+    if on_card and noise_feed is not None:
+        raise ValueError("use_fused_kernels on a CUDA latent: the kernels draw their own "
+                         "normals, so noise_feed cannot be replayed; turn the flag off")
     in_dtype = x.dtype
     ndim = x.ndim
     shape = tuple(x.shape)
+    b = shape[0]
     xf = x.float()
     latent_f = latent_image.float()
     mask = latent_mask.float()
@@ -186,15 +207,24 @@ def lanpaint_update(
     fx, fy, d_noise, dt_x = _branch_scalars(config, times.abt)
     dt_pos = bool(torch.mean(dt_x) > 0.0)
     n_f = len(fx)
-    packed = torch.stack([*fx, *fy, times.ve_sigma.float(), times.abt.float(),
-                          times.flow_t.float()]).to(device)
+    rows = [*fx, *fy, times.ve_sigma.float(), times.abt.float(), times.flow_t.float()]
+    if fused:  # the kernels' (B, 24) coefficient tables, x branch then y
+        rows += [fx[j] for j in fused_ops.TABLE_FIELDS] + [fy[j] for j in fused_ops.TABLE_FIELDS]
+    packed = torch.stack(rows).to(device)
     bc = lambda t: bcast_to(t, ndim)
-    mixed = [_mix(bc(packed[j]), bc(packed[n_f + j]), mask) for j in range(n_f)]
-    params = _RegionParams(
-        a=mixed[0], dt=mixed[1], sqrt_gamma_dt=mixed[2], d=d_noise.to(device),
-        sho_half=SHOCoeffs(*mixed[3:10]), sho_full=SHOCoeffs(*mixed[10:17]),
-        ou_half=OUCoeffs(*mixed[17:20]), ou_full=OUCoeffs(*mixed[20:23]))
-    times = Times(*packed[2 * n_f:])
+    a_mix = _mix(bc(packed[0]), bc(packed[n_f]), mask)
+    if fused:
+        n_t = len(fused_ops.TABLE_FIELDS)
+        coef_x, coef_y = (packed[2 * n_f + 3 + k * n_t:2 * n_f + 3 + (k + 1) * n_t].T.contiguous()
+                          for k in (0, 1))
+        mask2 = torch.broadcast_to(mask, shape).reshape(b, -1)
+    else:
+        mixed = [_mix(bc(packed[j]), bc(packed[n_f + j]), mask) for j in range(n_f)]
+        params = _RegionParams(
+            a=a_mix, dt=mixed[1], sqrt_gamma_dt=mixed[2], d=d_noise.to(device),
+            sho_half=SHOCoeffs(*mixed[3:10]), sho_full=SHOCoeffs(*mixed[10:17]),
+            ou_half=OUCoeffs(*mixed[17:20]), ou_full=OUCoeffs(*mixed[20:23]))
+    times = Times(*packed[2 * n_f:2 * n_f + 3])
     abt_b = bc(times.abt)
     lamb = config.lamb
 
@@ -208,7 +238,11 @@ def lanpaint_update(
     known_xt = noise_scaling(kind, times.ve_sigma if kind is ModelKind.EPS else times.flow_t,
                              noise_f, latent_f)
     xf = xf * (1.0 - mask) + known_xt * mask
-    x_t = to_vp(kind, xf, times, ndim)
+    x_t = to_vp(kind, xf, times, ndim).contiguous()
+    flat = lambda t: t.reshape(b, -1)  # the fused kernels' (B, M) view, no copy
+    # the kernels' Philox seed, drawn on the card: no host sync in the loop
+    seed = (torch.randint(0, 2**31 - 1, (1,), generator=generator, device=device)
+            if on_card else None)
 
     def score_to_c(x_eval, x0, x0_big):
         """Bidirectional score -> drift C (lanpaint.py:125-141, 174-177)."""
@@ -218,7 +252,7 @@ def lanpaint_update(
         score_y = -(1.0 + lamb) * (x_eval - latent_f) + lamb * (x_eval - x0_big)
         x0_eff = x_eval + _mix(score_x, score_y, mask)
         c = (torch.sqrt(abt_b) * x0_eff - x_eval) / torch.clamp_min(1.0 - abt_b, 1e-20) \
-            + params.a * x_eval
+            + a_mix * x_eval
         return c, x0_eff
 
     # ---- semantic early stop set-up (device-side state) ----
@@ -248,18 +282,28 @@ def lanpaint_update(
         if i >= n_run or (config.semantic_stop_possible and bool(stopped)):
             break
         warm = i > 0
-        if noise_feed is not None:
-            eps = noise_feed[min(i, noise_feed.shape[0] - 1)].to(device=device, dtype=torch.float32)
-        else:
-            eps = torch.randn((5,) + shape, generator=generator, dtype=torch.float32,
-                              device=device)
-        eps_y1, eps_v1, eps_y2, eps_v2, eps_v0 = eps.unbind(0)
-        # Stationary velocity ~ N(0, D^2/2) (reference utils.py:253-254); the
-        # cold-start velocity and the fallback where the damped step NaN'd.
-        v_stat = eps_v0 * params.d / math.sqrt(2.0)
+        if not on_card:  # on the card the kernels draw their own normals
+            if noise_feed is not None:
+                eps = noise_feed[min(i, noise_feed.shape[0] - 1)].to(device=device,
+                                                                      dtype=torch.float32)
+            else:
+                eps = torch.randn((5,) + shape, generator=generator, dtype=torch.float32,
+                                  device=device)
+            eps_y1, eps_v1, eps_y2, eps_v2, eps_v0 = (eps.reshape(5, b, -1) if fused
+                                                      else eps).unbind(0)
+        if not fused:
+            # Stationary velocity ~ N(0, D^2/2) (reference utils.py:253-254); the
+            # cold-start velocity and the fallback where the damped step NaN'd.
+            v_stat = eps_v0 * params.d / math.sqrt(2.0)
 
-        if warm:
-            # half-step with the old C, evaluated at the half point
+        # pre-model phase: the warm half step with the old C (the cold step
+        # evaluates the model at x_t)
+        if fused and warm:
+            xh, vh, xh_o = fused_ops.fused_half_step(
+                coef_x, coef_y, 1.0, flat(x_t), flat(v), flat(c_old), mask2, seed=seed,
+                launch=2 * i, normals=None if on_card else (eps_y1, eps_v1, eps_v0))
+            x_eval = xh.view(shape)
+        elif warm:
             xh_d, vh_d = sho_apply(params.sho_half, x_t, v, params.a, c_old, eps_y1, eps_v1)
             xh_o = ou_apply(params.ou_half, x_t, c_old, eps_y1)
             bad_h = ~(torch.isfinite(xh_d) & torch.isfinite(vh_d))
@@ -267,13 +311,21 @@ def lanpaint_update(
             vh = torch.where(bad_h, v_stat, vh_d)
             x_eval = xh
         else:
+            xh = vh = xh_o = None
             x_eval = x_t
 
         x_model, t_model = vp_to_model_coords(kind, x_eval, times, ndim)
         x0_raw, x0_big = denoise(x_model, t_model)
         c_new, x0_eff = score_to_c(x_eval, x0_raw, x0_big)
 
-        if warm:
+        # post-model phase
+        if fused:
+            normals = None if on_card else (
+                (eps_y2, eps_v2, eps_v0) if warm else (eps_y1, eps_v1, eps_v0))
+            x_new, v_new = (t.view(shape) for t in fused_ops.fused_finish(
+                coef_x, coef_y, 1.0, warm, flat(x_t), xh, vh, xh_o, flat(c_old), flat(c_new),
+                mask2, seed=seed, launch=2 * i + 1, normals=normals))
+        elif warm:
             v_kick = vh + params.sqrt_gamma_dt * (c_new - c_old)
             xf_d, vf_d = sho_apply(params.sho_half, xh, v_kick, params.a, c_old, eps_y2, eps_v2)
             xk_o = xh_o + (c_new - c_old) * params.dt

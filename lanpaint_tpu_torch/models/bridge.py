@@ -1,15 +1,16 @@
-"""Weight bridge: the JAX package's flax UNet parameter tree -> this
-package's UNetModel state_dict.
+"""Weight bridge: the JAX package's flax UNet and MMDiT parameter trees ->
+this package's UNetModel / MMDiT state_dicts.
 
 The tree holds numpy arrays (e.g. `lanpaint_tpu.models.zoo.init_params_host`
 output or `jax.device_get` of device params); nothing here imports JAX.
-The mapping:
+The mapping, the same for both families:
 
 * dense kernels are (in, out); a torch Linear weight is (out, in);
 * conv kernels are HWIO; torch wants OIHW;
-* `nn.scan` stacks every BasicTransformerBlock parameter along a leading
-  depth axis under `<stack>/blocks/block/...`; it is unstacked into
-  `<stack>.blocks.<i>....`;
+* `nn.scan` stacks every scanned block's parameters along a leading depth
+  axis under `<stack>/block/...` (the UNet's `<transformer>/blocks/block`,
+  the MMDiT's `double/block` and `single/block`); they are unstacked into
+  `<stack>.<i>....`;
 * norm `scale` becomes `weight`; the GroupNorm32 wrapper's inner
   `GroupNorm_0` level disappears;
 * the fused `to_qkv` (c, 3c) kernel keeps its q|k|v column order, and the
@@ -39,7 +40,8 @@ def _to_tensor(arr) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr).copy())
 
 
-def _put(state: dict, path, arr) -> None:
+def _entry(path, arr):
+    """(state_dict key, numpy view in torch's layout) of one flax leaf."""
     *mods, leaf = path
     if mods and mods[-1].startswith("GroupNorm_"):
         mods = mods[:-1]
@@ -53,20 +55,29 @@ def _put(state: dict, path, arr) -> None:
         leaf = "weight"
     elif leaf == "scale":
         leaf = "weight"
-    state[".".join([*mods, leaf])] = _to_tensor(arr)
+    return ".".join([*mods, leaf]), arr
 
 
-def unet_params_from_flax(tree) -> dict:
-    """Map a flax UNet parameter tree ({"params": {...}} or the inner dict)
-    onto `UNetModel.state_dict()` keys."""
+def flax_entries(tree):
+    """Yield (state_dict key, array) for every parameter of a flax tree
+    ({"params": {...}} or the inner dict), scanned stacks unstacked.  The
+    arrays are views of the tree's (no copy), so a tree of zero-stride
+    arrays maps a full-size model's keys and shapes without allocating."""
     params = tree["params"] if "params" in tree else tree
-    state: dict = {}
     for path, arr in _flatten(params):
         arr = np.asarray(arr)
-        if "blocks" in path and path[path.index("blocks") + 1] == "block":
-            j = path.index("blocks")
+        if "block" in path[:-1]:
+            j = path.index("block")
             for depth in range(arr.shape[0]):
-                _put(state, path[:j] + ("blocks", str(depth)) + path[j + 2:], arr[depth])
+                yield _entry(path[:j] + (str(depth),) + path[j + 1:], arr[depth])
         else:
-            _put(state, path, arr)
-    return state
+            yield _entry(path, arr)
+
+
+def params_from_flax(tree) -> dict:
+    """Map a flax UNet or MMDiT parameter tree onto the port module's
+    `state_dict()` keys, as torch tensors."""
+    return {key: _to_tensor(arr) for key, arr in flax_entries(tree)}
+
+
+unet_params_from_flax = dit_params_from_flax = params_from_flax

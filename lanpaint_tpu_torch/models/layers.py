@@ -1,6 +1,7 @@
-"""Neural building blocks of the SD UNet, as torch `nn.Module`s.
+"""Neural building blocks of the SD UNet and the MMDiT, as torch `nn.Module`s.
 
-PyTorch counterpart of the UNet subset of `lanpaint_tpu/models/layers.py`.
+PyTorch counterpart of the UNet and DiT subset of
+`lanpaint_tpu/models/layers.py`.
 Layout is NCHW for convolutions and (B, tokens, C) inside the spatial
 transformers.  Parameters keep their stored dtype; every dense layer and
 convolution casts inputs AND weights to the module's compute dtype first,
@@ -8,9 +9,9 @@ which is what flax `Dense(dtype=bf16)` does with fp32 parameters.
 GroupNorm and the row norms compute their statistics in fp32.
 
 Self-attention goes through the hand-written flash-attention kernel
-(ops/attention.py) and every transformer LayerNorm through the Triton row
-norm (ops/norms.py); the 77-token cross-attention stays plain PyTorch, as
-the JAX package leaves it to XLA.
+(ops/attention.py) and every transformer LayerNorm and RMSNorm through the
+Triton row norm (ops/norms.py); the 77-token cross-attention stays plain
+PyTorch, as the JAX package leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -23,7 +24,26 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attention_ref, flash_attention
-from ..ops.norms import layernorm
+from ..ops.norms import layernorm, rmsnorm
+
+
+def attention_bshd(q, k, v, scale: Optional[float] = None):
+    """Multi-head attention on (B, S, H, D) tensors, routed by shape as the
+    JAX package's `attention_bshd(impl="auto")` is: self-attention with
+    S >= 1024 and D % 64 == 0 goes to `flash_attention` (the kernel on
+    CUDA, which raises on a head dim it does not support), anything else to
+    `attention_ref`, where the JAX package leaves it to XLA."""
+    s, d = q.shape[1], q.shape[3]
+    if k.shape[1] == s and s >= 1024 and d % 64 == 0:
+        return flash_attention(q, k, v, scale)
+    return attention_ref(q, k, v, scale)
+
+
+def layernorm_na(x, eps: float = 1e-6):
+    """No-affine LayerNorm with fp32 statistics and an fp32 result: the
+    adaLN pre-norm of every DiT block, whose modulation runs in fp32 before
+    the downcast (through the row-norm kernel on CUDA)."""
+    return layernorm(x, eps=eps, out_dtype=torch.float32)
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0,
@@ -94,6 +114,32 @@ class LayerNormF32(nn.Module):
 
     def forward(self, x):
         return layernorm(x, self.weight, self.bias, self.eps)
+
+
+class RMSNorm(nn.Module):
+    """RMSNorm over the last axis with a learned scale (`weight`), fp32
+    statistics, output in the input dtype (through the row-norm kernel on
+    CUDA)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x):
+        return rmsnorm(x, self.weight, self.eps)
+
+
+class QKNorm(nn.Module):
+    """Per-head RMS normalization of q and k (Flux/SD3-style)."""
+
+    def __init__(self, head_dim: int):
+        super().__init__()
+        self.query_norm = RMSNorm(head_dim)
+        self.key_norm = RMSNorm(head_dim)
+
+    def forward(self, q, k):
+        return self.query_norm(q), self.key_norm(k)
 
 
 class CrossAttention(nn.Module):
@@ -262,3 +308,32 @@ class MLPEmbedder(nn.Module):
 
     def forward(self, x):
         return self.out_layer(F.silu(self.in_layer(x)))
+
+
+# --------------------------------------------------------------------------
+# Rotary position embeddings (DiT family)
+
+
+def rope_freqs(ids: torch.Tensor, axes_dim, theta: float = 10000.0) -> torch.Tensor:
+    """Multi-axis RoPE rotation table.
+
+    ids: (B, S, n_axes) integer position ids; axes_dim[i] dims go to axis i
+    (they sum to the head dim).  Returns (B, S, head_dim // 2, 2, 2) fp32
+    rotation matrices (Flux convention)."""
+    parts = []
+    for i, d in enumerate(axes_dim):
+        scale = torch.arange(0, d, 2, dtype=torch.float32, device=ids.device) / d
+        omega = 1.0 / (theta**scale)
+        out = ids[..., i].float()[..., None] * omega  # (B, S, d // 2)
+        cos, sin = torch.cos(out), torch.sin(out)
+        parts.append(torch.stack([cos, -sin, sin, cos], dim=-1).reshape(*out.shape, 2, 2))
+    return torch.cat(parts, dim=-3)
+
+
+def apply_rope(x: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
+    """Rotate (B, S, H, D) q or k by the table, in fp32; returns x's dtype."""
+    b, s, h, d = x.shape
+    xf = x.float().reshape(b, s, h, d // 2, 1, 2)
+    fr = freqs[:, :, None]  # (B, S, 1, D // 2, 2, 2)
+    out = fr[..., 0] * xf[..., 0] + fr[..., 1] * xf[..., 1]
+    return out.reshape(b, s, h, d).to(x.dtype)

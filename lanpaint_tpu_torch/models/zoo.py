@@ -1,11 +1,13 @@
-"""Model zoo: packaged Denoisers (the eps-prediction UNets for now).
+"""Model zoo: packaged Denoisers (the eps-prediction UNets and the
+flow-matching MMDiTs for now).
 
-PyTorch counterpart of the UNet part of `lanpaint_tpu/models/zoo.py`.
-`build_unet` returns (Denoiser, module).  Without a state_dict the weights
-are random, drawn on the target device from a seeded generator with the
-rule of `lanpaint_tpu.models.zoo.init_params_host`: kernels N(0, 0.02^2),
-biases zero, norm scales one (the numbers differ from numpy's; carry a
-flax tree across with models/bridge.py for identical weights).
+PyTorch counterpart of the UNet and MMDiT parts of
+`lanpaint_tpu/models/zoo.py`.  `build_unet` and `build_dit` return
+(Denoiser, module).  Without a state_dict the weights are random, drawn on
+the target device from a seeded generator with the rule of
+`lanpaint_tpu.models.zoo.init_params_host`: kernels N(0, 0.02^2), biases
+zero, norm scales one (the numbers differ from numpy's; carry a flax tree
+across with models/bridge.py for identical weights).
 """
 
 from __future__ import annotations
@@ -16,9 +18,10 @@ import torch
 
 from ..config import ModelKind
 from ..schedule import bcast_to
-from ..sigmas import EpsSigmaTable
+from ..sigmas import EpsSigmaTable, FlowSigmaTable
 from .base import Denoiser
-from .layers import GroupNorm32, LayerNormF32
+from .dit import FLUX_DEV_CONFIG, FLUX_SCHNELL_CONFIG, TINY_DIT_CONFIG, DiTConfig, MMDiT
+from .layers import GroupNorm32, LayerNormF32, RMSNorm
 from .unet import SDXL_CONFIG, TINY_UNET_CONFIG, UNetConfig, UNetModel
 
 
@@ -35,13 +38,13 @@ def _interp(x, xp, fp):
 
 
 @torch.no_grad()
-def init_unet_params_(module: torch.nn.Module, seed: int = 0, scale: float = 0.02):
+def init_params_(module: torch.nn.Module, seed: int = 0, scale: float = 0.02):
     """Fill `module`'s parameters in place, on their device, from a seeded
     generator: weights N(0, scale^2), biases zero, norm scales one."""
     device = next(module.parameters()).device
     gen = torch.Generator(device=device).manual_seed(seed)
     for mod in module.modules():
-        is_norm = isinstance(mod, (GroupNorm32, LayerNormF32))
+        is_norm = isinstance(mod, (GroupNorm32, LayerNormF32, RMSNorm))
         for pname, p in mod.named_parameters(recurse=False):
             if pname == "bias":
                 p.zero_()
@@ -49,6 +52,20 @@ def init_unet_params_(module: torch.nn.Module, seed: int = 0, scale: float = 0.0
                 p.fill_(1.0)
             else:
                 p.normal_(0.0, scale, generator=gen)
+
+
+def _materialize(cls, config, state_dict, device, param_dtype, seed):
+    """`cls(config)` created on the meta device and materialized on `device`
+    directly (a full-size model never passes through host memory), with
+    `state_dict`'s weights or random ones."""
+    with torch.device("meta"):
+        module = cls(config).to(param_dtype)
+    module = module.to_empty(device=device)
+    if state_dict is None:
+        init_params_(module, seed=seed)
+    else:
+        module.load_state_dict(state_dict)
+    return module.eval().requires_grad_(False)
 
 
 def build_unet(
@@ -60,18 +77,8 @@ def build_unet(
     seed: int = 0,
     name: str = "unet",
 ):
-    """Build the UNet Denoiser on `device` with `param_dtype` parameters.
-
-    The module is created on the meta device and materialized on `device`
-    directly, so a full-size model never passes through host memory."""
-    with torch.device("meta"):
-        module = UNetModel(config).to(param_dtype)
-    module = module.to_empty(device=device)
-    if state_dict is None:
-        init_unet_params_(module, seed=seed)
-    else:
-        module.load_state_dict(state_dict)
-    module.eval().requires_grad_(False)
+    """Build the UNet Denoiser on `device` with `param_dtype` parameters."""
+    module = _materialize(UNetModel, config, state_dict, device, param_dtype, seed)
 
     table = EpsSigmaTable()
     log_sigmas = torch.log(torch.tensor(table.sigmas, dtype=torch.float32, device=device))
@@ -123,3 +130,52 @@ def build_sdxl(state_dict=None, **kw):
 def build_tiny_unet(state_dict=None, **kw):
     return build_unet(TINY_UNET_CONFIG, state_dict, name="tiny-unet", **kw)
 
+
+# --------------------------------------------------------------------------
+# flow-matching DiTs (Flux family)
+
+
+def build_dit(
+    config: DiTConfig,
+    state_dict: Optional[dict] = None,
+    *,
+    shift: float = 1.0,
+    is_flux: bool = True,
+    device="cpu",
+    param_dtype: torch.dtype = torch.float32,
+    seed: int = 0,
+    name: str = "dit",
+):
+    """Build the MMDiT Denoiser on `device` with `param_dtype` parameters.
+
+    The model predicts the flow velocity v = noise - x0, so x0 = x - t * v.
+    `cond` is {"context", "vec", "guidance", "ref_tokens"} (all but the
+    context optional)."""
+    module = _materialize(MMDiT, config, state_dict, device, param_dtype, seed)
+
+    @torch.no_grad()
+    def apply(x, t, cond):
+        is_dict = isinstance(cond, dict)
+        ctx = cond["context"] if is_dict else cond
+        extras = [cond.get(k) if is_dict else None for k in ("vec", "guidance", "ref_tokens")]
+        vel = module(x, t, ctx, *extras)
+        return x - bcast_to(t, x.ndim) * vel
+
+    den = Denoiser(apply=apply, kind=ModelKind.FLOW, sigma_table=FlowSigmaTable(shift=shift),
+                   is_flux=is_flux, name=name, latent_channels=config.latent_channels,
+                   module=module)
+    return den, module
+
+
+def build_flux_dev(state_dict=None, **kw):
+    return build_dit(FLUX_DEV_CONFIG, state_dict, shift=1.15, is_flux=True, name="flux-dev",
+                     **kw)
+
+
+def build_flux_schnell(state_dict=None, **kw):
+    return build_dit(FLUX_SCHNELL_CONFIG, state_dict, shift=1.0, is_flux=True,
+                     name="flux-schnell", **kw)
+
+
+def build_tiny_dit(state_dict=None, **kw):
+    return build_dit(TINY_DIT_CONFIG, state_dict, is_flux=False, name="tiny-dit", **kw)

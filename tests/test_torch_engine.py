@@ -32,7 +32,12 @@ def goldens():
 
 @pytest.mark.parametrize("name", CASES)
 def test_reference_cases_through_port(goldens, name):
-    z = goldens
+    run_reference_case(goldens, name, use_fused_kernels=False)
+
+
+def run_reference_case(z, name, use_fused_kernels):
+    """Replay golden case `name` through the port's engine and hold it to
+    the reference at 2e-4 with the same number of think iterations."""
     n_steps, lamb, step_size, beta, friction = (float(v) for v in z[f"{name}/meta"])
     n_steps = int(n_steps)
     kind = ModelKind.FLOW if int(z[f"{name}/kind"]) else ModelKind.EPS
@@ -50,7 +55,8 @@ def test_reference_cases_through_port(goldens, name):
     config = LanPaintConfig(
         n_steps=max(n_steps, 1), lamb=lamb, step_size=step_size, beta=beta,
         friction=friction, inner_threshold=stop_threshold,
-        inner_patience=int(stop_patience), distance_fn=distance_fn)
+        inner_patience=int(stop_patience), distance_fn=distance_fn,
+        use_fused_kernels=use_fused_kernels)
     fallback = f"{name}/fallback" in z and int(z[f"{name}/fallback"]) == 1
     feed = build_noise_feed(z, name, n_steps, int(executed), x.shape, fallback=fallback)
 
@@ -123,9 +129,10 @@ def test_port_matches_jax_engine(kind, stop):
                                rtol=1e-5, atol=1e-5)
 
 
-def test_use_fused_kernels_takes_the_plain_path_on_cpu():
-    """On the CPU the flag takes the plain path, as the JAX package does off
-    the TPU; the CUDA refusal is checked on the card by chip_smoke.py."""
+def test_use_fused_kernels_runs_the_fused_plain_versions_on_cpu():
+    """On the CPU the flag runs the fused kernels' plain versions
+    (ops/fused.py) on the generator's draws; the kernels themselves run on
+    the card, in chip_smoke.py."""
     shape = (1, 4, 4, 4)
     zero = torch.zeros(shape)
     out, _, _ = lanpaint_update(

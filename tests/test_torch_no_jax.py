@@ -1,8 +1,8 @@
 """The port imports without JAX: the machine with the card has none.
 
 In a fresh interpreter where `import jax` (and flax) fails, the package
-and its api, engine and UNet modules import, and nothing of the JAX
-package gets loaded along the way.
+and its api, engine, UNet, DiT and kernel modules import, and nothing of
+the JAX package (or triton) gets loaded along the way.
 """
 
 import subprocess
@@ -18,10 +18,13 @@ sys.modules["flax"] = None
 import lanpaint_tpu_torch
 import lanpaint_tpu_torch.api
 import lanpaint_tpu_torch.engine
+import lanpaint_tpu_torch.models.dit
+import lanpaint_tpu_torch.models.layers
 import lanpaint_tpu_torch.models.unet
 import lanpaint_tpu_torch.models.zoo
 import lanpaint_tpu_torch.models.bridge
 import lanpaint_tpu_torch.ops.attention
+import lanpaint_tpu_torch.ops.fused
 import lanpaint_tpu_torch.ops.norms
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "flax", "lanpaint_tpu", "triton")
