@@ -3,12 +3,17 @@
 
     python3 chip_smoke.py          # from the root of the repository
 
-Two main paths, each with random bf16 weights made on the card from a seed,
-the euler solver, 20 steps, 5 think steps, outer early stop 1 and a
+Three main paths, each with random bf16 weights made on the card from a
+seed, the euler solver, 20 steps, 5 think steps, outer early stop 1 and a
 centre-square mask:
 
 * SDXL-1024: karras, CFG 5 as two sequential passes, the unfused think
   step: (20 - 1) * 6 + 1 = 115 CFG pairs, 230 UNet forwards;
+* pixel-space SDXL-1024 (the reference's SDXL_Inpaint workflow through
+  `api.inpaint_image`): the SDXL VAE encodes a random 1024^2 image, the
+  SDXL path above repaints the latent, the VAE decodes it and MaskBlend
+  (overlap 9) feathers it into the image: two wide-head attention launches
+  (the VAE's mid attention, D = 512, S = 16,384) besides the SDXL path's;
 * Flux-dev-1024 (the reference's Flux_Inpaint workflow): "simple", cfg 1
   (cfg_big forced to 1), `use_fused_kernels=True`: 115 MMDiT forwards, 76
   fused half-step and 95 fused finish launches.
@@ -18,8 +23,10 @@ exits non-zero without printing a result):
 
 1. device: nvidia-smi's name and power limit, torch and CUDA versions, the
    TF32 flags in force;
-2. build: nvcc builds the attention library from csrc/ while Triton
-   compiles the row norm and the fused think-step kernels; seconds for each;
+2. build: one nvcc per CUDA source in csrc/ (the D <= 128 and the
+   wide-head attention libraries) while Triton compiles the row norm and
+   the fused think-step kernels; seconds for each, and ptxas's register
+   and spill counts (the wide-head kernel must not spill);
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card at the main paths' shapes (plus ragged shapes), with each kernel's
    time and the plain version's: per launch including the host's launch
@@ -32,19 +39,30 @@ exits non-zero without printing a result):
    the same weights in fp32 on the CPU, beside the CPU's own bf16 plain
    path: one forward, and a 4-step LanPaint run with a shared think-noise
    feed;
-6. SDXL main path and 7. Flux main path: build, then LanPaintSampler twice
+6. SDXL main path and 8. Flux main path: build, then LanPaintSampler twice
    (for Flux the first run is a 2-step warm-up); the second run is timed
    and its kernel launches counted: the output is finite, the known region
    equals the latent, the repainted region moved, and every kernel ran
-   exactly its expected number of times.
+   exactly its expected number of times;
+7. pixel path (phase 6's UNet, the SDXL VAE): the VAE's encode and decode
+   timed alone, then one `api.inpaint_image` run, timed and counted: the
+   output is finite and (1, 3, 1024, 1024), every pixel farther than the
+   blend overlap from the mask equals the input bit for bit, the repainted
+   region moved, and every kernel ran exactly its expected number of times
+   (the wide-head attention twice);
+9. Flux VAE: one encode-decode round trip of FLUX_VAE_CONFIG (16 latent
+   channels, no quant convs) at 1024^2 through the wide-head kernel.
 
 Then, on lines of their own: the nvidia-smi line, one JSON line with the
 per-kernel numbers, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-In the kernels line, `launches` is the two timed runs' count, and `ms` /
+In the kernels line, `launches` is the three timed runs' count, and `ms` /
 `plain_ms` are the kernel's / plain version's per-launch times at each
-main-path shape times that shape's launches in the two timed runs, summed
+main-path shape times that shape's launches in the three timed runs, summed
 (each shape alone in `per_shape`, with its device time in us).
+
+To run some phases alone: python3 -c "import chip_smoke as c; smi =
+c.phase_device(); c.phase_build(); c.phase_pixel(smi)".
 
 It needs one CUDA card, the CUDA toolkit (nvcc) and triton; no network.
 """
@@ -61,40 +79,51 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from lanpaint_tpu_torch import LanPaintConfig, LanPaintSampler, ModelKind
+from lanpaint_tpu_torch import LanPaintConfig, LanPaintSampler, ModelKind, api, inpaint_image
 from lanpaint_tpu_torch.engine import lanpaint_update
-from lanpaint_tpu_torch.models import dit, unet, zoo
+from lanpaint_tpu_torch.models import dit, unet, vae, zoo
 from lanpaint_tpu_torch.ops import attention, fused, norms
 from lanpaint_tpu_torch.schedule import unify_times
 from lanpaint_tpu_torch.sigmas import calculate_sigmas
 
 STEPS, THINK, EARLY_STOP = 20, 5, 1
 PAIRS = (STEPS - EARLY_STOP) * (THINK + 1) + EARLY_STOP     # 115
-FORWARDS = {"sdxl": 2 * PAIRS, "flux": PAIRS}               # CFG 5 sequential / cfg 1
+FORWARDS = {"sdxl": 2 * PAIRS, "pixel": 2 * PAIRS, "flux": PAIRS}  # CFG 5 seq. / cfg 1
 PER_FORWARD = {  # kernel launches per model forward
     "sdxl": {"flash_attention": 70, "layernorm": 210, "rmsnorm": 0},
     # 19 double + 38 single blocks; adaLN norms 4 + 1 per block + 1 final;
     # QKNorm 4 per double block, 2 per single block
     "flux": {"flash_attention": 57, "layernorm": 115, "rmsnorm": 152},
 }
-PER_RUN = {  # fused launches per run: half on warm iterations, finish on every one
-    "sdxl": {"fused_half_step": 0, "fused_finish": 0},
+PER_FORWARD["pixel"] = PER_FORWARD["sdxl"]
+PER_RUN = {  # per run: fused half on warm iterations, finish on every one; the
+    # VAE's mid attention once in the encode and once in the decode
+    "sdxl": {"fused_half_step": 0, "fused_finish": 0, "wide_attention": 0},
+    "pixel": {"fused_half_step": 0, "fused_finish": 0, "wide_attention": 2},
     "flux": {"fused_half_step": (STEPS - EARLY_STOP) * (THINK - 1),
-             "fused_finish": (STEPS - EARLY_STOP) * THINK},
+             "fused_finish": (STEPS - EARLY_STOP) * THINK, "wide_attention": 0},
 }
+BLEND = 9  # MaskBlend overlap of the pixel path
 SPLASH = "lanpaint_tpu/models/layers.py:131 (_splash_kernel)"
 # (shape, calls per forward by path, TPU kernel it replaces)
 ATTN_SHAPES = [
-    ((1, 4096, 10, 64), {"sdxl": 10}, SPLASH),
-    ((1, 1024, 20, 64), {"sdxl": 60}, "lanpaint_tpu/models/layers.py:238 (flash_attention)"),
+    ((1, 4096, 10, 64), {"sdxl": 10, "pixel": 10}, SPLASH),
+    ((1, 1024, 20, 64), {"sdxl": 60, "pixel": 60},
+     "lanpaint_tpu/models/layers.py:238 (flash_attention)"),
     ((1, 4608, 24, 128), {"flux": 57}, SPLASH),
     ((2, 1000, 4, 64), {}, None),
+]
+# the VAE's mid attention (one head of 512): (shape, calls per run by path)
+WIDE_SHAPES = [
+    ((1, 16384, 1, 512), {"pixel": 2}),  # 1024^2: encode and decode
+    ((1, 4096, 1, 512), {}),             # 512^2
+    ((1, 4000, 1, 512), {}),             # a ragged S
 ]
 # (shape, mode, calls per forward by path); rmsnorm inputs are the strided
 # q/k views of a fused projection, as the DiT hands them over
 NORM_SHAPES = [
-    ((1, 4096, 640), "layernorm", {"sdxl": 30}),
-    ((1, 1024, 1280), "layernorm", {"sdxl": 180}),
+    ((1, 4096, 640), "layernorm", {"sdxl": 30, "pixel": 30}),
+    ((1, 1024, 1280), "layernorm", {"sdxl": 180, "pixel": 180}),
     ((1, 4096, 3072), "layernorm_na", {"flux": 39}),
     ((1, 512, 3072), "layernorm_na", {"flux": 38}),
     ((1, 4608, 3072), "layernorm_na", {"flux": 38}),
@@ -202,22 +231,28 @@ def _compile_triton():
 
 
 def phase_build() -> None:
-    """nvcc (a subprocess) and Triton's compiles run side by side."""
-    def nvcc():
+    """One nvcc (a subprocess) per CUDA source and Triton's compiles run side
+    by side.  The wide-head kernel must not spill (its ptxas log is read)."""
+    def nvcc(name):
         t0 = time.perf_counter()
-        lib = attention.build_library()
+        lib = attention.build_library(name)
         return lib, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(1) as pool:
-        nvcc_job = pool.submit(nvcc)
+    with ThreadPoolExecutor(len(attention.SOURCES)) as pool:
+        jobs = {name: pool.submit(nvcc, name) for name in attention.SOURCES}
         t_triton = _compile_triton()
-        lib, t_nvcc = nvcc_job.result()
-    attention._library()
-    ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
-    say(f"phase 2 build: nvcc {t_nvcc:.1f} s ({lib.name}); triton {t_triton:.1f} s "
-        f"(row norm x{len(NORM_SHAPES)} shapes, fused half + finish warm/cold), in parallel; "
-        f"ptxas: {' / '.join(ptxas)}")
+        built = {name: job.result() for name, job in jobs.items()}
+    for name, (lib, t_nvcc) in built.items():
+        attention._library(name)
+        ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text().splitlines()
+                 if "registers" in ln or "spill" in ln]
+        say(f"phase 2 build: nvcc {t_nvcc:.1f} s ({lib.name}); ptxas: {' / '.join(ptxas)}")
+        if name == "wide_attention" and any(
+                "spill" in ln and ("0 bytes spill stores" not in ln
+                                   or "0 bytes spill loads" not in ln) for ln in ptxas):
+            raise AssertionError("the wide-head attention kernel spills registers")
+    say(f"phase 2 build: triton {t_triton:.1f} s (row norm x{len(NORM_SHAPES)} shapes, fused "
+        "half + finish warm/cold), in parallel with nvcc")
 
 
 def _qkv_views(b, s, h, d, gen):
@@ -227,27 +262,30 @@ def _qkv_views(b, s, h, d, gen):
     return [t.unflatten(-1, (h, d)) for t in qkv.chunk(3, dim=-1)]
 
 
-def _kernel_attention(gen) -> list:
+def _kernel_attention(gen, kernel=attention.flash_attention, shapes=ATTN_SHAPES,
+                      **extra) -> list:
+    """Each shape through `kernel` against `attention_ref` in fp32, then
+    timed against `attention_ref` on the same bf16 inputs."""
     rows = []
-    for shape, calls, replaces in ATTN_SHAPES:
+    for shape, calls, *replaces in shapes:
         b, s, h, d = shape
         q, k, v = _qkv_views(b, s, h, d, gen)
-        if s == 1000:
+        if s % 8:  # a ragged S: contiguous inputs
             q, k, v = (t.contiguous() for t in (q, k, v))
-        out = attention.flash_attention(q, k, v)
+        out = kernel(q, k, v)
         torch.cuda.synchronize()
         want = attention.attention_ref(q.float(), k.float(), v.float())
         err = float((out.float() - want).abs().max())
         rel = rel_l2(out.float(), want)
+        del want
         ok = err <= ATTN_TOL["max_abs"] and rel <= ATTN_TOL["rel_l2"]
         if not ok:
-            raise AssertionError(f"attention {shape} disagrees with attention_ref: "
+            raise AssertionError(f"{kernel.__name__} {shape} disagrees with attention_ref: "
                                  f"max abs {err}, rel L2 {rel}, limits {ATTN_TOL}")
-        r = timed_row(lambda: attention.flash_attention(q, k, v),
-                      lambda: attention.attention_ref(q, k, v), err, calls, shape=shape,
-                      replaces=replaces)
-        say(f"phase 3 kernels: attention {shape} max_abs_err {err:.3g} rel_l2 {rel:.3g} "
-            f"{row_text(r)} ok")
+        r = timed_row(lambda: kernel(q, k, v), lambda: attention.attention_ref(q, k, v), err,
+                      calls, shape=shape, replaces=replaces[0] if replaces else None, **extra)
+        say(f"phase 3 kernels: {kernel.__name__} {shape} max_abs_err {err:.3g} rel_l2 "
+            f"{rel:.3g} {row_text(r)} ok")
         rows.append(r)
     return rows
 
@@ -419,9 +457,10 @@ def _kernel_fused(gen) -> tuple:
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     attn_rows = _kernel_attention(gen)
+    wide_rows = _kernel_attention(gen, attention.wide_attention, WIDE_SHAPES, per_run=True)
     norm_rows = _kernel_norms(gen)
     half_rows, finish_rows = _kernel_fused(gen)
-    return {"flash_attention": attn_rows, "row_norm": norm_rows,
+    return {"flash_attention": attn_rows, "wide_attention": wide_rows, "row_norm": norm_rows,
             "fused_half_step": half_rows, "fused_finish": finish_rows}
 
 
@@ -523,9 +562,20 @@ def phase_small_dit() -> None:
                              "or did not go through the kernels")
 
 
-COUNTERS = {"flash_attention": attention.flash_attention, "layernorm": norms.layernorm,
+COUNTERS = {"flash_attention": attention.flash_attention,
+            "wide_attention": attention.wide_attention, "layernorm": norms.layernorm,
             "rmsnorm": norms.rmsnorm, "fused_half_step": fused.fused_half_step,
             "fused_finish": fused.fused_finish}
+
+
+def _zero_counters() -> None:
+    for f in COUNTERS.values():
+        f.launches = 0
+
+
+def _want(path: str) -> dict:
+    """Every counter's expected launches in one timed run of `path`."""
+    return {**{k: n * FORWARDS[path] for k, n in PER_FORWARD[path].items()}, **PER_RUN[path]}
 
 
 def _main_path(label, path, smi, den, module, t_init, run, warmup, latent) -> dict:
@@ -535,8 +585,7 @@ def _main_path(label, path, smi, den, module, t_init, run, warmup, latent) -> di
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
 
-    for f in COUNTERS.values():
-        f.launches = 0
+    _zero_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -553,7 +602,7 @@ def _main_path(label, path, smi, den, module, t_init, run, warmup, latent) -> di
     known_err = float((samples - latent)[..., known].abs().max())
     moved = float((samples - latent)[..., ~known].abs().mean())
     fwd = FORWARDS[path]
-    want = {**{k: n * fwd for k, n in PER_FORWARD[path].items()}, **PER_RUN[path]}
+    want = _want(path)
     ok = (finite and samples.shape == latent.shape and known_err <= 1e-3 and moved > 1e-2
           and launches == want)
     say(f"{label}: {n_params / 1e9:.3f} B params bf16 (init {t_init:.1f} s), {fwd} forwards | "
@@ -572,22 +621,112 @@ def _mask_1024():
     return mask
 
 
-def phase_sdxl(smi: str) -> dict:
+def _build_sdxl():
     t0 = time.perf_counter()
     den, module = zoo.build_sdxl(device="cuda", param_dtype=torch.bfloat16, seed=0)
     torch.cuda.synchronize()
-    t_init = time.perf_counter() - t0
+    return den, module, time.perf_counter() - t0
+
+
+def _sdxl_conds(gen):
+    return tuple({"context": torch.randn((1, 77, 2048), device="cuda", generator=gen),
+                  "y": torch.randn((1, 2816), device="cuda", generator=gen)} for _ in range(2))
+
+
+def phase_sdxl(smi: str) -> tuple:
+    """Returns (launches, the SDXL Denoiser) so the pixel phase reuses it."""
+    den, module, t_init = _build_sdxl()
     gen = torch.Generator(device="cuda").manual_seed(0)
     latent = torch.randn((1, 4, 128, 128), device="cuda", generator=gen)
-    cond, uncond = ({"context": torch.randn((1, 77, 2048), device="cuda", generator=gen),
-                     "y": torch.randn((1, 2816), device="cuda", generator=gen)} for _ in range(2))
+    cond, uncond = _sdxl_conds(gen)
     sigmas = calculate_sigmas(den.sigma_table, "karras", STEPS)
     sam = LanPaintSampler(den, config=LanPaintConfig(n_steps=THINK, outer_early_stop=EARLY_STOP),
                           sampler_name="euler", cfg=5.0, sequential_cfg=True)
     run = lambda: sam(latent=latent, sigmas=sigmas, cond=cond, uncond=uncond,  # noqa: E731
                       mask=_mask_1024(), seed=0)
     return _main_path(f"phase 6 SDXL main path: euler karras {STEPS} x think {THINK}, cfg 5 "
-                      "sequential", "sdxl", smi, den, module, t_init, run, run, latent)
+                      "sequential", "sdxl", smi, den, module, t_init, run, run, latent), den
+
+
+def _vae_times(model, image) -> tuple:
+    """(encode ms, decode ms, the latent): median of 3 calls after one warm-up."""
+    with torch.no_grad():
+        latent = model.encode(image)
+        enc = median_ms(lambda: model.encode(image), n=3, warmup=1)
+        dec = median_ms(lambda: model.decode(latent), n=3, warmup=1)
+    return enc, dec, latent
+
+
+def phase_pixel(smi: str, den=None) -> dict:
+    """Pixel-space inpainting at 1024^2: `api.inpaint_image` with the SDXL
+    UNet (phase 6's, or a new one) and the SDXL VAE, random bf16 weights."""
+    if den is None:
+        den, _, _ = _build_sdxl()
+    t0 = time.perf_counter()
+    model = zoo.build_vae(vae.SDXL_VAE_CONFIG, device="cuda", param_dtype=torch.bfloat16, seed=1)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    image = torch.rand((1, 3, 1024, 1024), device="cuda", generator=gen) * 2.0 - 1.0
+    cond, uncond = _sdxl_conds(gen)
+    mask = _mask_1024()
+    enc_ms, dec_ms, latent = _vae_times(model, image)
+    if latent.shape != (1, 4, 128, 128) or not bool(torch.isfinite(latent).all()):
+        raise AssertionError(f"SDXL VAE encode gave {tuple(latent.shape)}, finite "
+                             f"{bool(torch.isfinite(latent).all())}")
+
+    _zero_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = inpaint_image(den, model, image=image, mask=mask, positive=cond, negative=uncond,
+                        seed=0, steps=STEPS, cfg=5.0, scheduler="karras", num_steps=THINK,
+                        sequential_cfg=True, blend_overlap=BLEND)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in COUNTERS.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    far = torch.ones((1024, 1024), dtype=torch.bool, device="cuda")
+    far[256 - BLEND:768 + BLEND, 256 - BLEND:768 + BLEND] = False
+    finite = bool(torch.isfinite(out).all())
+    kept = torch.equal(out[..., far], image[..., far])
+    moved = float((out - image)[..., mask > 0].abs().mean())
+    want = _want("pixel")
+    ok = (finite and tuple(out.shape) == (1, 3, 1024, 1024) and kept and moved > 1e-2
+          and launches == want)
+    say(f"phase 7 pixel path: inpaint_image, SDXL VAE ({n_params / 1e6:.1f} M params bf16, "
+        f"init {t_init:.1f} s) + SDXL euler karras {STEPS} x think {THINK}, cfg 5 sequential, "
+        f"blend {BLEND} | VAE encode {enc_ms:.2f} ms decode {dec_ms:.2f} ms (1024^2, median of "
+        f"3) | run {wall:.3f} s, peak {peak_gb:.1f} GB on {smi} | finite {finite} shape "
+        f"{tuple(out.shape)} beyond-blend pixels bit-equal {kept} repainted mean change "
+        f"{moved:.3g} | launches {launches} (want {want}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 7 pixel path check failed")
+    return launches
+
+
+def phase_flux_vae(smi: str) -> None:
+    """One encode-decode round trip of the Flux VAE at 1024^2."""
+    model = zoo.build_vae(vae.FLUX_VAE_CONFIG, device="cuda", param_dtype=torch.bfloat16, seed=4)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    image = torch.rand((1, 3, 1024, 1024), device="cuda", generator=gen) * 2.0 - 1.0
+    enc_ms, dec_ms, _ = _vae_times(model, image)
+    _zero_counters()
+    with torch.no_grad():
+        latent = model.encode(image)
+        out = model.decode(latent)
+    torch.cuda.synchronize()
+    wide = attention.wide_attention.launches
+    ok = (tuple(latent.shape) == (1, 16, 128, 128) and tuple(out.shape) == (1, 3, 1024, 1024)
+          and bool(torch.isfinite(latent).all()) and bool(torch.isfinite(out).all())
+          and wide == 2 and model.encoder.quant_conv is None)
+    say(f"phase 9 Flux VAE: encode {enc_ms:.2f} ms -> {tuple(latent.shape)}, decode "
+        f"{dec_ms:.2f} ms -> {tuple(out.shape)} (median of 3) on {smi} | finite | wide-head "
+        f"attention launches {wide} (want 2) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 9 Flux VAE round trip failed")
 
 
 def phase_flux(smi: str) -> dict:
@@ -610,7 +749,7 @@ def phase_flux(smi: str) -> dict:
         return sam(latent=latent, sigmas=calculate_sigmas(den.sigma_table, "simple", steps),
                    cond=cond, mask=_mask_1024(), seed=0)
 
-    return _main_path(f"phase 7 Flux main path: euler simple {STEPS} x think {THINK}, cfg 1, "
+    return _main_path(f"phase 8 Flux main path: euler simple {STEPS} x think {THINK}, cfg 1, "
                       "fused think step (warm-up: 2 steps)", "flux", smi, den, module, t_init,
                       run, lambda: run(2), latent)
 
@@ -623,6 +762,9 @@ def kernels_line(rows: dict, launches: dict) -> list:
         "flash_attention": ("cuda", "lanpaint_tpu_torch/csrc/attention.cu",
                             "lanpaint_tpu/models/layers.py:238; lanpaint_tpu/models/layers.py:131",
                             ("flash_attention",)),
+        "wide_attention": ("cuda", "lanpaint_tpu_torch/csrc/wide_attention.cu",
+                           "lanpaint_tpu/models/layers.py:131 (_splash_kernel) via "
+                           "lanpaint_tpu/models/vae.py:81", ("wide_attention",)),
         "row_norm": ("triton", "lanpaint_tpu_torch/ops/norms.py",
                      "lanpaint_tpu/ops/norms.py:93", ("layernorm", "rmsnorm")),
         "fused_half_step": ("triton", "lanpaint_tpu_torch/ops/fused.py",
@@ -631,11 +773,11 @@ def kernels_line(rows: dict, launches: dict) -> list:
                          "lanpaint_tpu/ops/fused.py:259", ("fused_finish",)),
     }
 
-    def run_launches(r):  # this shape's launches in the two timed runs
-        per_fwd = r["calls"]
-        if r.get("mode", "").startswith("fused"):
-            return sum(per_fwd.values())
-        return sum(n * FORWARDS[p] for p, n in per_fwd.items())
+    def run_launches(r):  # this shape's launches in the timed runs
+        calls = r["calls"]
+        if r.get("per_run") or (r.get("mode") or "").startswith("fused"):
+            return sum(calls.values())
+        return sum(n * FORWARDS[p] for p, n in calls.items())
 
     out = []
     for name, (route, source, replaces, counters) in meta.items():
@@ -665,10 +807,17 @@ def main() -> int:
     rows = phase_kernels()
     phase_small_unet()
     phase_small_dit()
-    launches = {"sdxl": phase_sdxl(smi)}
+    launches = {}
+    launches["sdxl"], den = phase_sdxl(smi)
+    launches["pixel"] = phase_pixel(smi, den)
+    del den
+    api._SAMPLER_CACHE.clear()  # ksampler's sampler cache holds the SDXL model
     gc.collect()
     torch.cuda.empty_cache()  # SDXL's weights go before Flux's 23.8 GB arrive
     launches["flux"] = phase_flux(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_flux_vae(smi)
     print(smi)
     print(json.dumps({"kernels": kernels_line(rows, launches)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

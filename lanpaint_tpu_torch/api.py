@@ -1,35 +1,48 @@
-"""User-facing sampling API, inpaint path.
+"""User-facing sampling API.
 
-PyTorch counterpart of `lanpaint_tpu/api.py` for the main path:
-`LanPaintSampler.__call__` with a mask, and `ksampler` (LanPaint_KSampler,
-reference nodes.py:298-349).  The JAX package compiles the whole run into
-one XLA program; here it is an eager loop on `latent`'s device: prep
-(initial noise, noise scaling, mask to the latent grid), the run-constant
-conditioning `precompute` once per call, the outer solver loop with the
-per-step think loop and CFG double pass, and the terminal inverse noise
+PyTorch counterpart of `lanpaint_tpu/api.py`, the equivalents of the
+reference's exported nodes (reference src/LanPaint/nodes.py:631-638):
+
+* `ksampler`               <-> LanPaint_KSampler (fixed defaults, nodes.py:298-349)
+* `ksampler_advanced`      <-> LanPaint_KSamplerAdvanced (nodes.py:350-413)
+* `sample_custom`          <-> LanPaint_SamplerCustom (nodes.py:491-556)
+* `sample_custom_advanced` <-> LanPaint_SamplerCustomAdvanced (nodes.py:558-626)
+* `masks.mask_blend`       <-> LanPaint_MaskBlend
+
+and the pixel-space workflows `inpaint_image` (VAEEncode -> LanPaint_KSampler
+-> VAEDecode -> LanPaint_MaskBlend) and `outpaint_image`.
+
+The JAX package compiles a run into one XLA program; here it is an eager
+loop on `latent`'s device: prep (initial noise, noise scaling, mask to the
+latent grid), the run-constant conditioning `precompute` once per call, the
+outer solver loop with the per-step think loop and CFG double pass (or,
+without a mask, the plain CFG denoise), and the terminal inverse noise
 scaling.
 
-Not ported yet (they raise): the mask-less plain path, `chunk_steps`,
-callbacks and `decoupled_noise`; `ksampler_advanced` and `sample_custom*`
-are absent.
+Not ported yet: every solver but euler (`samplers.get_solver` raises
+NotImplementedError naming it); `edit_image` (it needs Qwen-Image's
+reference tokens), `inpaint_video` (the video VAE) and the
+`LanPaintPipeline` of `pipeline.py` (text encoders and loaders) are absent.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import samplers
-from .config import LanPaintConfig
-from .engine import lanpaint_update
+from .config import LanPaintConfig, ModelKind
+from .engine import ThinkAux, lanpaint_update
 from .guidance import make_cfg_double_denoiser, resolve_cfg_big
-from .masks import prepare_mask
+from .masks import mask_blend, prepare_mask
 from .models.base import Denoiser
 from .schedule import inverse_noise_scaling, noise_scaling, unify_times
-from .sigmas import apply_denoise
+from .sigmas import apply_denoise, calculate_sigmas
 
 
 def _max_denoise(sigmas, sigma_table) -> bool:
@@ -38,6 +51,12 @@ def _max_denoise(sigmas, sigma_table) -> bool:
     s0 = float(sigmas[0])
     mx = float(sigma_table.sigma_max)
     return math.isclose(s0, mx, rel_tol=1e-5) or s0 > mx
+
+
+def _seed32(seed) -> int:
+    """The seed folded to its low 32 bits, as the JAX package's `_seed_arg`
+    does (so `seed + 1` for the decoupled think noise wraps at 2**32)."""
+    return int(seed) & 0xFFFFFFFF
 
 
 def _to_device(tree, device):
@@ -53,7 +72,17 @@ class LanPaintSampler:
 
     Hyperparameters are constructor arguments; latents, masks,
     conditioning and seeds are call arguments.  The run happens on the
-    device of `latent`; conditioning is moved there."""
+    device of `latent`; conditioning is moved there.
+
+    `denoise_mask_fn(sigma, mask) -> mask` reshapes the latent-grid mask per
+    outer step (`sigma` a 0-dim fp32 tensor on the latent's device).
+    `callback(i, denoised, x)` fires after each outer step with the global
+    step index.  With `return_aux` a call returns (samples, denoised, aux),
+    aux an `engine.ThinkAux` stacked over the outer steps (`steps_done` (N,)
+    int32, `trace` (N, n_max, 8)), None on the mask-less path; pair it with
+    `LanPaintConfig(record_trace=True)` to fill the trace rows when the
+    semantic stop is off.
+    """
 
     def __init__(
         self,
@@ -65,8 +94,11 @@ class LanPaintSampler:
         cfg_big: Optional[float] = None,
         prompt_mode: str = "Image First",
         disable_cfg1_optimization: bool = False,
+        denoise_mask_fn: Optional[Callable] = None,
+        callback: Optional[Callable] = None,
         pre_cfg_fns: Optional[list] = None,
         sequential_cfg: bool = False,
+        return_aux: bool = False,
     ):
         samplers.get_solver(sampler_name)  # unknown / unported names raise here
         self.model = model
@@ -77,9 +109,12 @@ class LanPaintSampler:
             cfg_big = resolve_cfg_big(prompt_mode, cfg, model.is_flux)
         self.cfg_big = float(cfg_big)
         self.disable_cfg1_optimization = disable_cfg1_optimization
+        self.denoise_mask_fn = denoise_mask_fn
+        self.callback = callback
         self.pre_cfg_fns = pre_cfg_fns
         # two B-sized model calls instead of one 2B-sized (same math)
         self.sequential_cfg = sequential_cfg
+        self.return_aux = return_aux
 
     def __call__(
         self,
@@ -92,28 +127,36 @@ class LanPaintSampler:
         seed: int = 0,
         noise=None,
         add_noise: bool = True,
+        decoupled_noise: bool = False,
         video: bool = False,
+        chunk_steps: Optional[int] = None,
         noise_feed=None,
     ):
-        """Run sampling.  Returns (samples, denoised_history).
+        """Run sampling.  Returns (samples, denoised_history), or with
+        `return_aux` (samples, denoised_history, aux).
 
-        `noise` overrides the seed-derived initial noise.  `noise_feed`
-        (parity/replay mode): (total_steps, n_max, 5, *latent.shape)
-        standard-normal draws the think loop consumes instead of the
-        generator, row per outer step (engine.lanpaint_update contract).
+        `noise` overrides the seed-derived initial noise.  `decoupled_noise`:
+        the think loop's replace-step noise comes from a second generator
+        seeded `seed + 1` (reference nodes.py:208-212) instead of being the
+        initial noise.  `chunk_steps`: run the ladder as segments of at most
+        that many outer steps; each carries the global step index, the
+        solver carry and the generator on, so the result equals one run.
+        `noise_feed` (parity/replay mode): (total_steps, n_max, 5,
+        *latent.shape) standard-normal draws the think loop consumes instead
+        of the generator, row per outer step (engine.lanpaint_update
+        contract).
 
         RNG order: one `torch.Generator` on the latent's device, seeded with
-        `seed`, draws the initial noise (unless `noise` is given or
-        add_noise is off), then serves every think loop in outer-step order
-        (engine.py documents its draws)."""
-        if mask is None:
-            raise NotImplementedError("the mask-less (plain) sampling path is not ported yet")
+        the seed's low 32 bits, draws the initial noise (unless `noise` is
+        given or add_noise is off), then serves every think loop in
+        outer-step order (engine.py documents its draws)."""
         latent = torch.as_tensor(latent)
         device = latent.device
         sig_host = np.asarray(sigmas, dtype=np.float32)
         kind = self.model.kind
         total = int(sig_host.shape[0]) - 1
-        gen = torch.Generator(device=device).manual_seed(int(seed) & 0xFFFFFFFF)
+        seed = _seed32(seed)
+        gen = torch.Generator(device=device).manual_seed(seed)
 
         if noise is not None:
             noise = torch.as_tensor(noise, device=device, dtype=torch.float32)
@@ -121,16 +164,20 @@ class LanPaintSampler:
             noise = torch.randn(latent.shape, generator=gen, dtype=torch.float32, device=device)
         else:
             noise = torch.zeros(latent.shape, dtype=torch.float32, device=device)
+        think_noise = noise
+        if decoupled_noise:
+            think_gen = torch.Generator(device=device).manual_seed((seed + 1) & 0xFFFFFFFF)
+            think_noise = torch.randn(latent.shape, generator=think_gen, dtype=torch.float32,
+                                      device=device)
         b = latent.shape[0]
         x_init = noise_scaling(
             kind, torch.full((b,), float(sig_host[0]), device=device), noise, latent,
             max_denoise=_max_denoise(sig_host, self.model.sigma_table))
+        sig_last = torch.as_tensor(sig_host[-1:], device=device)
         if total <= 0:
-            return (inverse_noise_scaling(kind, torch.as_tensor(sig_host[-1:], device=device),
-                                          x_init),
-                    x_init.new_zeros((0,) + tuple(x_init.shape)))
-        denoise_mask = prepare_mask(torch.as_tensor(mask, device=device), latent.shape, video)
-        latent_mask = 1.0 - (denoise_mask > 0.5).float()
+            out = (inverse_noise_scaling(kind, sig_last, x_init),
+                   x_init.new_zeros((0,) + tuple(x_init.shape)))
+            return out + (None,) if self.return_aux else out
 
         cond = _to_device(cond, device)
         uncond = None if uncond is None else _to_device(uncond, device)
@@ -142,26 +189,130 @@ class LanPaintSampler:
             self.model.apply, cond, uncond, self.cfg, self.cfg_big,
             self.disable_cfg1_optimization, self.pre_cfg_fns,
             sequential=self.sequential_cfg)
+
+        def host_times(sigma):
+            # unified times on the CPU from the host sigma: the engine decides
+            # its loop length there without a device sync
+            return unify_times(torch.full((b,), float(sigma), dtype=torch.float32), kind)
+
+        if mask is None:
+            def wrapped(x, sigma, step):
+                times = host_times(sigma)
+                t = times.flow_t if kind is ModelKind.FLOW else times.ve_sigma
+                out, _ = denoise(x, t.to(device))
+                return out, x
+        else:
+            wrapped = self._inpaint_step(
+                denoise, host_times, prepare_mask(torch.as_tensor(mask, device=device),
+                                                  latent.shape, video),
+                latent, think_noise, total, gen, noise_feed)
+
+        collect = self.return_aux and mask is not None
+        chunk = total if not chunk_steps else max(1, int(chunk_steps))
+        x, carry = x_init, samplers.init_carry(x_init)
+        den_parts, auxs = [], []
+        for start in range(0, total, chunk):
+            end = min(start + chunk, total)
+            x, den, carry = samplers.sample(
+                wrapped, x, sig_host[start:end + 1], sampler=self.sampler_name, generator=gen,
+                callback=self.callback, step_offset=start, carry_in=carry, return_carry=True,
+                collect_aux=collect)
+            if collect:
+                den, seg_auxs = den
+                auxs += seg_auxs
+            den_parts.append(den)
+        samples = inverse_noise_scaling(kind, sig_last, x)
+        den_all = den_parts[0] if len(den_parts) == 1 else torch.cat(den_parts)
+        if not self.return_aux:
+            return samples, den_all
+        aux = None
+        if collect:
+            aux = ThinkAux(steps_done=torch.tensor([a.steps_done for a in auxs],
+                                                   dtype=torch.int32),
+                           trace=torch.stack([a.trace for a in auxs]))
+        return samples, den_all, aux
+
+    def _inpaint_step(self, denoise, host_times, denoise_mask, latent, think_noise, total, gen,
+                      noise_feed):
+        """The solver's model function on the inpaint path: one
+        `lanpaint_update` (think loop, final denoise, known-region blend)."""
+        cfg_ = self.config
+        kind = self.model.kind
+        device = latent.device
         if noise_feed is not None:
             noise_feed = torch.as_tensor(noise_feed)
-        cfg_ = self.config
+        fixed_mask = (None if self.denoise_mask_fn is not None
+                      else 1.0 - (denoise_mask > 0.5).float())
 
         def wrapped(x, sigma, step):
-            # Unified times on the CPU from the host sigma: the engine decides
-            # its loop length there without a device sync.
-            times = unify_times(torch.full((b,), float(sigma), dtype=torch.float32), kind)
+            latent_mask = fixed_mask
+            if latent_mask is None:
+                dm = self.denoise_mask_fn(torch.tensor(float(sigma), device=device),
+                                          denoise_mask)
+                latent_mask = 1.0 - (dm > 0.5).float()
             # Outer early stop: zero think steps in the tail (nodes.py:177-183).
             n = 0 if total - step <= cfg_.outer_early_stop else cfg_.n_steps
-            out, x_new, _ = lanpaint_update(
-                denoise, x, latent_image=latent, noise=noise, latent_mask=latent_mask,
-                times=times, n_steps=n, config=cfg_, kind=kind, generator=gen,
+            out, x_new, aux = lanpaint_update(
+                denoise, x, latent_image=latent, noise=think_noise, latent_mask=latent_mask,
+                times=host_times(sigma), n_steps=n, config=cfg_, kind=kind, generator=gen,
                 noise_feed=None if noise_feed is None else noise_feed[step])
-            return out, x_new
+            return (out, x_new, aux) if self.return_aux else (out, x_new)
 
-        x, den_all = samplers.sample(wrapped, x_init, sig_host, sampler=self.sampler_name,
-                                     generator=gen)
-        samples = inverse_noise_scaling(kind, torch.as_tensor(sig_host[-1:], device=device), x)
-        return samples, den_all
+        return wrapped
+
+
+# ---------------------------------------------------------------------------
+# Node-equivalent convenience entry points
+
+
+_SAMPLER_CACHE: dict = {}
+
+
+def _cached_sampler(model: Denoiser, config: LanPaintConfig, sampler_name: str, cfg: float,
+                    prompt_mode: str, sequential_cfg: bool = False,
+                    with_callback: bool = False, return_aux: bool = False) -> LanPaintSampler:
+    """Memoize LanPaintSampler per (model, hyperparameters), least recently
+    used first out beyond 8 entries, keyed as the JAX package's: the model
+    object and its weights module (a swapped module is a new entry), the
+    config (its `distance_fn` by identity), the solver, cfg, prompt mode,
+    sequential CFG, and whether a callback or the aux is wired in.
+
+    with_callback=True wires a trampoline: callers set
+    `sam._cb_holder["cb"]` around the call, so per-request callbacks share
+    one entry."""
+    key = (id(model), id(model.module),
+           dataclasses.astuple(dataclasses.replace(config, distance_fn=None)),
+           config.distance_fn, sampler_name, float(cfg), prompt_mode, sequential_cfg,
+           with_callback, return_aux)
+    sam = _SAMPLER_CACHE.pop(key, None)
+    if sam is None:
+        holder: dict = {}
+        tramp = None
+        if with_callback:
+            def tramp(i, den, x, _h=holder):  # noqa: E306
+                cb = _h.get("cb")
+                if cb is not None:
+                    cb(i, den, x)
+        sam = LanPaintSampler(model, config=config, sampler_name=sampler_name, cfg=cfg,
+                              prompt_mode=prompt_mode, sequential_cfg=sequential_cfg,
+                              callback=tramp, return_aux=return_aux)
+        sam._cb_holder = holder
+    _SAMPLER_CACHE[key] = sam  # a hit moves to the most recent end
+    while len(_SAMPLER_CACHE) > 8:
+        _SAMPLER_CACHE.pop(next(iter(_SAMPLER_CACHE)))
+    return sam
+
+
+def _build_sigmas(model: Denoiser, scheduler: str, steps: int, denoise: float = 1.0):
+    if model.sigma_table is None:
+        raise ValueError("model has no sigma_table; pass explicit sigmas")
+    return apply_denoise(model.sigma_table, scheduler, steps, denoise)
+
+
+def _fill_trace(trace: dict, aux) -> None:
+    """Copy a ThinkAux into a user-supplied trace dict (host numpy)."""
+    trace["steps_done"] = None if aux is None else aux.steps_done.cpu().numpy()
+    trace["trace"] = None if aux is None else aux.trace.cpu().numpy()
 
 
 def ksampler(
@@ -180,19 +331,220 @@ def ksampler(
     num_steps: int = 5,
     prompt_mode: str = "Image First",
     video: bool = False,
+    chunk_steps: Optional[int] = None,
     sequential_cfg: bool = False,
     noise=None,
+    callback: Optional[Callable] = None,
+    trace: Optional[dict] = None,
 ):
     """LanPaint_KSampler equivalent with the reference defaults
     (StepSize=0.2, Lambda=16, Beta=1, Friction=15, EarlyStop=1; reference
-    nodes.py:329-336).  Returns the samples."""
-    if model.sigma_table is None:
-        raise ValueError("model has no sigma_table; pass explicit sigmas")
-    sam = LanPaintSampler(model, config=LanPaintConfig(n_steps=num_steps),
-                          sampler_name=sampler_name, cfg=cfg, prompt_mode=prompt_mode,
-                          sequential_cfg=sequential_cfg)
-    sigmas = apply_denoise(model.sigma_table, scheduler, steps, denoise)
-    samples, _ = sam(latent=latent, sigmas=sigmas, cond=positive, uncond=negative,
-                     mask=mask, seed=seed, video=video, noise=noise)
-    return samples
+    nodes.py:329-336).  Returns the samples.
 
+    `noise` overrides the seed-derived initial noise; `callback(i,
+    denoised, x)` fires after each outer step.  `trace`: pass a dict to
+    receive the think-loop diagnostics, "steps_done" ((steps,) int,
+    Langevin iterations spent per outer step) and "trace" ((steps, n_max,
+    8) rows [inner_step, dist, dist_inpaint, dist_ring, dist_drift,
+    threshold, patience, stopped]; the reference's
+    model_options["lanpaint_semantic_trace"], earlystop.py:315-334)."""
+    config = LanPaintConfig(n_steps=num_steps, record_trace=trace is not None)
+    sam = _cached_sampler(model, config, sampler_name, cfg, prompt_mode, sequential_cfg,
+                          with_callback=callback is not None, return_aux=trace is not None)
+    sigmas = _build_sigmas(model, scheduler, steps, denoise)
+    if callback is not None:
+        sam._cb_holder["cb"] = callback
+    try:
+        out = sam(latent=latent, sigmas=sigmas, cond=positive, uncond=negative, mask=mask,
+                  seed=seed, video=video, chunk_steps=chunk_steps, noise=noise)
+    finally:
+        if callback is not None:
+            sam._cb_holder["cb"] = None
+    if trace is not None:
+        _fill_trace(trace, out[2])
+    return out[0]
+
+
+def ksampler_advanced(
+    model: Denoiser,
+    *,
+    add_noise: bool = True,
+    noise_seed: int = 0,
+    steps: int = 30,
+    cfg: float = 5.0,
+    sampler_name: str = "euler",
+    scheduler: str = "karras",
+    positive: Any,
+    negative: Any = None,
+    latent,
+    mask=None,
+    start_at_step: int = 0,
+    end_at_step: int = 10000,
+    return_with_leftover_noise: bool = False,
+    num_steps: int = 5,
+    lamb: float = 16.0,
+    step_size: float = 0.2,
+    beta: float = 1.0,
+    friction: float = 15.0,
+    prompt_mode: str = "Image First",
+    early_stop: int = 1,
+    inner_threshold: float = 0.0,
+    inner_patience: int = 1,
+    video: bool = False,
+    chunk_steps: Optional[int] = None,
+    sequential_cfg: bool = False,
+    trace: Optional[dict] = None,
+):
+    """LanPaint_KSamplerAdvanced equivalent: the full hyperparameter surface
+    (reference nodes.py:350-413), steps [start_at_step, end_at_step) of the
+    scheduler's ladder; the last sigma is 0 unless
+    `return_with_leftover_noise`.  `trace`: see `ksampler`."""
+    config = LanPaintConfig(
+        n_steps=num_steps, lamb=lamb, step_size=step_size, beta=beta, friction=friction,
+        outer_early_stop=early_stop, inner_threshold=inner_threshold,
+        inner_patience=inner_patience, record_trace=trace is not None)
+    sigmas = np.asarray(calculate_sigmas(model.sigma_table, scheduler, steps))
+    sigmas = sigmas[start_at_step:min(end_at_step, steps) + 1].copy()
+    if len(sigmas) == 0:
+        return latent
+    if not return_with_leftover_noise:
+        sigmas[-1] = 0.0
+    sam = _cached_sampler(model, config, sampler_name, cfg, prompt_mode, sequential_cfg,
+                          return_aux=trace is not None)
+    out = sam(latent=latent, sigmas=sigmas, cond=positive, uncond=negative, mask=mask,
+              seed=noise_seed, add_noise=add_noise, video=video, chunk_steps=chunk_steps)
+    if trace is not None:
+        _fill_trace(trace, out[2])
+    return out[0]
+
+
+def _last_denoised(model: Denoiser, den_all):
+    denoised = den_all[-1]
+    if model.process_latent_out is not None:
+        denoised = model.process_latent_out(denoised)
+    return denoised
+
+
+def sample_custom(
+    model: Denoiser,
+    *,
+    add_noise: bool = True,
+    noise_seed: int = 0,
+    cfg: float = 8.0,
+    positive: Any,
+    negative: Any = None,
+    sampler_name: str = "euler",
+    sigmas,
+    latent,
+    mask=None,
+    num_steps: int = 5,
+    prompt_mode: str = "Image First",
+    video: bool = False,
+    chunk_steps: Optional[int] = None,
+    sequential_cfg: bool = False,
+):
+    """LanPaint_SamplerCustom equivalent: a caller-supplied sigma ladder;
+    returns (output, denoised_output) (reference nodes.py:491-556)."""
+    sam = _cached_sampler(model, LanPaintConfig(n_steps=num_steps), sampler_name, cfg,
+                          prompt_mode, sequential_cfg)
+    samples, den_all = sam(latent=latent, sigmas=sigmas, cond=positive, uncond=negative,
+                           mask=mask, seed=noise_seed, add_noise=add_noise, video=video,
+                           chunk_steps=chunk_steps)
+    return samples, _last_denoised(model, den_all)
+
+
+def sample_custom_advanced(
+    model: Denoiser,
+    *,
+    noise_seed: int = 0,
+    noise=None,
+    cfg: float = 8.0,
+    positive: Any,
+    negative: Any = None,
+    sampler_name: str = "euler",
+    sigmas,
+    latent,
+    mask=None,
+    num_steps: int = 5,
+    lamb: float = 16.0,
+    step_size: float = 0.2,
+    beta: float = 1.0,
+    friction: float = 15.0,
+    prompt_mode: str = "Image First",
+    early_stop: int = 1,
+    inner_threshold: float = 0.0,
+    inner_patience: int = 1,
+    video: bool = False,
+    chunk_steps: Optional[int] = None,
+    sequential_cfg: bool = False,
+):
+    """LanPaint_SamplerCustomAdvanced equivalent: the full hyperparameter
+    surface, a custom ladder and caller-supplied noise (reference
+    nodes.py:558-626); returns (output, denoised_output)."""
+    config = LanPaintConfig(
+        n_steps=num_steps, lamb=lamb, step_size=step_size, beta=beta, friction=friction,
+        outer_early_stop=early_stop, inner_threshold=inner_threshold,
+        inner_patience=inner_patience)
+    sam = _cached_sampler(model, config, sampler_name, cfg, prompt_mode, sequential_cfg)
+    samples, den_all = sam(latent=latent, sigmas=sigmas, cond=positive, uncond=negative,
+                           mask=mask, seed=noise_seed, noise=noise, video=video,
+                           chunk_steps=chunk_steps)
+    return samples, _last_denoised(model, den_all)
+
+
+@torch.no_grad()
+def inpaint_image(
+    model: Denoiser,
+    vae,
+    *,
+    image,
+    mask,
+    positive: Any,
+    negative: Any = None,
+    seed: int = 0,
+    steps: int = 30,
+    cfg: float = 5.0,
+    sampler_name: str = "euler",
+    scheduler: str = "karras",
+    num_steps: int = 5,
+    prompt_mode: str = "Image First",
+    blend_overlap: int = 9,
+    **sampler_kwargs,
+):
+    """Pixel-space inpainting: VAE encode -> LanPaint ksampler -> VAE decode
+    -> MaskBlend, the workflow the reference's example graphs run through
+    their host (e.g. example_workflows/SDXL_Inpaint.json), as one call.
+
+    `vae` is a `models.vae.VAE` (weights inside); `image` (B, 3, H, W) in
+    [-1, 1] with H and W multiples of 8; `mask` an (H, W) pixel mask, 1 =
+    repaint.  Returns (B, 3, H, W); where the dilated, feathered mask is 0
+    the result is `image` exactly."""
+    latent = vae.encode(image)
+    out_latent = ksampler(
+        model, seed=seed, steps=steps, cfg=cfg, sampler_name=sampler_name,
+        scheduler=scheduler, positive=positive, negative=negative, latent=latent, mask=mask,
+        num_steps=num_steps, prompt_mode=prompt_mode, **sampler_kwargs)
+    decoded = vae.decode(out_latent)
+    if blend_overlap <= 0:
+        return decoded
+    img_hwc = image.permute(0, 2, 3, 1)
+    dec_hwc = decoded.permute(0, 2, 3, 1).to(img_hwc.dtype)
+    m = torch.as_tensor(mask, dtype=torch.float32, device=image.device)
+    if m.ndim == 2:
+        m = m[None]
+    m = torch.broadcast_to(m, img_hwc.shape[:3])
+    return mask_blend(img_hwc, dec_hwc, m, blend_overlap=blend_overlap).permute(0, 3, 1, 2)
+
+
+def outpaint_image(model: Denoiser, vae, *, image, padding, positive: Any, **kw):
+    """Outpainting (reference Qwen_Image_Outpainting workflow): grow the
+    canvas by `padding` = (top, bottom, left, right) pixels (multiples of
+    the VAE stride), edge-replicate the source into the new border, mask
+    the border as the repaint region, and run `inpaint_image`.  Returns the
+    (B, 3, H+t+b, W+l+r) canvas."""
+    t, b, lft, r = padding
+    canvas = F.pad(torch.as_tensor(image).float(), (lft, r, t, b), mode="replicate")
+    hh, ww = canvas.shape[2], canvas.shape[3]
+    mask = torch.ones((hh, ww), dtype=torch.float32, device=canvas.device)
+    mask[t:hh - b, lft:ww - r] = 0.0
+    return inpaint_image(model, vae, image=canvas, mask=mask, positive=positive, **kw)

@@ -1,14 +1,16 @@
-"""Mask pipeline: pixel mask -> latent-grid mask.
+"""Mask pipeline: pixel mask -> latent-grid mask, and pixel-space blending.
 
 PyTorch counterpart of `lanpaint_tpu/masks.py` (reference
-src/LanPaint/nodes.py:20-84 `reshape_mask`/`prepare_mask`), with torch's
-`nearest-exact` interpolation written as an index gather (half-pixel
-centres) so latent masks binarize identically on every device.
+src/LanPaint/nodes.py:20-84 `reshape_mask`/`prepare_mask` and
+nodes.py:416-477 `MaskBlend`), with torch's `nearest-exact` interpolation
+written as an index gather (half-pixel centres) so latent masks binarize
+identically on every device.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def _nearest_exact_indices(out_size: int, in_size: int, device) -> torch.Tensor:
@@ -69,3 +71,55 @@ def reshape_mask(input_mask, output_shape, video: bool = False) -> torch.Tensor:
 
 def prepare_mask(noise_mask, shape, video: bool = False) -> torch.Tensor:
     return reshape_mask(noise_mask, shape, video).to(torch.float32)
+
+
+def gaussian_kernel(kernel_size: int, device=None) -> torch.Tensor:
+    """2D Gaussian kernel, sigma = (k-1)/4, normalized (nodes.py:463-477);
+    sigma is floored at 1e-6, so k = 1 gives the identity (the reference
+    divides by zero there)."""
+    sigma = max((kernel_size - 1) / 4.0, 1e-6)
+    coords = torch.arange(kernel_size, dtype=torch.float32, device=device) - kernel_size // 2
+    xg, yg = torch.meshgrid(coords, coords, indexing="ij")
+    k = torch.exp(-(xg**2 + yg**2) / (2 * sigma**2))
+    return k / torch.sum(k)
+
+
+def _max_pool2d(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Same-size, stride-1 max pool of (B, H, W) with padding k//2 (mask
+    dilation)."""
+    return F.max_pool2d(x[:, None], k, stride=1, padding=k // 2)[:, 0]
+
+
+def mask_blend(image1: torch.Tensor, image2: torch.Tensor, mask: torch.Tensor,
+               blend_overlap: int = 1) -> torch.Tensor:
+    """Pixel-space post blend: dilate the mask, Gaussian-feather it, lerp.
+
+    `image1`/`image2` are (B, H, W, C) images (before / after inpaint);
+    `mask` is (B, H, W), 1 = repainted.  Mirrors MaskBlend.blend_images
+    (nodes.py:436-461).  Where the feathered mask is 0 the result is
+    `image1` exactly."""
+    if image1.shape[1] != image2.shape[1] or image1.shape[2] != image2.shape[2]:
+        raise ValueError(
+            "Image size mismatch: both images must share dimensions (and be "
+            f"multiples of 8 for VAE decode); got {tuple(image1.shape)} vs "
+            f"{tuple(image2.shape)}")
+    m = _max_pool2d(mask.float(), blend_overlap)
+    k = gaussian_kernel(blend_overlap, device=m.device)[None, None]  # OIHW
+    # Not cuDNN: its FFT or Winograd algorithms may leave tiny non-zero
+    # values where the feathered mask must be exactly 0 (the pixels beyond
+    # the blend then equal image1 exactly); PyTorch's own convolution sums
+    # exact zero products there.
+    with torch.backends.cudnn.flags(enabled=False):
+        m = F.conv2d(m[:, None], k, padding=blend_overlap // 2)[:, 0]
+    m = m[..., None]
+    return image1 * (1.0 - m) + image2 * m
+
+
+def checkerboard_noise_mask(shape, scale: int = 2) -> torch.Tensor:
+    """Upscale helper: every `scale`-th pixel known (reference
+    LanPaint_UpSale_LatentNoiseMask, nodes.py:270-289; the reference keeps
+    the node disabled, this keeps it for component parity).  (B, 1, H, W)."""
+    b, _, h, w = shape
+    m = torch.ones((b, 1, h, w), dtype=torch.float32)
+    m[:, :, ::scale, ::scale] = 0.0
+    return m

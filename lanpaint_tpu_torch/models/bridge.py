@@ -1,9 +1,9 @@
-"""Weight bridge: the JAX package's flax UNet and MMDiT parameter trees ->
-this package's UNetModel / MMDiT state_dicts.
+"""Weight bridge: the JAX package's flax UNet, MMDiT, VAE and TAESD
+parameter trees -> this package's module state_dicts.
 
 The tree holds numpy arrays (e.g. `lanpaint_tpu.models.zoo.init_params_host`
 output or `jax.device_get` of device params); nothing here imports JAX.
-The mapping, the same for both families:
+The mapping, the same for every family:
 
 * dense kernels are (in, out); a torch Linear weight is (out, in);
 * conv kernels are HWIO; torch wants OIHW;
@@ -81,3 +81,4 @@ def params_from_flax(tree) -> dict:
 
 
 unet_params_from_flax = dit_params_from_flax = params_from_flax
+vae_params_from_flax = params_from_flax

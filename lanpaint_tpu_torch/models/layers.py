@@ -23,19 +23,22 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import attention_ref, flash_attention
+from ..ops.attention import WIDE_HEAD_DIMS, attention_ref, flash_attention, wide_attention
 from ..ops.norms import layernorm, rmsnorm
 
 
 def attention_bshd(q, k, v, scale: Optional[float] = None):
     """Multi-head attention on (B, S, H, D) tensors, routed by shape as the
     JAX package's `attention_bshd(impl="auto")` is: self-attention with
-    S >= 1024 and D % 64 == 0 goes to `flash_attention` (the kernel on
-    CUDA, which raises on a head dim it does not support), anything else to
-    `attention_ref`, where the JAX package leaves it to XLA."""
+    S >= 1024 and D % 64 == 0 goes to a kernel on CUDA — `wide_attention`
+    for D in WIDE_HEAD_DIMS (the VAE's mid attention, D = 512), else
+    `flash_attention` (which raises on a head dim it does not support) —
+    anything else to `attention_ref`, where the JAX package leaves it to
+    XLA."""
     s, d = q.shape[1], q.shape[3]
     if k.shape[1] == s and s >= 1024 and d % 64 == 0:
-        return flash_attention(q, k, v, scale)
+        kernel = wide_attention if d in WIDE_HEAD_DIMS else flash_attention
+        return kernel(q, k, v, scale)
     return attention_ref(q, k, v, scale)
 
 
@@ -79,15 +82,15 @@ class Conv2d(nn.Conv2d):
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, bias: bool = True):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
-                         padding=padding)
+                         padding=padding, bias=bias)
         self.compute_dtype = compute_dtype
 
     def forward(self, x):
         dt = self.compute_dtype
-        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
-                        self.stride, self.padding)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride, self.padding)
 
 
 class GroupNorm32(nn.GroupNorm):

@@ -1,10 +1,11 @@
 """Model zoo: packaged Denoisers (the eps-prediction UNets and the
-flow-matching MMDiTs for now).
+flow-matching MMDiTs for now) and the image VAEs.
 
 PyTorch counterpart of the UNet and MMDiT parts of
 `lanpaint_tpu/models/zoo.py`.  `build_unet` and `build_dit` return
-(Denoiser, module).  Without a state_dict the weights are random, drawn on
-the target device from a seeded generator with the rule of
+(Denoiser, module); `build_vae` returns the module.
+Without a state_dict the weights are random, drawn on the target device
+from a seeded generator with the rule of
 `lanpaint_tpu.models.zoo.init_params_host`: kernels N(0, 0.02^2), biases
 zero, norm scales one (the numbers differ from numpy's; carry a flax tree
 across with models/bridge.py for identical weights).
@@ -23,6 +24,7 @@ from .base import Denoiser
 from .dit import FLUX_DEV_CONFIG, FLUX_SCHNELL_CONFIG, TINY_DIT_CONFIG, DiTConfig, MMDiT
 from .layers import GroupNorm32, LayerNormF32, RMSNorm
 from .unet import SDXL_CONFIG, TINY_UNET_CONFIG, UNetConfig, UNetModel
+from .vae import SDXL_VAE_CONFIG, VAE, VAEConfig
 
 
 def _interp(x, xp, fp):
@@ -179,3 +181,14 @@ def build_flux_schnell(state_dict=None, **kw):
 
 def build_tiny_dit(state_dict=None, **kw):
     return build_dit(TINY_DIT_CONFIG, state_dict, is_flux=False, name="tiny-dit", **kw)
+
+
+# --------------------------------------------------------------------------
+# image autoencoders
+
+
+def build_vae(config: VAEConfig = SDXL_VAE_CONFIG, state_dict: Optional[dict] = None, *,
+              device="cpu", param_dtype: torch.dtype = torch.float32, seed: int = 0) -> VAE:
+    """The AutoencoderKL of `config` on `device` with `param_dtype`
+    parameters (random from `seed` without a state_dict), in eval mode."""
+    return _materialize(VAE, config, state_dict, device, param_dtype, seed)

@@ -77,20 +77,46 @@ def sample(
     *,
     sampler: str = "euler",
     generator: torch.Generator = None,
+    callback=None,
+    step_offset: int = 0,
+    carry_in: SolverCarry = None,
+    return_carry: bool = False,
+    collect_aux: bool = False,
 ):
     """Run the outer sampling loop.
 
     `noise_x` is the initial latent AFTER initial noise scaling (reference
     nodes.py:221); `sigmas` the host [steps+1] descending ladder.  Returns
     (samples, all_denoised) with all_denoised[i] the x0 prediction of step i.
+
+    `step_offset`: the global index of this ladder's first step when a run
+    is cut into segments (api.LanPaintSampler chunk_steps): the model and
+    `callback(i, denoised, x)` (after each step) see global indices.
+    `carry_in`/`return_carry`: the solver state threads from one segment to
+    the next (pass the previous segment's carry, with `noise_x` its output);
+    with `return_carry` the result is (samples, all_denoised, carry).
+    `collect_aux`: the model returns (denoised, x_new, aux) and the aux of
+    each step's first model call is kept; all_denoised becomes the pair
+    (denoised_stack, [aux per step]).
     """
     step_fn = get_solver(sampler)
     sigmas = np.asarray(sigmas, dtype=np.float32)
-    carry = init_carry(noise_x)
-    dens = []
+    carry = init_carry(noise_x) if carry_in is None else carry_in._replace(x=noise_x)
+    dens, auxs = [], []
     for i in range(sigmas.shape[0] - 1):
-        carry, den = step_fn(model, carry, sigmas[i], sigmas[i + 1], i, generator)
+        m = model
+        if collect_aux:
+            def m(x, s, step, _model=model):  # keeps the first call's aux
+                den, x_new, aux = _model(x, s, step)
+                if len(auxs) == i:
+                    auxs.append(aux)
+                return den, x_new
+        carry, den = step_fn(m, carry, sigmas[i], sigmas[i + 1], i + step_offset, generator)
+        if callback is not None:
+            callback(i + step_offset, den, carry.x)
         dens.append(den)
-    if not dens:
-        return carry.x, noise_x.new_zeros((0,) + tuple(noise_x.shape))
-    return carry.x, torch.stack(dens)
+    den_all = (torch.stack(dens) if dens
+               else noise_x.new_zeros((0,) + tuple(noise_x.shape)))
+    if collect_aux:
+        den_all = (den_all, auxs)
+    return (carry.x, den_all, carry) if return_carry else (carry.x, den_all)

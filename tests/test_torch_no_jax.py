@@ -1,8 +1,9 @@
 """The port imports without JAX: the machine with the card has none.
 
 In a fresh interpreter where `import jax` (and flax) fails, the package
-and its api, engine, UNet, DiT and kernel modules import, and nothing of
-the JAX package (or triton) gets loaded along the way.
+and every module of it (api, engine, masks, quality, utils, the UNet, DiT,
+VAE and TAESD models, the kernel wrappers) import, and nothing of the JAX
+package (or triton) gets loaded along the way.
 """
 
 import subprocess
@@ -18,14 +19,23 @@ sys.modules["flax"] = None
 import lanpaint_tpu_torch
 import lanpaint_tpu_torch.api
 import lanpaint_tpu_torch.engine
+import lanpaint_tpu_torch.masks
+import lanpaint_tpu_torch.quality
+import lanpaint_tpu_torch.utils
 import lanpaint_tpu_torch.models.dit
 import lanpaint_tpu_torch.models.layers
+import lanpaint_tpu_torch.models.taesd
 import lanpaint_tpu_torch.models.unet
+import lanpaint_tpu_torch.models.vae
 import lanpaint_tpu_torch.models.zoo
 import lanpaint_tpu_torch.models.bridge
 import lanpaint_tpu_torch.ops.attention
 import lanpaint_tpu_torch.ops.fused
 import lanpaint_tpu_torch.ops.norms
+import pkgutil
+mods = {m.name for m in pkgutil.walk_packages(lanpaint_tpu_torch.__path__, "lanpaint_tpu_torch.")}
+missing = sorted(m for m in mods if m not in sys.modules)
+assert not missing, f"modules this probe does not import: {missing}"
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "flax", "lanpaint_tpu", "triton")
                 and sys.modules[m] is not None)
