@@ -4,12 +4,14 @@ The PyTorch / CUDA port of `lanpaint_tpu`, module for module.  Plain tensor
 code is PyTorch; the TPU package's Pallas kernels are hand-written Hopper
 kernels (ops/attention.py with csrc/attention.cu and
 csrc/wide_attention.cu, ops/norms.py and ops/fused.py in Triton), built at
-first use.
+first use.  Builders and entry points run on the CUDA card unless the caller
+names another device.
 """
 
 from .api import (
     LanPaintSampler,
     inpaint_image,
+    inpaint_video,
     ksampler,
     ksampler_advanced,
     outpaint_image,
@@ -21,5 +23,5 @@ from .masks import mask_blend
 from .models.base import Denoiser
 
 __all__ = ["Denoiser", "LanPaintConfig", "LanPaintSampler", "ModelKind", "inpaint_image",
-           "ksampler", "ksampler_advanced", "mask_blend", "outpaint_image", "sample_custom",
-           "sample_custom_advanced"]
+           "inpaint_video", "ksampler", "ksampler_advanced", "mask_blend", "outpaint_image",
+           "sample_custom", "sample_custom_advanced"]

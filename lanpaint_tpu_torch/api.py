@@ -10,7 +10,8 @@ reference's exported nodes (reference src/LanPaint/nodes.py:631-638):
 * `masks.mask_blend`       <-> LanPaint_MaskBlend
 
 and the pixel-space workflows `inpaint_image` (VAEEncode -> LanPaint_KSampler
--> VAEDecode -> LanPaint_MaskBlend) and `outpaint_image`.
+-> VAEDecode -> LanPaint_MaskBlend), `outpaint_image` and `inpaint_video`
+(the same graph for video, through the Wan VAE).
 
 The JAX package compiles a run into one XLA program; here it is an eager
 loop on `latent`'s device: prep (initial noise, noise scaling, mask to the
@@ -21,8 +22,8 @@ scaling.
 
 Not ported yet: every solver but euler (`samplers.get_solver` raises
 NotImplementedError naming it); `edit_image` (it needs Qwen-Image's
-reference tokens), `inpaint_video` (the video VAE) and the
-`LanPaintPipeline` of `pipeline.py` (text encoders and loaders) are absent.
+reference tokens) and the `LanPaintPipeline` of `pipeline.py` (text
+encoders and loaders) are absent.
 """
 
 from __future__ import annotations
@@ -548,3 +549,52 @@ def outpaint_image(model: Denoiser, vae, *, image, padding, positive: Any, **kw)
     mask = torch.ones((hh, ww), dtype=torch.float32, device=canvas.device)
     mask[t:hh - b, lft:ww - r] = 0.0
     return inpaint_image(model, vae, image=canvas, mask=mask, positive=positive, **kw)
+
+
+@torch.no_grad()
+def inpaint_video(
+    model: Denoiser,
+    vae,
+    *,
+    video,
+    mask,
+    positive: Any,
+    negative: Any = None,
+    seed: int = 0,
+    steps: int = 20,
+    cfg: float = 5.0,
+    sampler_name: str = "euler",
+    scheduler: str = "simple",
+    num_steps: int = 2,
+    prompt_mode: str = "Image First",
+    blend_overlap: int = 9,
+    **sampler_kwargs,
+):
+    """Pixel-space video inpainting: Wan VAE encode -> LanPaint (the video
+    mask path) -> decode -> per-frame MaskBlend, the graph the reference's
+    video workflows run through their host (reference README.md:205-268).
+
+    `vae` is a `models.video_vae.WanVAE` (weights inside); `video` (B, 3, T,
+    H, W) in [-1, 1] with T = 1 + 4k and H, W multiples of the VAE's
+    spatial stride (8 for Wan2.1, 16 for Wan2.2); `mask` a (T, H, W) or
+    (H, W) pixel mask, 1 = repaint (a 2D mask applies to every frame).
+    Returns (B, 3, T, H, W); where the dilated, feathered mask is 0 the
+    result is `video` exactly."""
+    latent = vae.encode(video)
+    out_latent = ksampler(
+        model, seed=seed, steps=steps, cfg=cfg, sampler_name=sampler_name,
+        scheduler=scheduler, positive=positive, negative=negative, latent=latent, mask=mask,
+        num_steps=num_steps, prompt_mode=prompt_mode, video=True, **sampler_kwargs)
+    decoded = vae.decode(out_latent)
+    if blend_overlap <= 0:
+        return decoded
+    b, _, t, hh, ww = video.shape
+    m = torch.as_tensor(mask, dtype=torch.float32, device=video.device)
+    if m.ndim == 2:
+        m = m[None]
+    # fold the frames into the batch axis for the 2D blend
+    img_hwc = video.permute(0, 2, 3, 4, 1).reshape(b * t, hh, ww, 3)
+    dec_hwc = decoded.permute(0, 2, 3, 4, 1).reshape(b * t, hh, ww, 3).to(img_hwc.dtype)
+    mf = torch.broadcast_to(m, (b, t, hh, ww)).reshape(b * t, hh, ww)
+    blended = mask_blend(img_hwc, dec_hwc, mf, blend_overlap=blend_overlap)
+    return blended.reshape(b, t, hh, ww, 3).permute(0, 4, 1, 2, 3)

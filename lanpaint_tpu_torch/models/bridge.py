@@ -1,20 +1,23 @@
-"""Weight bridge: the JAX package's flax UNet, MMDiT, VAE and TAESD
-parameter trees -> this package's module state_dicts.
+"""Weight bridge: the JAX package's flax UNet, MMDiT, Wan, VAE, Wan VAE and
+TAESD parameter trees -> this package's module state_dicts.
 
 The tree holds numpy arrays (e.g. `lanpaint_tpu.models.zoo.init_params_host`
 output or `jax.device_get` of device params); nothing here imports JAX.
 The mapping, the same for every family:
 
 * dense kernels are (in, out); a torch Linear weight is (out, in);
-* conv kernels are HWIO; torch wants OIHW;
+* conv kernels are HWIO (2D) or DHWIO (3D); torch wants OIHW / OIDHW;
 * `nn.scan` stacks every scanned block's parameters along a leading depth
   axis under `<stack>/block/...` (the UNet's `<transformer>/blocks/block`,
-  the MMDiT's `double/block` and `single/block`); they are unstacked into
-  `<stack>.<i>....`;
+  the MMDiT's `double/block` and `single/block`, the Wan DiT's
+  `blocks/block`, its per-block `modulation` included); they are unstacked
+  into `<stack>.<i>....`;
 * norm `scale` becomes `weight`; the GroupNorm32 wrapper's inner
   `GroupNorm_0` level disappears;
 * the fused `to_qkv` (c, 3c) kernel keeps its q|k|v column order, and the
-  stacked `kv_cross` (depth, context_dim, 2c) parameter is taken as is.
+  stacked `kv_cross` (depth, context_dim, 2c) parameter is taken as is, as
+  are every other leaf the rule above does not name (the Wan VAE's RMS
+  `gamma`, the Wan DiT's `modulation` and `head_modulation`).
 """
 
 from __future__ import annotations
@@ -46,7 +49,9 @@ def _entry(path, arr):
     if mods and mods[-1].startswith("GroupNorm_"):
         mods = mods[:-1]
     if leaf == "kernel":
-        if arr.ndim == 4:
+        if arr.ndim == 5:
+            arr = np.transpose(arr, (4, 3, 0, 1, 2))  # DHWIO -> OIDHW
+        elif arr.ndim == 4:
             arr = np.transpose(arr, (3, 2, 0, 1))  # HWIO -> OIHW
         elif arr.ndim == 2:
             arr = arr.T
@@ -75,10 +80,10 @@ def flax_entries(tree):
 
 
 def params_from_flax(tree) -> dict:
-    """Map a flax UNet or MMDiT parameter tree onto the port module's
-    `state_dict()` keys, as torch tensors."""
+    """Map a flax UNet, MMDiT, Wan, VAE or Wan VAE parameter tree onto the
+    port module's `state_dict()` keys, as torch tensors."""
     return {key: _to_tensor(arr) for key, arr in flax_entries(tree)}
 
 
-unet_params_from_flax = dit_params_from_flax = params_from_flax
-vae_params_from_flax = params_from_flax
+unet_params_from_flax = dit_params_from_flax = wan_params_from_flax = params_from_flax
+vae_params_from_flax = wan_vae_params_from_flax = params_from_flax

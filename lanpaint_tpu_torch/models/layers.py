@@ -31,7 +31,7 @@ def attention_bshd(q, k, v, scale: Optional[float] = None):
     """Multi-head attention on (B, S, H, D) tensors, routed by shape as the
     JAX package's `attention_bshd(impl="auto")` is: self-attention with
     S >= 1024 and D % 64 == 0 goes to a kernel on CUDA — `wide_attention`
-    for D in WIDE_HEAD_DIMS (the VAE's mid attention, D = 512), else
+    for D in WIDE_HEAD_DIMS (the VAEs' mid attention, D = 384, 512, 640), else
     `flash_attention` (which raises on a head dim it does not support) —
     anything else to `attention_ref`, where the JAX package leaves it to
     XLA."""

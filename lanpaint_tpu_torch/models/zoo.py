@@ -1,9 +1,12 @@
-"""Model zoo: packaged Denoisers (the eps-prediction UNets and the
-flow-matching MMDiTs for now) and the image VAEs.
+"""Model zoo: packaged Denoisers (the eps-prediction UNets, the
+flow-matching MMDiTs and the Wan video DiTs for now) and the image and
+video VAEs.
 
-PyTorch counterpart of the UNet and MMDiT parts of
-`lanpaint_tpu/models/zoo.py`.  `build_unet` and `build_dit` return
-(Denoiser, module); `build_vae` returns the module.
+PyTorch counterpart of the UNet, MMDiT and Wan parts of
+`lanpaint_tpu/models/zoo.py`.  `build_unet`, `build_dit` and `build_wan`
+return (Denoiser, module); `build_vae` and `build_wan_vae` return the
+module.  Every builder builds on the CUDA card unless `device` names
+another (`utils.resolve_device`).
 Without a state_dict the weights are random, drawn on the target device
 from a seeded generator with the rule of
 `lanpaint_tpu.models.zoo.init_params_host`: kernels N(0, 0.02^2), biases
@@ -20,11 +23,14 @@ import torch
 from ..config import ModelKind
 from ..schedule import bcast_to
 from ..sigmas import EpsSigmaTable, FlowSigmaTable
+from ..utils import resolve_device
 from .base import Denoiser
 from .dit import FLUX_DEV_CONFIG, FLUX_SCHNELL_CONFIG, TINY_DIT_CONFIG, DiTConfig, MMDiT
 from .layers import GroupNorm32, LayerNormF32, RMSNorm
 from .unet import SDXL_CONFIG, TINY_UNET_CONFIG, UNetConfig, UNetModel
 from .vae import SDXL_VAE_CONFIG, VAE, VAEConfig
+from .video_vae import WAN22_VAE_CONFIG, RMSNorm3d, WanVAE, WanVAEConfig
+from .wan import TINY_WAN_CONFIG, WanConfig, WanModel, _WanQKNorm
 
 
 def _interp(x, xp, fp):
@@ -46,7 +52,7 @@ def init_params_(module: torch.nn.Module, seed: int = 0, scale: float = 0.02):
     device = next(module.parameters()).device
     gen = torch.Generator(device=device).manual_seed(seed)
     for mod in module.modules():
-        is_norm = isinstance(mod, (GroupNorm32, LayerNormF32, RMSNorm))
+        is_norm = isinstance(mod, (GroupNorm32, LayerNormF32, RMSNorm, RMSNorm3d, _WanQKNorm))
         for pname, p in mod.named_parameters(recurse=False):
             if pname == "bias":
                 p.zero_()
@@ -74,12 +80,14 @@ def build_unet(
     config: UNetConfig,
     state_dict: Optional[dict] = None,
     *,
-    device="cpu",
+    device=None,
     param_dtype: torch.dtype = torch.float32,
     seed: int = 0,
     name: str = "unet",
 ):
-    """Build the UNet Denoiser on `device` with `param_dtype` parameters."""
+    """Build the UNet Denoiser on `device` (the CUDA card when None) with
+    `param_dtype` parameters."""
+    device = resolve_device(device)
     module = _materialize(UNetModel, config, state_dict, device, param_dtype, seed)
 
     table = EpsSigmaTable()
@@ -143,17 +151,18 @@ def build_dit(
     *,
     shift: float = 1.0,
     is_flux: bool = True,
-    device="cpu",
+    device=None,
     param_dtype: torch.dtype = torch.float32,
     seed: int = 0,
     name: str = "dit",
 ):
-    """Build the MMDiT Denoiser on `device` with `param_dtype` parameters.
+    """Build the MMDiT Denoiser on `device` (the CUDA card when None) with
+    `param_dtype` parameters.
 
     The model predicts the flow velocity v = noise - x0, so x0 = x - t * v.
     `cond` is {"context", "vec", "guidance", "ref_tokens"} (all but the
     context optional)."""
-    module = _materialize(MMDiT, config, state_dict, device, param_dtype, seed)
+    module = _materialize(MMDiT, config, state_dict, resolve_device(device), param_dtype, seed)
 
     @torch.no_grad()
     def apply(x, t, cond):
@@ -188,7 +197,65 @@ def build_tiny_dit(state_dict=None, **kw):
 
 
 def build_vae(config: VAEConfig = SDXL_VAE_CONFIG, state_dict: Optional[dict] = None, *,
-              device="cpu", param_dtype: torch.dtype = torch.float32, seed: int = 0) -> VAE:
-    """The AutoencoderKL of `config` on `device` with `param_dtype`
-    parameters (random from `seed` without a state_dict), in eval mode."""
-    return _materialize(VAE, config, state_dict, device, param_dtype, seed)
+              device=None, param_dtype: torch.dtype = torch.float32, seed: int = 0) -> VAE:
+    """The AutoencoderKL of `config` on `device` (the CUDA card when None)
+    with `param_dtype` parameters (random from `seed` without a
+    state_dict), in eval mode."""
+    return _materialize(VAE, config, state_dict, resolve_device(device), param_dtype, seed)
+
+
+# --------------------------------------------------------------------------
+# Wan2.2 video DiT
+
+
+def build_wan(
+    config: WanConfig,
+    state_dict: Optional[dict] = None,
+    *,
+    shift: float = 5.0,
+    device=None,
+    param_dtype: torch.dtype = torch.float32,
+    seed: int = 0,
+    name: str = "wan",
+):
+    """Build the Wan Denoiser on `device` (the CUDA card when None) with
+    `param_dtype` parameters.
+
+    The model predicts the flow velocity, so x0 = x - t * v, on the
+    `FlowSigmaTable(shift)` ladder.  `cond` is {"context"} (T5 features);
+    the `precompute` hook adds "kv_cache", every block's cross-attention
+    k/v, once per sampler call (`WanModel.precompute_kv`)."""
+    module = _materialize(WanModel, config, state_dict, resolve_device(device), param_dtype,
+                          seed)
+
+    @torch.no_grad()
+    def apply(x, t, cond):
+        is_dict = isinstance(cond, dict)
+        ctx = cond["context"] if is_dict else cond
+        kvc = cond.get("kv_cache") if is_dict else None
+        vel = module(x, t, ctx, kv_cache=kvc)
+        return x - bcast_to(t, x.ndim) * vel
+
+    @torch.no_grad()
+    def precompute(cond):
+        if not isinstance(cond, dict) or "context" not in cond:
+            return cond
+        return dict(cond, kv_cache=module.precompute_kv(cond["context"]))
+
+    den = Denoiser(apply=apply, kind=ModelKind.FLOW, sigma_table=FlowSigmaTable(shift=shift),
+                   name=name, latent_channels=config.in_channels, module=module,
+                   precompute=precompute)
+    return den, module
+
+
+def build_tiny_wan(state_dict=None, **kw):
+    return build_wan(TINY_WAN_CONFIG, state_dict, name="tiny-wan", **kw)
+
+
+def build_wan_vae(config: WanVAEConfig = WAN22_VAE_CONFIG, state_dict: Optional[dict] = None, *,
+                  device=None, param_dtype: torch.dtype = torch.float32,
+                  seed: int = 0) -> WanVAE:
+    """The Wan video VAE of `config` on `device` (the CUDA card when None)
+    with `param_dtype` parameters (random from `seed` without a
+    state_dict), in eval mode."""
+    return _materialize(WanVAE, config, state_dict, resolve_device(device), param_dtype, seed)

@@ -22,12 +22,13 @@ S=4096, H=10 on an NVIDIA H100 80GB HBM3 at 700 W); TMA, wgmma and a
 pipelined K/V ring are the levers left.
 
 Head dims above 128 take `wide_attention` (`csrc/wide_attention.cu`):
-the VAE's mid attention, one head of D = 512 (`lanpaint_tpu/models/vae.py:81`,
-where the TPU path reaches the splash kernel).  The D <= 128 design keeps a
-warp's whole output row block in registers, 256 of them a thread at D =
-512, so that kernel splits the output's D across the 16 warps of a block
-instead and sums the warps' partial scores in shared memory (its source
-says how).
+the VAEs' mid attention, one head of D = 512 in the image VAE
+(`lanpaint_tpu/models/vae.py:81`) and of D = 384 / 640 in the Wan2.1 /
+Wan2.2 video VAEs (`lanpaint_tpu/models/video_vae.py:159`), where the TPU
+path reaches the splash kernel.  The D <= 128 design keeps a warp's whole
+output row block in registers, 256 of them a thread at D = 512, so that
+kernel splits the output's D across warps in slices of 128 columns instead
+and sums the warps' partial scores in shared memory (its source says how).
 
 Each source is built with nvcc into its own library at first use, into
 `lanpaint_tpu_torch/_build/` (ignored by git), keyed by a hash of the
@@ -56,7 +57,7 @@ BUILD_DIR = _PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SUPPORTED_HEAD_DIMS = (64, 128)
-WIDE_HEAD_DIMS = (512,)
+WIDE_HEAD_DIMS = (384, 512, 640)
 
 _LIBS: dict = {}
 

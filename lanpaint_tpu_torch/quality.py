@@ -27,6 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .utils import resolve_device
+
 # LPIPS input scaling (Zhang et al.'s implementation): images in [-1, 1]
 # are shifted and scaled per channel before VGG.
 _LPIPS_SHIFT = (-0.030, -0.088, -0.188)
@@ -144,13 +146,24 @@ def _unit_normalize(f, eps=1e-10):
     return f / (torch.sqrt(torch.sum(f**2, dim=1, keepdim=True)) + eps)
 
 
+def _on_device(x, device):
+    """`x` as fp32 on `device`, the LPIPS weights' device.  A tensor on
+    another device raises: it is not moved, so the network never runs
+    anywhere but where its weights were built."""
+    if isinstance(x, torch.Tensor) and x.device != device:
+        raise ValueError(f"LPIPS weights are on {device} but an image is on {x.device}: "
+                         "build or load them with device= the images' device")
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
 def lpips_maps(params: LPIPS, a, b) -> Sequence[torch.Tensor]:
-    """Per-stage (B, 1, H_s, W_s) LPIPS distance maps for images in [-1, 1]."""
+    """Per-stage (B, 1, H_s, W_s) LPIPS distance maps for images in [-1, 1],
+    on the LPIPS weights' device (a tensor on another device raises)."""
     device = next(params.parameters()).device
     shift = torch.tensor(_LPIPS_SHIFT, device=device)[None, :, None, None]
     scale = torch.tensor(_LPIPS_SCALE, device=device)[None, :, None, None]
-    xa = (torch.as_tensor(a, dtype=torch.float32, device=device) - shift) / scale
-    xb = (torch.as_tensor(b, dtype=torch.float32, device=device) - shift) / scale
+    xa = (_on_device(a, device) - shift) / scale
+    xb = (_on_device(b, device) - shift) / scale
     maps = []
     for i, (u, v) in enumerate(zip(params.features(xa), params.features(xb))):
         d = (_unit_normalize(u) - _unit_normalize(v)) ** 2
@@ -194,11 +207,13 @@ def lpips(params: LPIPS, a, b, mask=None):
 
 
 @torch.no_grad()
-def init_lpips_params(generator: Optional[torch.Generator] = None, device="cpu") -> LPIPS:
+def init_lpips_params(generator: Optional[torch.Generator] = None, device=None) -> LPIPS:
     """The LPIPS structure with random weights (offline tests; a real
     evaluation needs `load_lpips_params`): kernels N(0, 1) * 2/sqrt(9 C_in),
-    biases zero, stage weights uniform in [0, 2/C)."""
-    mod = LPIPS().to(device)
+    biases zero, stage weights uniform in [0, 2/C).  On the CUDA card
+    unless `device` names another (`utils.resolve_device`); `generator`
+    must live on that device."""
+    mod = LPIPS().to(resolve_device(device))
     for conv in mod.vgg.values():
         cin = conv.in_channels
         conv.weight.normal_(0.0, 1.0, generator=generator).mul_(2.0 / np.sqrt(9 * cin))
@@ -208,14 +223,16 @@ def init_lpips_params(generator: Optional[torch.Generator] = None, device="cpu")
     return mod.eval().requires_grad_(False)
 
 
-def load_lpips_params(vgg_pth: str, lpips_pth: Optional[str] = None) -> LPIPS:
-    """LPIPS weights from torch checkpoints, on the CPU.
+def load_lpips_params(vgg_pth: str, lpips_pth: Optional[str] = None, device=None) -> LPIPS:
+    """LPIPS weights from torch checkpoints, on the CUDA card unless
+    `device` names another (`utils.resolve_device`).
 
     `vgg_pth`: the torchvision VGG16 state dict (vgg16-397923af.pth), keys
     `features.{idx}.weight/bias` with idx the Sequential position.
     `lpips_pth`: the official LPIPS v0.1 VGG calibration (`vgg.pth`), keys
     `lin{i}.model.1.weight` of shape (1, C, 1, 1).  Without it the stage
     weights are uniform 1/C (an uncalibrated perceptual distance)."""
+    device = resolve_device(device)
     sd = torch.load(vgg_pth, map_location="cpu", weights_only=True)
     state = {}
     for i, idx in enumerate(_TORCHVISION_CONV_IDX):
@@ -228,7 +245,7 @@ def load_lpips_params(vgg_pth: str, lpips_pth: Optional[str] = None) -> LPIPS:
                                 else torch.full((ch,), 1.0 / ch))
     mod = LPIPS()
     mod.load_state_dict(state)
-    return mod.eval().requires_grad_(False)
+    return mod.to(device).eval().requires_grad_(False)
 
 
 def quality_report(original, inpainted, mask, lpips_params: Optional[LPIPS] = None) -> dict:

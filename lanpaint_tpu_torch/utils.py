@@ -5,7 +5,8 @@ in place of `jax.profiler`), weight persistence (a state dict with
 `torch.save` / `torch.load` in place of orbax; the content is the same
 parameters), and the preview-callback throttle (the reference's TAESD
 preview callback, nodes.py:188-196; pair with `models.taesd.TAESDDecoder`
-and `LanPaintSampler(callback=...)`).
+and `LanPaintSampler(callback=...)`).  `resolve_device` is the device rule
+of every builder: the CUDA card unless the caller names another.
 """
 
 from __future__ import annotations
@@ -15,6 +16,18 @@ import os
 from typing import Callable
 
 import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device`, or the CUDA card when it is None.  Without a card a build
+    that names no device raises: it does not carry on on the CPU (the CPU
+    tests pass device="cpu")."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port builds on the card unless the caller "
+                           "asks for another device (pass device=\"cpu\" for the CPU)")
+    return torch.device("cuda")
 
 
 @contextlib.contextmanager

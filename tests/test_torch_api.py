@@ -7,8 +7,9 @@ tiny UNet in fp32.
 Same numbers on both sides: explicit initial noise and the think loop's
 `noise_feed` where the entry point takes them; elsewhere the
 `shared_normals` fixture replaces both packages' standard-normal draws by
-one function of the shape (the think loop's (5, *shape) draw becomes five
-copies of the shape's draw, as the JAX engine's five draws then are).
+one function of the shape (the think loop's (5, *shape) draw, 5D for an
+image latent and 6D for a video latent, becomes five copies of the shape's
+draw, as the JAX engine's five draws then are).
 
 Tolerance: 1e-4 relative to the largest value of each compared tensor, as
 tests/test_torch_unet.py's slice test (the random eps-UNet's history
@@ -45,7 +46,7 @@ def shared_normals(monkeypatch):
 
     def t_randn(*size, generator=None, dtype=None, device=None, **kw):
         shape = tuple(size[0]) if len(size) == 1 and not isinstance(size[0], int) else size
-        arr = (np.stack([_normal(shape[1:])] * 5) if len(shape) == 5 and shape[0] == 5
+        arr = (np.stack([_normal(shape[1:])] * 5) if len(shape) >= 5 and shape[0] == 5
                else _normal(shape))
         return torch.from_numpy(arr).to(device=device or "cpu", dtype=dtype or torch.float32)
 
@@ -63,7 +64,7 @@ def models():
     _, params = jzoo.build_unet(jcfg)
     tree = _random_tree(params, seed=7)
     jden, _ = jzoo.build_unet(jcfg, tree)
-    tden, _ = tzoo.build_unet(tcfg, unet_params_from_flax(tree))
+    tden, _ = tzoo.build_unet(tcfg, unet_params_from_flax(tree), device="cpu")
     return jden, tden
 
 

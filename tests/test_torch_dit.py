@@ -178,7 +178,7 @@ def test_slice_through_sampler_matches_jax(fused):
     path (its plain versions on the CPU)."""
     jcfg, tcfg, tree, _ = _tiny_pair("tiny", seed=9)
     jden, _ = jzoo.build_dit(jcfg, tree, is_flux=True)
-    tden, _ = tzoo.build_dit(tcfg, dit_params_from_flax(tree), is_flux=True)
+    tden, _ = tzoo.build_dit(tcfg, dit_params_from_flax(tree), is_flux=True, device="cpu")
     rng = np.random.default_rng(13)
     shape = (1, 4, 16, 16)
     latent = rng.standard_normal(shape).astype(np.float32)

@@ -2,7 +2,7 @@
 
 In a fresh interpreter where `import jax` (and flax) fails, the package
 and every module of it (api, engine, masks, quality, utils, the UNet, DiT,
-VAE and TAESD models, the kernel wrappers) import, and nothing of the JAX
+Wan, VAE, Wan VAE and TAESD models, the kernel wrappers) import, and nothing of the JAX
 package (or triton) gets loaded along the way.
 """
 
@@ -27,6 +27,8 @@ import lanpaint_tpu_torch.models.layers
 import lanpaint_tpu_torch.models.taesd
 import lanpaint_tpu_torch.models.unet
 import lanpaint_tpu_torch.models.vae
+import lanpaint_tpu_torch.models.video_vae
+import lanpaint_tpu_torch.models.wan
 import lanpaint_tpu_torch.models.zoo
 import lanpaint_tpu_torch.models.bridge
 import lanpaint_tpu_torch.ops.attention

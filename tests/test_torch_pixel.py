@@ -37,12 +37,12 @@ def pipeline():
     _, params = jzoo.build_unet(jcfg)
     tree = unet_tree(params, seed=7)
     jden, _ = jzoo.build_unet(jcfg, tree)
-    tden, _ = tzoo.build_unet(tcfg, unet_params_from_flax(tree))
+    tden, _ = tzoo.build_unet(tcfg, unet_params_from_flax(tree), device="cpu")
     jvcfg = dataclasses.replace(jvae.TINY_VAE_CONFIG, dtype=jnp.float32)
     jv = jvae.VAE(jvcfg)
     vtree = vae_tree(jax.jit(jv.init)(jax.random.PRNGKey(0), jnp.zeros((1, 3, 32, 32))), 3)
     tv = tzoo.build_vae(dataclasses.replace(tvae.TINY_VAE_CONFIG, dtype=torch.float32),
-                        vae_params_from_flax(vtree))
+                        vae_params_from_flax(vtree), device="cpu")
     return jden, jv, vtree, tden, tv
 
 

@@ -110,7 +110,8 @@ def test_load_lpips_params_reads_the_same_files_as_jax(tmp_path, lpips_weights):
            for i in range(5)}
     torch.save(vgg, tmp_path / "vgg16.pth")
     torch.save(lin, tmp_path / "vgg.pth")
-    got = tq.load_lpips_params(str(tmp_path / "vgg16.pth"), str(tmp_path / "vgg.pth"))
+    got = tq.load_lpips_params(str(tmp_path / "vgg16.pth"), str(tmp_path / "vgg.pth"),
+                               device="cpu")
     want = jq.load_lpips_params(str(tmp_path / "vgg16.pth"), str(tmp_path / "vgg.pth"))
     for i in range(13):
         np.testing.assert_array_equal(got.vgg[f"conv{i}"].weight.numpy(),
@@ -118,14 +119,23 @@ def test_load_lpips_params_reads_the_same_files_as_jax(tmp_path, lpips_weights):
     for i in range(5):
         np.testing.assert_array_equal(got.lin[f"lin{i}"].numpy(),
                                       np.asarray(want["lin"][f"lin{i}"]))
-    plain = tq.load_lpips_params(str(tmp_path / "vgg16.pth"))
+    plain = tq.load_lpips_params(str(tmp_path / "vgg16.pth"), device="cpu")
     for i, ch in enumerate(tq._STAGE_CHANNELS):
         assert torch.equal(plain.lin[f"lin{i}"], torch.full((ch,), 1.0 / ch))
 
 
+def test_lpips_refuses_images_on_another_device(images):
+    """LPIPS runs where its weights are: images on another device raise
+    instead of being moved there."""
+    a, b, _ = images
+    mod = tq.init_lpips_params(device="meta")
+    with pytest.raises(ValueError, match="LPIPS weights are on meta"):
+        tq.lpips(mod, torch.from_numpy(a), torch.from_numpy(b))
+
+
 def test_init_lpips_params_is_seeded():
-    a = tq.init_lpips_params(torch.Generator().manual_seed(1))
-    b = tq.init_lpips_params(torch.Generator().manual_seed(1))
+    a = tq.init_lpips_params(torch.Generator().manual_seed(1), device="cpu")
+    b = tq.init_lpips_params(torch.Generator().manual_seed(1), device="cpu")
     assert all(torch.equal(x, y) for x, y in zip(a.state_dict().values(),
                                                  b.state_dict().values()))
     for i, ch in enumerate(tq._STAGE_CHANNELS):
@@ -134,11 +144,11 @@ def test_init_lpips_params_is_seeded():
 
 
 def test_save_and_load_params_round_trip(tmp_path):
-    vae = tzoo.build_vae(tvae.TINY_VAE_CONFIG, seed=2)
+    vae = tzoo.build_vae(tvae.TINY_VAE_CONFIG, seed=2, device="cpu")
     tu.save_params(str(tmp_path / "vae.pt"), vae)
     state = tu.load_params(str(tmp_path / "vae.pt"))
     assert sorted(state) == sorted(vae.state_dict())
-    other = tzoo.build_vae(tvae.TINY_VAE_CONFIG, seed=3)
+    other = tzoo.build_vae(tvae.TINY_VAE_CONFIG, seed=3, device="cpu")
     assert tu.load_params(str(tmp_path / "vae.pt"), like=other) is other
     assert all(torch.equal(x, y) for x, y in zip(other.state_dict().values(),
                                                  vae.state_dict().values()))

@@ -77,7 +77,7 @@ def tiny_tree():
 def _models(tree, dtype):
     jcfg, tcfg = _configs(dtype)
     jden, _ = jzoo.build_unet(jcfg, tree)
-    tden, module = tzoo.build_unet(tcfg, unet_params_from_flax(tree))
+    tden, module = tzoo.build_unet(tcfg, unet_params_from_flax(tree), device="cpu")
     return jden, tden, module
 
 

@@ -86,7 +86,7 @@ def vae_case(request):
 
 def _port(name, tree, dtype="fp32"):
     _, tcfg = _configs(name, dtype)
-    return tzoo.build_vae(tcfg, vae_params_from_flax(tree))
+    return tzoo.build_vae(tcfg, vae_params_from_flax(tree), device="cpu")
 
 
 def _close(got, want, tol=1e-4):
@@ -223,8 +223,10 @@ def test_vae_configs_match_jax():
 def test_build_vae_random_weights():
     """Random weights from a seed, in the parameter dtype asked for; the
     same seed gives the same weights."""
-    vae = tzoo.build_vae(tvae.TINY_VAE_CONFIG, param_dtype=torch.bfloat16, seed=3)
-    again = tzoo.build_vae(tvae.TINY_VAE_CONFIG, param_dtype=torch.bfloat16, seed=3)
+    vae = tzoo.build_vae(tvae.TINY_VAE_CONFIG, param_dtype=torch.bfloat16, seed=3,
+                         device="cpu")
+    again = tzoo.build_vae(tvae.TINY_VAE_CONFIG, param_dtype=torch.bfloat16, seed=3,
+                           device="cpu")
     assert all(p.dtype == torch.bfloat16 for p in vae.parameters())
     assert all(torch.equal(a, b) for a, b in zip(vae.state_dict().values(),
                                                  again.state_dict().values()))
