@@ -33,8 +33,10 @@ exits non-zero without printing a result):
 2. build: one nvcc per CUDA source in csrc/ (the D <= 128 and the
    wide-head attention libraries) while Triton compiles the row norm and
    the fused think-step kernels; seconds for each, and ptxas's register
-   and spill counts for each kernel instantiation (no wide-head
-   instantiation, D = 384, 512 or 640, may spill);
+   and spill counts for each kernel instantiation (none may spill, and
+   ptxas must not ignore the D <= 128 kernel's setmaxnreg); the count of
+   wgmma (HGMMA) and TMA load (UTMALDG) instructions in the SASS of each
+   D <= 128 instantiation (cuobjdump -sass; neither may be 0);
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card at the main paths' shapes (plus ragged shapes), with each kernel's
    time, the plain version's and, where one PyTorch call computes the same
@@ -43,7 +45,8 @@ exits non-zero without printing a result):
    launch work (CUDA events, median of 20) and on the device (`device_us`);
    beside them each call's bound, the larger of its bytes over 3.35 TB/s
    and its operations over the peak of their type (989 TFLOP/s bf16 on
-   the tensor cores, 67 TFLOP/s fp32 elsewhere);
+   the tensor cores, 67 TFLOP/s fp32 elsewhere), and for attention the
+   achieved TFLOP/s and its share of the bound;
    for the fused kernels also a non-finite coefficient case, the noise
    statistics at noise_mult=1, and the non-model time of a think step,
    fused against plain, at the SDXL and Flux latent sizes;
@@ -56,7 +59,8 @@ exits non-zero without printing a result):
    (for Flux the first run is a 2-step warm-up); the second run is timed
    and its kernel launches counted: the output is finite, the known region
    equals the latent, the repainted region moved, and every kernel ran
-   exactly its expected number of times;
+   exactly its expected number of times; then one Flux forward under
+   torch.profiler (kernel time against wall clock, the largest kernels);
 7. pixel path (phase 6's UNet, the SDXL VAE): the VAE's encode and decode
    timed alone, then one `api.inpaint_image` run, timed and counted: the
    output is finite and (1, 3, 1024, 1024), every pixel farther than the
@@ -96,6 +100,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -154,6 +159,7 @@ ATTN_SHAPES = [
     ((1, 4608, 24, 128), {"flux": 57}, SPLASH),
     ((1, 7920, 24, 128), {"video": 30}, SPLASH),  # TI2V-5B at 704x1280 x 33 frames
     ((2, 1000, 4, 64), {}, None),
+    ((2, 1000, 4, 128), {}, None),
 ]
 # the VAEs' mid attention (one head of 512, 640 or 384): (shape, calls per
 # run by path, TPU call site)
@@ -320,7 +326,9 @@ def _compile_triton():
 
 def phase_build() -> None:
     """One nvcc (a subprocess) per CUDA source and Triton's compiles run side
-    by side.  The wide-head kernel must not spill (its ptxas log is read)."""
+    by side.  No attention instantiation may spill (the ptxas logs are
+    read), the D <= 128 kernel's `setmaxnreg` must not be ignored, and its
+    SASS must hold wgmma (HGMMA) and TMA loads (UTMALDG)."""
     def nvcc(name):
         t0 = time.perf_counter()
         lib = attention.build_library(name)
@@ -330,18 +338,53 @@ def phase_build() -> None:
         jobs = {name: pool.submit(nvcc, name) for name in attention.SOURCES}
         t_triton = _compile_triton()
         built = {name: job.result() for name, job in jobs.items()}
+    want = {"attention": attention.SUPPORTED_HEAD_DIMS, "wide_attention": attention.WIDE_HEAD_DIMS}
     for name, (lib, t_nvcc) in built.items():
         attention._library(name)
-        kernels = ptxas_counts(lib.with_suffix(".log").read_text())
+        log = lib.with_suffix(".log").read_text()
+        kernels = ptxas_counts(log)
         say(f"phase 2 build: nvcc {t_nvcc:.1f} s ({lib.name}); ptxas: "
             + " / ".join(f"{k}: {v}" for k, v in kernels.items()))
-        if name == "wide_attention" and (
-                len(kernels) != len(attention.WIDE_HEAD_DIMS) or any(
-                    "0 bytes spill stores" not in v or "0 bytes spill loads" not in v
-                    for v in kernels.values())):
-            raise AssertionError("a wide-head attention instantiation spills registers")
+        if len(kernels) != len(want[name]) or any(
+                "0 bytes spill stores" not in v or "0 bytes spill loads" not in v
+                for v in kernels.values()):
+            raise AssertionError(f"an instantiation of {name} spills registers")
+        if name == "attention":
+            if "setmaxnreg ignored" in log:
+                raise AssertionError("ptxas ignored the attention kernel's setmaxnreg")
+            sass = sass_counts(lib)
+            say("phase 2 build: SASS of the D <= 128 kernel (cuobjdump -sass): "
+                + " / ".join(f"{k}: {v['HGMMA']} HGMMA, {v['UTMALDG']} UTMALDG"
+                             for k, v in sass.items()))
+            if len(sass) != len(want[name]) or not all(min(v.values()) for v in sass.values()):
+                raise AssertionError("an instantiation of the D <= 128 kernel lacks wgmma "
+                                     "(HGMMA) or TMA loads (UTMALDG) in its SASS")
     say(f"phase 2 build: triton {t_triton:.1f} s (row norm x{len(NORM_SHAPES)} shapes, fused "
         "half + finish warm/cold), in parallel with nvcc")
+
+
+def _instantiation(mangled: str) -> str:
+    """A kernel instantiation named by its template arguments (D, or D x
+    row groups)."""
+    args = re.findall(r"Li(\d+)E", mangled)
+    return "D=" + "x".join(args) if args else mangled
+
+
+def sass_counts(lib) -> dict:
+    """HGMMA (wgmma) and UTMALDG (TMA tensor load) instructions per kernel
+    instantiation in a library's SASS, from the toolkit's cuobjdump."""
+    cuobjdump = os.path.join(os.path.dirname(attention._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    out, name = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = _instantiation(ln.split("Function :", 1)[1].strip())
+            out[name] = {"HGMMA": 0, "UTMALDG": 0}
+        elif name:
+            for op in out[name]:
+                out[name][op] += bool(re.search(rf"\b{op}\b", ln))
+    return out
 
 
 def ptxas_counts(log: str) -> dict:
@@ -350,8 +393,7 @@ def ptxas_counts(log: str) -> dict:
     out, name = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            args = re.findall(r"Li(\d+)E", ln.split("'")[1])
-            name = "D=" + "x".join(args) if args else ln.split("'")[1]
+            name = _instantiation(ln.split("'")[1])
             out[name] = ""
         elif name and ("spill" in ln or "registers" in ln):
             part = ln.split(":", 1)[-1].strip() if "registers" in ln else ln.strip()
@@ -373,6 +415,7 @@ def _kernel_attention(gen, kernel=attention.flash_attention, shapes=ATTN_SHAPES,
     rows = []
     for shape, calls, *replaces in shapes:
         b, s, h, d = shape
+        flops = 4 * b * h * s * s * d
         q, k, v = _qkv_views(b, s, h, d, gen)
         if s % 8:  # a ragged S: contiguous inputs
             q, k, v = (t.contiguous() for t in (q, k, v))
@@ -389,13 +432,14 @@ def _kernel_attention(gen, kernel=attention.flash_attention, shapes=ATTN_SHAPES,
         backends = _sdpa_backends(q, k, v)
         r = timed_row(lambda: kernel(q, k, v), lambda: attention.attention_ref(q, k, v), err,
                       {} if per_run else calls, run_calls=calls if per_run else None,
-                      bounds=bound(4 * b * s * h * d * 2, 4 * b * h * s * s * d, PEAK_BF16),
+                      bounds=bound(4 * b * s * h * d * 2, flops, PEAK_BF16),
                       library=lambda: _sdpa(q, k, v),
                       library_name="scaled_dot_product_attention, backends that take it: "
                                    + ("/".join(backends) or "math only"),
                       shape=shape, replaces=replaces[0] if replaces else None)
         say(f"phase 3 kernels: {kernel.__name__} {shape} max_abs_err {err:.3g} rel_l2 "
-            f"{rel:.3g} {row_text(r)} ok")
+            f"{rel:.3g} {row_text(r)}, {flops / r['us'] / 1e6:.1f} TFLOP/s = "
+            f"{100 * 1e3 * r['bound_ms'] / r['us']:.1f}% of the bound ok")
         rows.append(r)
     return rows
 
@@ -924,9 +968,13 @@ def phase_flux(smi: str) -> dict:
         return sam(latent=latent, sigmas=calculate_sigmas(den.sigma_table, "simple", steps),
                    cond=cond, mask=_centre_mask(1024, 1024), seed=0)
 
-    return _main_path(f"phase 8 Flux main path: euler simple {STEPS} x think {THINK}, cfg 1, "
-                      "fused think step (warm-up: 2 steps)", "flux", smi, den, module, t_init,
-                      run, lambda: run(2), latent)
+    launches = _main_path(f"phase 8 Flux main path: euler simple {STEPS} x think {THINK}, "
+                          "cfg 1, fused think step (warm-up: 2 steps)", "flux", smi, den, module,
+                          t_init, run, lambda: run(2), latent)
+    t_mid = torch.tensor([0.7], device="cuda")
+    prof = profile_forward(lambda: den.apply(latent, t_mid, cond))
+    say(f"phase 8 Flux forward at t = 0.7 under torch.profiler: {_profile_text(prof)}")
+    return launches
 
 
 def _self_device_us(event) -> float:
@@ -948,10 +996,15 @@ def profile_forward(fn) -> dict:
         wall_ms = 1e3 * (time.perf_counter() - t0)
     cuda = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(_self_device_us(e) for e in cuda) / 1e3
-    top = sorted(cuda, key=_self_device_us, reverse=True)[:6]
+    top = sorted(cuda, key=_self_device_us, reverse=True)[:8]
     return dict(wall_ms=wall_ms, device_ms=device_ms, idle=1.0 - device_ms / wall_ms,
                 kernels=sum(e.count for e in cuda),
                 top=[(e.key[:48], round(_self_device_us(e) / 1e3, 3), e.count) for e in top])
+
+
+def _profile_text(prof) -> str:
+    return (f"wall {prof['wall_ms']:.2f} ms, kernels {prof['device_ms']:.2f} ms in "
+            f"{prof['kernels']}, idle {100 * prof['idle']:.1f}%, top {prof['top']}")
 
 
 def phase_video(smi: str) -> dict:
@@ -992,9 +1045,8 @@ def phase_video(smi: str) -> dict:
     say(f"phase 10 video path: inpaint_video, Wan2.2 TI2V-5B ({n_dit / 1e9:.3f} B params bf16) + "
         f"Wan2.2 VAE ({n_vae / 1e6:.1f} M), init {t_init:.1f} s | {VIDEO_SHAPE} -> latent "
         f"{tuple(latent.shape)}, S = 7920 | VAE encode {enc_ms:.2f} ms decode {dec_ms:.2f} ms "
-        f"(median of 3) | one forward at t = 0.7 under torch.profiler: wall "
-        f"{prof['wall_ms']:.2f} ms, kernels {prof['device_ms']:.2f} ms in {prof['kernels']}, "
-        f"idle {100 * prof['idle']:.1f}%, top {prof['top']} | euler simple {STEPS} x think "
+        f"(median of 3) | one forward at t = 0.7 under torch.profiler: {_profile_text(prof)} "
+        f"| euler simple {STEPS} x think "
         f"{VIDEO_THINK}, cfg 5 sequential, blend {BLEND}, first run (2 steps) {t_first:.2f} s, "
         f"{text} on {smi}")
     if not ok:

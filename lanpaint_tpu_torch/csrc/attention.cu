@@ -1,4 +1,4 @@
-// Flash-attention forward for NVIDIA Hopper (sm_90a), bf16 in / bf16 out.
+// Flash-attention forward for NVIDIA Hopper (sm_90a), bf16 in / bf16 out, D = 64 or 128.
 //
 // Replaces the Pallas TPU kernels of lanpaint_tpu/models/layers.py:
 // `attention_bshd`'s flash branch (jax.experimental.pallas.ops.tpu
@@ -6,31 +6,66 @@
 // `_splash_kernel` (splash_attention_kernel.make_splash_mha, layers.py:103-173).
 // Both compute non-causal softmax(Q K^T * scale) V with fp32 accumulation.
 //
-// What bounds it on this card: compute.  At the SDXL-1024 shapes (S = 4096 /
-// 1024, D = 64) the kernel does 4*S*D flops per query row and reads each K/V
-// tile once per 64-query block, far above the H100's ~295 flop/byte ridge,
-// so the tensor cores and the softmax arithmetic between them are the
-// limit.  This first design reaches ~9% of the bf16 tensor-core peak (464 us
-// a call at S=4096, H=10 on an NVIDIA H100 80GB HBM3 at 700 W): its K/V tile
-// loads are synchronous, with no copy/compute overlap.
+// What bounds it on this card: the tensor cores.  A call does 4*B*H*S^2*D
+// flops on 8*B*S*H*D bytes of q/k/v/out, ~S flops a byte (1,000-8,000 at the
+// main paths' S) against the H100's ~295 flop/byte ridge.  The first design
+// (mma.sync m16n8k16 fed by 32-bit shared-memory loads, K/V staged through
+// registers with two __syncthreads a tile, V transposed element by element)
+// reached 8-9% of the bf16 tensor-core peak: it was bound by shared-memory
+// instructions and by loads that the tensor cores waited for.
 //
-// Design (simple and correct first; no TMA / wgmma yet):
-//   * one block of 4 warps per (batch, head, 64-query tile); each warp owns
-//     16 query rows, held in registers as mma.sync m16n8k16 bf16 A fragments;
-//   * a loop over 64-key tiles: the block stages K (row-major) and V
-//     (transposed, so both B operands are read as contiguous bf16 pairs) in
-//     shared memory with 16-byte loads; S = Q K^T and O += P V run on the
-//     tensor cores with fp32 accumulators; the online softmax (running row
-//     max and sum, exp2 with the scale folded into log2 units) stays in
-//     registers, so no S x S matrix ever reaches device memory;
-//   * q/k/v are read in the JAX layout (B, S, H, D) through element strides
-//     (the fused-QKV projection's split views need no copy); rows past S are
-//     zero-filled on load and keys past S are masked to -inf, which replaces
-//     the TPU path's segment-id padding for ragged S (e.g. 1000, 5400).
+// This design reaches 56-59% of the bf16 peak at D = 128 (Flux's S = 4,608
+// and Wan's S = 7,920) and 19-34% at D = 64 (SDXL's S = 1,024 and 4,096,
+// where 160 and 320 blocks fill 132 SMs in few waves), within 1.2x of
+// PyTorch's flash SDPA at each (chip_smoke.py phase 3, NVIDIA H100 80GB
+// HBM3 at 700 W).  It gives the tensor cores what Hopper needs:
+//   * wgmma for both products: S = Q K^T as m64n128k16 with Q and K read
+//     from shared memory (both K-major), O += P V as m64n{D}k16 with P in
+//     registers (the S accumulator converted to bf16 A fragments in place)
+//     and V read from shared memory as it lies (MN-major B, the transpose
+//     bit): no operand passes through a thread's load instructions;
+//   * TMA: one 4D tensor map per operand over (D, H, S, B), built from the
+//     tensor's own strides (the fused-QKV split views and Flux's column
+//     slice need no copy), 64-column boxes with the 128-byte swizzle that
+//     wgmma's descriptors read (a D = 128 row is two boxes); rows past S
+//     arrive as zeros from TMA's out-of-bounds fill and keys past S are
+//     masked to -inf in the last tile (a zero key would score 0, not -inf);
+//   * warp specialisation: one producer warpgroup (one thread of it issues
+//     every TMA copy) and two consumer warpgroups of 64 query rows each, so
+//     a block covers 128 queries and reads each K/V tile once for them;
+//     K/V tiles of 128 keys flow through a ring of shared-memory stages,
+//     each completing on an mbarrier (separate K and V barriers, so Q K^T
+//     starts before V lands) and released by the consumers' 8 warps on an
+//     "empty" mbarrier; `setmaxnreg` moves registers from the producer (24)
+//     to the consumers (240): 64 fp32 S and 64 O accumulators a thread at
+//     D = 128;
+//   * the online softmax stays in registers (running max and sum, exp2 with
+//     the scale folded into log2 units, 4-lane shuffles): the wgmma
+//     accumulator gives a warp the same row/column ownership as mma.sync's
+//     m16n8 fragments, so the S x S matrix never reaches memory.
+// Tiles: 128 queries (two consumers) and 128 keys a block at both D, a
+// ring of 2 K/V stages: shared memory holds Q and the ring, 160 KB at D =
+// 128 (32 + 2 x 64) and 80 KB at D = 64.  The depth was chosen on the card
+// (scripts/measure_torch_attention_stages.py, NVIDIA H100 80GB HBM3 at
+// 700 W, device us in two turns): at D = 128 two stages took 463.0 / 465.6
+// us at Flux's (1, 4608, 24, 128) and 1,314.3 / 1,337.3 at Wan's (1, 7920,
+// 24, 128), three 474.1 / 474.5 and 1,342.3 / 1,341.0; at D = 64, S =
+// 4,096, two, three, four and six stages took 128.5, 136.4, 128.3 and
+// 135.5 us.  With the producer a tile ahead the loads are not what bounds
+// the kernel, so a deeper ring buys nothing.  Not done here (later
+// levers): ping-pong scheduling of the two consumers, the softmax of one
+// tile overlapped with the next tile's Q K^T, a persistent scheduler.
 //
-// Interface: a plain C function (ctypes), launching on the caller's stream
-// and returning cudaGetLastError().
+// A wait on an mbarrier that has not completed within ~2^34 cycles (~9 s)
+// traps, so a fault in the pipeline fails the launch instead of hanging it.
+//
+// Interface: a plain C function (ctypes).  The tensor maps' geometry (dims,
+// byte strides, boxes) comes from the caller (ops/attention.py computes and
+// checks it in Python); cuTensorMapEncodeTiled, a driver-API function, is
+// reached through cudaGetDriverEntryPoint, so the library links no libcuda.
+// It launches on the caller's stream and returns a cudaError_t.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -38,245 +73,451 @@
 
 namespace {
 
-constexpr int kBlockM = 64;   // query rows per block (16 per warp)
-constexpr int kBlockN = 64;   // keys per tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;       // bf16 elements of padding per shared-memory row
-constexpr int kVec = 8;       // bf16 elements per 16-byte vector load
+// K/V ring depth by head dim; a build may set them (-D) to compare depths
+// (scripts/measure_torch_attention_stages.py)
+#ifndef LP_ATTN_STAGES_D64
+#define LP_ATTN_STAGES_D64 2
+#endif
+#ifndef LP_ATTN_STAGES_D128
+#define LP_ATTN_STAGES_D128 2
+#endif
+
+constexpr int kBlockN = 128;    // keys per K/V tile
+constexpr int kBoxCols = 64;    // bf16 columns of one 128-byte swizzled box row
+constexpr int kRowBytes = 128;  // bytes of one box row
+constexpr int kWarpgroup = 128;
+
+template <int D>
+struct Tile {
+  static constexpr int kConsumers = 2;                  // consumer warpgroups
+  static constexpr int kBlockM = 64 * kConsumers;       // queries a block
+  static constexpr int kStages = D == 128 ? LP_ATTN_STAGES_D128 : LP_ATTN_STAGES_D64;
+  static constexpr int kChunks = D / kBoxCols;          // boxes across a row
+  static constexpr int kThreads = kWarpgroup * (kConsumers + 1);
+  static constexpr uint32_t kQBytes = kBlockM * D * 2;
+  static constexpr uint32_t kKVBytes = kBlockN * D * 2;  // one K or one V tile
+  static constexpr size_t kSmem =
+      1024 /* alignment */ + kQBytes + 2 * size_t(kStages) * kKVBytes + 256 /* barriers */;
+  static_assert(kSmem <= 232448, "shared memory per block");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers -------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t addr, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(addr), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait until the barrier's phase of parity `parity` has completed; trap
+// after ~2^34 cycles (~9 s) instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  if (mbar_try_wait(addr, parity)) return;
+  const long long start = clock64();
+  while (!mbar_try_wait(addr, parity))
+    if (clock64() - start > (1ll << 34)) __trap();
+}
+
+// ---- TMA -------------------------------------------------------------------
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// ---- wgmma -----------------------------------------------------------------
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled tile: start address,
+// leading and stride byte offsets (16-byte units), layout type 1 (B128).
+__device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma that owns them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define LP_ACC4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define LP_ACC16(i) LP_ACC4(i), LP_ACC4(i + 4), LP_ACC4(i + 8), LP_ACC4(i + 12)
+
+// D(64x128, f32) (+)= A(64x16, K-major smem) * B(16x128, K-major smem)
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : LP_ACC16(0), LP_ACC16(16), LP_ACC16(32), LP_ACC16(48)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D(64x128, f32) += A(64x16, bf16 registers) * B(16x128, MN-major smem)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : LP_ACC16(0), LP_ACC16(16), LP_ACC16(32), LP_ACC16(48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D(64x64, f32) += A(64x16, bf16 registers) * B(16x64, MN-major smem)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : LP_ACC16(0), LP_ACC16(16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+#undef LP_ACC16
+#undef LP_ACC4
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D(16x8, f32) += A(16x16, bf16, row) * B(16x8, bf16, col)
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// ---- the kernel ------------------------------------------------------------
 
 template <int D>
-struct Smem {
-  static constexpr int kLdQK = D + kPad;        // row stride of the Q and K tiles
-  static constexpr int kLdVt = kBlockN + kPad;  // row stride of the V^T tile
-  static constexpr size_t kBytes =
-      sizeof(__nv_bfloat16) * (size_t(kBlockM) * kLdQK + size_t(kBlockN) * kLdQK +
-                               size_t(D) * kLdVt);
-};
+__global__ void __launch_bounds__(Tile<D>::kThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int S,
+                 long long o_sb, long long o_ss, long long o_sh, float scale_log2) {
+  using T = Tile<D>;
+  constexpr int kStages = T::kStages;
+  constexpr int kChunks = T::kChunks;
+  constexpr uint32_t kChunkQ = T::kBlockM * kRowBytes;  // bytes of one Q box
+  constexpr uint32_t kChunkKV = kBlockN * kRowBytes;    // bytes of one K or V box
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int S,
-                 long long q_sb, long long q_ss, long long q_sh, long long k_sb,
-                 long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-                 long long v_sh, long long o_sb, long long o_ss, long long o_sh,
-                 float scale_log2) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int kLdQK = Smem<D>::kLdQK;
-  constexpr int kLdVt = Smem<D>::kLdVt;
-  constexpr int kVecPerRow = D / kVec;
+  // the 128-byte swizzle repeats every 1,024 bytes: tiles start on that grain
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sK = sQ + T::kQBytes;
+  unsigned char* sV = sK + kStages * T::kKVBytes;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sV + kStages * T::kKVBytes);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* empty = v_full + kStages;
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + kBlockM * kLdQK;
-  __nv_bfloat16* sVt = sK + kBlockN * kLdQK;
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane >> 2;   // fragment row group
-  const int t4 = lane & 3;   // thread within the group
-  const int m0 = blockIdx.x * kBlockM;
+  const int m0 = blockIdx.x * T::kBlockM;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
+  const int n_tiles = (S + kBlockN - 1) / kBlockN;
+  const int wg = threadIdx.x / kWarpgroup;
 
-  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
-  __nv_bfloat16* ob = o + b * o_sb + h * o_sh;
-
-  // Q tile -> shared memory (rows past S are zero).
-  for (int idx = tid; idx < kBlockM * kVecPerRow; idx += kThreads) {
-    const int r = idx / kVecPerRow;
-    const int c = (idx % kVecPerRow) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (m0 + r < S) val = *reinterpret_cast<const uint4*>(qb + (long long)(m0 + r) * q_ss + c);
-    *reinterpret_cast<uint4*>(sQ + r * kLdQK + c) = val;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], 4 * T::kConsumers);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // This warp's 16 query rows as A fragments, one per 16-wide slice of D.
-  const int wr = warp * 16;
-  uint32_t qf[D / 16][4];
+  if (wg == T::kConsumers) {
+    // ---- producer warpgroup: one thread issues every TMA copy ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x % kWarpgroup == 0) {
+      mbar_expect_tx(q_full, T::kQBytes);
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const __nv_bfloat16* p = sQ + (wr + g) * kLdQK + kk * 16 + t4 * 2;
-    qf[kk][0] = ld_u32(p);
-    qf[kk][1] = ld_u32(p + 8 * kLdQK);
-    qf[kk][2] = ld_u32(p + 8);
-    qf[kk][3] = ld_u32(p + 8 * kLdQK + 8);
-  }
-
-  float acc[D / 8][4];
+      for (int c = 0; c < kChunks; ++c)
+        tma_load_4d(sQ + c * kChunkQ, &tq, q_full, c * kBoxCols, h, m0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);  // the first round passes at once
+        mbar_expect_tx(&k_full[s], T::kKVBytes);
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  // running max (log2 units) and partial sum for rows g and g + 8
-  float row_max[2] = {-CUDART_INF_F, -CUDART_INF_F};
-  float row_sum[2] = {0.f, 0.f};
-
-  for (int n0 = 0; n0 < S; n0 += kBlockN) {
-    __syncthreads();  // every warp is done with the previous K / V tile
-    for (int idx = tid; idx < kBlockN * kVecPerRow; idx += kThreads) {
-      const int r = idx / kVecPerRow;
-      const int c = (idx % kVecPerRow) * kVec;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-      if (n0 + r < S) {
-        kv = *reinterpret_cast<const uint4*>(kb + (long long)(n0 + r) * k_ss + c);
-        vv = *reinterpret_cast<const uint4*>(vb + (long long)(n0 + r) * v_ss + c);
+        for (int c = 0; c < kChunks; ++c)
+          tma_load_4d(sK + s * T::kKVBytes + c * kChunkKV, &tk, &k_full[s], c * kBoxCols, h,
+                      j * kBlockN, b);
+        mbar_expect_tx(&v_full[s], T::kKVBytes);
+#pragma unroll
+        for (int c = 0; c < kChunks; ++c)
+          tma_load_4d(sV + s * T::kKVBytes + c * kChunkKV, &tv, &v_full[s], c * kBoxCols, h,
+                      j * kBlockN, b);
       }
-      *reinterpret_cast<uint4*>(sK + r * kLdQK + c) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) sVt[(c + j) * kLdVt + r] = ve[j];
     }
-    __syncthreads();
+  } else {
+    // ---- consumer warpgroup `wg`: query rows m0 + 64 wg .. + 63 ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int tid = threadIdx.x % kWarpgroup;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane >> 2;  // fragment row group
+    const int t4 = lane & 3;  // thread within the group
 
-    // S = Q K^T: 16 rows x 64 keys per warp, as 8 n-tiles of 8 keys.
-    float s[kBlockN / 8][4];
+    float acc[D / 2];  // O: 64 rows x D, rows g and g + 8 of this warp's 16
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float row_max[2] = {-CUDART_INF_F, -CUDART_INF_F};  // log2 units
+    float row_sum[2] = {0.f, 0.f};  // this thread's partial sums
+
+    mbar_wait(q_full, 0);
+    const unsigned char* q_rows = sQ + wg * 64 * kRowBytes;
+
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      const uint32_t parity = (j / kStages) & 1;
+      const unsigned char* k_tile = sK + s * T::kKVBytes;
+      const unsigned char* v_tile = sV + s * T::kKVBytes;
+
+      // S = Q K^T: 64 x 128 fp32, D / 16 k-steps; a k-step of 16 columns is
+      // 32 bytes into a 128-byte swizzled row, a D = 128 row two boxes.
+      float sc[64];
+      mbar_wait(&k_full[s], parity);
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const __nv_bfloat16* p = sK + (nt * 8 + g) * kLdQK + kk * 16 + t4 * 2;
-        mma_16816(s[nt], qf[kk], ld_u32(p), ld_u32(p + 8));
+        const int c = kk / 4;
+        const uint32_t off = (kk % 4) * 32;
+        wgmma_ss_n128(sc, make_desc(q_rows + c * kChunkQ + off, 16, 8 * kRowBytes),
+                      make_desc(k_tile + c * kChunkKV + off, 16, 8 * kRowBytes), kk > 0);
       }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+
+      // Keys past S (last tile only) to -inf, then the online softmax in
+      // log2 units.  Register i holds row g + 8 ((i >> 1) & 1), key
+      // 8 (i >> 2) + 2 t4 + (i & 1) of the tile.
+      if ((j + 1) * kBlockN > S) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const int key = j * kBlockN + 8 * (i >> 2) + 2 * t4 + (i & 1);
+          if (key >= S) sc[i] = -CUDART_INF_F;
+        }
+      }
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+      for (int i = 0; i < 64; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        // every tile holds at least one key < S, so the new max is finite
+        const float m_new = fmaxf(row_max[r], mx[r] * scale_log2);
+        alpha[r] = exp2f(row_max[r] - m_new);
+        row_max[r] = m_new;
+        row_sum[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int r = (i >> 1) & 1;
+        sc[i] = exp2f(fmaf(sc[i], scale_log2, -row_max[r]));
+        row_sum[r] += sc[i];
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+      // O += P V: the S accumulators of two 8-key n-tiles form one bf16 A
+      // fragment; V is the MN-major B operand (LBO: the next 64 columns of
+      // D, SBO: the next 8 keys), 16 keys = 2,048 bytes a k-step.
+      uint32_t pa[kBlockN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack_bf16x2(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+      mbar_wait(&v_full[s], parity);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk)
+        wgmma_rs(acc, pa[kk], make_desc(v_tile + kk * 16 * kRowBytes, kChunkKV, 8 * kRowBytes));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with stage s
     }
 
-    // Scale into log2 units, mask keys past S, update the running max.
-    float mx[2] = {row_max[0], row_max[1]};
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = n0 + nt * 8 + t4 * 2 + (e & 1);
-        const float val = key < S ? s[nt][e] * scale_log2 : -CUDART_INF_F;
-        s[nt][e] = val;
-        mx[e >> 1] = fmaxf(mx[e >> 1], val);
-      }
-    }
-    float alpha[2];
+    // Full row sums across the 4 threads of a row group, then normalise
+    // and store the rows < S.
+    float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      // every tile holds at least one valid key, so mx is finite here
-      alpha[r] = exp2f(row_max[r] - mx[r]);
-      row_max[r] = mx[r];
+      float t = row_sum[r];
+      t += __shfl_xor_sync(0xffffffffu, t, 1);
+      t += __shfl_xor_sync(0xffffffffu, t, 2);
+      inv[r] = 1.f / t;
     }
-    float tile_sum[2] = {0.f, 0.f};
+    const int row0 = m0 + wg * 64 + warp * 16 + g;
+    __nv_bfloat16* ob = o + b * o_sb + h * o_sh;
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[nt][e] - mx[e >> 1]);
-        s[nt][e] = p;
-        tile_sum[e >> 1] += p;
-      }
-    }
-    row_sum[0] = row_sum[0] * alpha[0] + tile_sum[0];
-    row_sum[1] = row_sum[1] * alpha[1] + tile_sum[1];
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
-    }
-
-    // O += P V: the S accumulators of two n-tiles form one A fragment.
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const __nv_bfloat16* p = sVt + (j * 8 + g) * kLdVt + kk * 16 + t4 * 2;
-        mma_16816(acc[j], pa, ld_u32(p), ld_u32(p + 8));
-      }
-    }
-  }
-
-  // Full row sums across the 4 threads of a row group, then normalize.
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float t = row_sum[r];
-    t += __shfl_xor_sync(0xffffffffu, t, 1);
-    t += __shfl_xor_sync(0xffffffffu, t, 2);
-    inv[r] = 1.f / t;
-  }
-  const int row0 = m0 + wr + g;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int col = j * 8 + t4 * 2;
-    if (row0 < S) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row0 * o_ss + col) =
-          __floats2bfloat162_rn(acc[j][0] * inv[0], acc[j][1] * inv[0]);
-    }
-    if (row0 + 8 < S) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)(row0 + 8) * o_ss + col) =
-          __floats2bfloat162_rn(acc[j][2] * inv[1], acc[j][3] * inv[1]);
+    for (int n = 0; n < D / 8; ++n) {
+      const int col = n * 8 + t4 * 2;
+      if (row0 < S)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row0 * o_ss + col) =
+            __floats2bfloat162_rn(acc[4 * n] * inv[0], acc[4 * n + 1] * inv[0]);
+      if (row0 + 8 < S)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (long long)(row0 + 8) * o_ss + col) =
+            __floats2bfloat162_rn(acc[4 * n + 2] * inv[1], acc[4 * n + 3] * inv[1]);
     }
   }
 }
 
+// ---- host side -------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// geom: dims[4] (D, H, S, B), byte strides[3] (of H, S, B), box[4].
+bool encode(CUtensorMap* map, const void* ptr, const long long* geom) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  cuuint64_t dims[4], strides[3];
+  cuuint32_t box[4], elem[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 4; ++i) dims[i] = (cuuint64_t)geom[i];
+  for (int i = 0; i < 3; ++i) strides[i] = (cuuint64_t)geom[4 + i];
+  for (int i = 0; i < 4; ++i) box[i] = (cuuint32_t)geom[7 + i];
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+constexpr int kGeom = 11;  // int64s of one operand's geometry
+
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-                   const long long* st, float scale, cudaStream_t stream) {
-  const size_t smem = Smem<D>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((S + kBlockM - 1) / kBlockM, H, B);
+                   const long long* geom, long long o_sb, long long o_ss, long long o_sh,
+                   float scale, cudaStream_t stream) {
+  using T = Tile<D>;
+  // the geometry must be the one this instantiation reads: the problem's
+  // dims and 64-column boxes of kBlockM (Q) or kBlockN (K, V) rows
+  for (int t = 0; t < 3; ++t) {
+    const long long* g = geom + t * kGeom;
+    const long long rows = t == 0 ? T::kBlockM : kBlockN;
+    if (g[0] != D || g[1] != H || g[2] != S || g[3] != B || g[7] != kBoxCols || g[8] != 1 ||
+        g[9] != rows || g[10] != 1)
+      return cudaErrorInvalidValue;
+  }
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  for (int t = 0; t < 3; ++t)
+    if (!encode(&maps[t], ptrs[t], geom + t * kGeom)) return cudaErrorInvalidValue;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid((S + T::kBlockM - 1) / T::kBlockM, H, B);
   const float log2e = 1.4426950408889634f;
-  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, st[0], st[1],
-      st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale * log2e);
+  flash_fwd_kernel<D><<<grid, T::kThreads, T::kSmem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), S, o_sb, o_ss, o_sh,
+      scale * log2e);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, o: (B, S, H, D) bf16 with unit stride along D; strides in elements
-// as (batch, seq, head) for q, k, v, o in that order.  Returns a cudaError_t.
+// q, k, v: (B, S, H, D) bf16 tensors described by `geom` (3 x 11 int64s:
+// for q, k, v in turn dims (D, H, S, B), byte strides of H, S and B, and
+// the box (64, 1, rows, 1)); o: (B, S, H, D) bf16 with unit stride along D
+// and element strides (batch, seq, head).  Returns a cudaError_t.
 extern "C" int lp_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                      int B, int S, int H, int D, long long q_sb,
-                                      long long q_ss, long long q_sh, long long k_sb,
-                                      long long k_ss, long long k_sh, long long v_sb,
-                                      long long v_ss, long long v_sh, long long o_sb,
-                                      long long o_ss, long long o_sh, float scale,
-                                      void* stream) {
-  const long long st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-                            v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
+                                      int B, int S, int H, int D, const long long* geom,
+                                      long long o_sb, long long o_ss, long long o_sh,
+                                      float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || S <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  if (D == 64) return (int)launch<64>(q, k, v, o, B, S, H, st, scale, s);
-  if (D == 128) return (int)launch<128>(q, k, v, o, B, S, H, st, scale, s);
+  if (D == 64) return (int)launch<64>(q, k, v, o, B, S, H, geom, o_sb, o_ss, o_sh, scale, s);
+  if (D == 128) return (int)launch<128>(q, k, v, o, B, S, H, geom, o_sb, o_ss, o_sh, scale, s);
   return (int)cudaErrorInvalidValue;
 }
