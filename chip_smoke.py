@@ -31,12 +31,13 @@ exits non-zero without printing a result):
 1. device: nvidia-smi's name and power limit, torch and CUDA versions, the
    TF32 flags in force;
 2. build: one nvcc per CUDA source in csrc/ (the D <= 128 and the
-   wide-head attention libraries) while Triton compiles the row norm and
-   the fused think-step kernels; seconds for each, and ptxas's register
-   and spill counts for each kernel instantiation (none may spill, and
-   ptxas must not ignore the D <= 128 kernel's setmaxnreg); the count of
-   wgmma (HGMMA) and TMA load (UTMALDG) instructions in the SASS of each
-   D <= 128 instantiation (cuobjdump -sass; neither may be 0);
+   wide-head attention libraries, the row norm), all started together,
+   while Triton compiles the fused think-step kernels; seconds for each,
+   and ptxas's register and spill counts for each kernel instantiation
+   (none may spill, and ptxas must not ignore either attention kernel's
+   setmaxnreg); the count of wgmma (HGMMA) and TMA load (UTMALDG)
+   instructions in the SASS of each attention instantiation (cuobjdump
+   -sass; neither may be 0);
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card at the main paths' shapes (plus ragged shapes), with each kernel's
    time, the plain version's and, where one PyTorch call computes the same
@@ -93,7 +94,8 @@ with its device times in us).
 To run some phases alone: python3 -c "import chip_smoke as c; smi =
 c.phase_device(); c.phase_build(); c.phase_pixel(smi)".
 
-It needs one CUDA card, the CUDA toolkit (nvcc) and triton; no network.
+It needs one CUDA card, the CUDA toolkit (nvcc, cuobjdump) and triton; no
+network.
 """
 
 import dataclasses
@@ -117,7 +119,7 @@ from lanpaint_tpu_torch import (LanPaintConfig, LanPaintSampler, ModelKind, api,
                                 inpaint_video)
 from lanpaint_tpu_torch.engine import lanpaint_update
 from lanpaint_tpu_torch.models import dit, unet, vae, video_vae, wan, zoo
-from lanpaint_tpu_torch.ops import attention, fused, norms
+from lanpaint_tpu_torch.ops import attention, cuda_build, fused, norms
 from lanpaint_tpu_torch.schedule import unify_times
 from lanpaint_tpu_torch.sigmas import calculate_sigmas
 
@@ -302,18 +304,9 @@ def phase_device() -> str:
 
 
 def _compile_triton():
-    """One launch of each Triton program the main paths use (each row width
-    and mode of the row norm, each fused kernel variant)."""
+    """One launch of each Triton program the main paths use (each fused
+    kernel variant)."""
     t0 = time.perf_counter()
-    for shape, mode, *_ in NORM_SHAPES:
-        x = torch.randn(shape, device="cuda", dtype=torch.bfloat16)
-        g = torch.ones(shape[-1], device="cuda")
-        if mode == "rmsnorm":
-            norms.rmsnorm(x, g)
-        else:
-            norms.layernorm(x, None if mode == "layernorm_na" else g,
-                            None if mode == "layernorm_na" else g, eps=1e-6,
-                            out_dtype=torch.float32 if mode == "layernorm_na" else None)
     z = torch.zeros((1, 1024), device="cuda")
     tab = torch.zeros((1, 2 * fused.N_COEF), device="cuda")
     seed = torch.zeros((1,), dtype=torch.int64, device="cuda")
@@ -324,48 +317,61 @@ def _compile_triton():
     return time.perf_counter() - t0
 
 
+# kernel instantiations each CUDA library must hold: the attention kernels
+# one per head dim, the row norm one per (x dtype, out dtype, vectors a
+# thread) of fp32 / bf16 and 1, 2, 4, 8
+INSTANTIATIONS = {"attention": len(attention.SUPPORTED_HEAD_DIMS),
+                  "wide_attention": len(attention.WIDE_HEAD_DIMS), "row_norm": 2 * 2 * 4}
+WGMMA_LIBRARIES = ("attention", "wide_attention")
+
+
 def phase_build() -> None:
-    """One nvcc (a subprocess) per CUDA source and Triton's compiles run side
-    by side.  No attention instantiation may spill (the ptxas logs are
-    read), the D <= 128 kernel's `setmaxnreg` must not be ignored, and its
-    SASS must hold wgmma (HGMMA) and TMA loads (UTMALDG)."""
+    """One nvcc (a subprocess) per CUDA source, all started together, and
+    Triton's compiles run side by side.  No instantiation may spill (the
+    ptxas logs are read); each attention kernel's `setmaxnreg` must not be
+    ignored, and the SASS of each of its instantiations must hold wgmma
+    (HGMMA) and TMA loads (UTMALDG)."""
     def nvcc(name):
         t0 = time.perf_counter()
-        lib = attention.build_library(name)
+        lib = cuda_build.build_library(name)
         return lib, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(attention.SOURCES)) as pool:
-        jobs = {name: pool.submit(nvcc, name) for name in attention.SOURCES}
+    with ThreadPoolExecutor(len(cuda_build.SOURCES)) as pool:
+        jobs = {name: pool.submit(nvcc, name) for name in cuda_build.SOURCES}
         t_triton = _compile_triton()
         built = {name: job.result() for name, job in jobs.items()}
-    want = {"attention": attention.SUPPORTED_HEAD_DIMS, "wide_attention": attention.WIDE_HEAD_DIMS}
     for name, (lib, t_nvcc) in built.items():
-        attention._library(name)
+        cuda_build.entry(name)
         log = lib.with_suffix(".log").read_text()
         kernels = ptxas_counts(log)
         say(f"phase 2 build: nvcc {t_nvcc:.1f} s ({lib.name}); ptxas: "
             + " / ".join(f"{k}: {v}" for k, v in kernels.items()))
-        if len(kernels) != len(want[name]) or any(
+        if len(kernels) != INSTANTIATIONS[name] or any(
                 "0 bytes spill stores" not in v or "0 bytes spill loads" not in v
                 for v in kernels.values()):
-            raise AssertionError(f"an instantiation of {name} spills registers")
-        if name == "attention":
+            raise AssertionError(f"an instantiation of {name} spills registers, or "
+                                 f"{len(kernels)} instantiations (want {INSTANTIATIONS[name]})")
+        if name in WGMMA_LIBRARIES:
             if "setmaxnreg ignored" in log:
-                raise AssertionError("ptxas ignored the attention kernel's setmaxnreg")
+                raise AssertionError(f"ptxas ignored the {name} kernel's setmaxnreg")
             sass = sass_counts(lib)
-            say("phase 2 build: SASS of the D <= 128 kernel (cuobjdump -sass): "
+            say(f"phase 2 build: SASS of the {name} kernel (cuobjdump -sass): "
                 + " / ".join(f"{k}: {v['HGMMA']} HGMMA, {v['UTMALDG']} UTMALDG"
                              for k, v in sass.items()))
-            if len(sass) != len(want[name]) or not all(min(v.values()) for v in sass.values()):
-                raise AssertionError("an instantiation of the D <= 128 kernel lacks wgmma "
+            if len(sass) != INSTANTIATIONS[name] or not all(min(v.values())
+                                                            for v in sass.values()):
+                raise AssertionError(f"an instantiation of the {name} kernel lacks wgmma "
                                      "(HGMMA) or TMA loads (UTMALDG) in its SASS")
-    say(f"phase 2 build: triton {t_triton:.1f} s (row norm x{len(NORM_SHAPES)} shapes, fused "
-        "half + finish warm/cold), in parallel with nvcc")
+    say(f"phase 2 build: triton {t_triton:.1f} s (fused half + finish warm/cold), in parallel "
+        "with nvcc")
 
 
 def _instantiation(mangled: str) -> str:
-    """A kernel instantiation named by its template arguments (D, or D x
-    row groups)."""
+    """A kernel instantiation named by its template arguments: D for the
+    attention kernels, the mangled (x dtype, out dtype, vectors) for the
+    row norm."""
+    if "row_norm_kernelI" in mangled:
+        return "row_norm<" + mangled.split("row_norm_kernelI", 1)[1].split("EEv", 1)[0] + ">"
     args = re.findall(r"Li(\d+)E", mangled)
     return "D=" + "x".join(args) if args else mangled
 
@@ -373,7 +379,7 @@ def _instantiation(mangled: str) -> str:
 def sass_counts(lib) -> dict:
     """HGMMA (wgmma) and UTMALDG (TMA tensor load) instructions per kernel
     instantiation in a library's SASS, from the toolkit's cuobjdump."""
-    cuobjdump = os.path.join(os.path.dirname(attention._nvcc()), "cuobjdump")
+    cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
     out, name = {}, None
@@ -1076,7 +1082,7 @@ def kernels_line(rows: dict, launches: dict) -> list:
                            "lanpaint_tpu/models/layers.py:131 (_splash_kernel) via "
                            "lanpaint_tpu/models/vae.py:81 and lanpaint_tpu/models/video_vae.py:159",
                            ("wide_attention",)),
-        "row_norm": ("triton", "lanpaint_tpu_torch/ops/norms.py",
+        "row_norm": ("cuda", "lanpaint_tpu_torch/csrc/row_norm.cu",
                      "lanpaint_tpu/ops/norms.py:93", ("layernorm", "rmsnorm")),
         "fused_half_step": ("triton", "lanpaint_tpu_torch/ops/fused.py",
                             "lanpaint_tpu/ops/fused.py:239", ("fused_half_step",)),

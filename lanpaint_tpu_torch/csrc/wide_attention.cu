@@ -1,4 +1,5 @@
-// Wide-head attention forward for NVIDIA Hopper (sm_90a), bf16 in / bf16 out.
+// Wide-head attention forward for NVIDIA Hopper (sm_90a), bf16 in / bf16 out,
+// D = 384, 512 or 640.
 //
 // Replaces the Pallas TPU splash kernel (`_splash_attention` /
 // `_splash_kernel`, lanpaint_tpu/models/layers.py:103-173) where the VAEs'
@@ -9,333 +10,299 @@
 // 704x1280 for Wan2.2, 6,240 at 480x832 for Wan2.1).  It computes
 // non-causal softmax(Q K^T * scale) V with fp32 softmax and accumulation.
 //
-// What bounds it on this card: compute.  A call does 4 * B * S^2 * D flops
-// (550 GFLOP at S = 16,384, D = 512) and reads each K/V tile once per
-// query block, far above the H100's ~295 flop/byte ridge.
+// What bounds it on this card: a call does 4 * B * S^2 * D flops, far above
+// the H100's ~295 flop/byte ridge against device memory, so the tensor
+// cores bound it in principle.  But a block holds only 64 queries (Q alone
+// is 80 KB at D = 640) and streams every key and value past them, so each
+// call moves S / 64 times K and V from L2 to the SMs (~4.5 GB at (9, 3520,
+// 1, 640)): the L2-to-SM rate is the nearer limit.  The first design
+// (mma.sync from 32-bit shared-memory loads, every thread copying by cp.async,
+// three __syncthreads a tile, 32-query blocks at D = 640) reached 10-15% of
+// the bound.  This one takes from the D <= 128 kernel (attention.cu) what
+// fits a wide head:
+//   * TMA: one 4D tensor map per operand over (D, H, S, B) from the
+//     tensor's own strides (the video VAE's column slices of `to_qkv` need
+//     no copy), 64-column boxes under the 128-byte swizzle (a D = 640 row is
+//     10 boxes), into a ring of K and V stages, each completing on its own
+//     mbarrier (so Q K^T starts before V lands); rows past S arrive as
+//     zeros and keys past S are masked to -inf;
+//   * wgmma for both products, from two warpgroups that share the block's
+//     64 queries and split the output's D in halves: warpgroup c owns O's
+//     columns c * D/2 .. +D/2, 160 / 128 / 96 fp32 accumulators a thread (a
+//     whole row block would be D of them);
+//   * Q K^T is computed once: each warpgroup takes the partial scores over
+//     its own D half (m64n32k16, Q and K from shared memory), the two
+//     partials meet in shared memory (2 x 64 x 32 fp32), and each adds the
+//     other's to its own.  fp32 addition commutes exactly, so both hold
+//     bit-identical scores and run the same online softmax (exp2 with the
+//     scale folded into log2 units, 4-lane shuffles) with no further
+//     exchange; then O += P V over its half (P in registers, V read as it
+//     lies, m64n128k16 / m64n64k16);
+//   * no producer warp: ptxas allocates every thread of a block within the
+//     register budget of the whole block, 168 at 384 threads (one producer
+//     warpgroup and `setmaxnreg` 24 / 240 did not raise the consumers'
+//     allocation), and a D = 640 warpgroup needs ~207; so the block is the
+//     two warpgroups alone (256 threads, 255 registers), and warp 0 starts
+//     every TMA copy, one box a lane, at the exchange's barrier, where both
+//     warpgroups are past Q K^T of this tile and P V of the last, so the K
+//     stage just read and the V stage read last are free: no "empty"
+//     barriers, and each copy has about a tile (V) or two (K) to land.
+// Tiles: 64 queries and 32 keys a block (one wgmma M; a 32-key tile keeps
+// the scores at 16 registers a thread beside O's 160 at D = 640).  Shared
+// memory: Q, 2 K stages (1 at D = 640), 2 V stages and the 16 KB exchange:
+// 222,272 bytes at D = 640, 214,080 at 512, 164,928 at 384 (limit 232,448),
+// one block an SM.  Not done here (later levers, ROADMAP B.6): a cluster
+// of two blocks splitting the keys of one query tile when the grid is under
+// one wave ((1, 4096, 1, 512): 64 blocks on 132 SMs), TMA multicast of K/V
+// to a cluster pair (halving the L2-to-SM traffic), the softmax of one tile
+// overlapped with the next tile's products.
 //
-// Why a design of its own: the D <= 128 kernel (attention.cu) keeps a
-// warp's whole output row block, acc[D/8][4] fp32, in registers; at D = 512
-// that is 256 registers a thread before Q's fragments.  Here the output's D
-// is split across warps instead, in slices of 128 columns:
-//   * one block of kGroups x D/128 warps per (batch, head, 16*kGroups-query
-//     tile): warp w owns query rows 16*(w % kGroups) .. +16 and the D slice
-//     128*(w / kGroups) .. +128, so its accumulator is acc[16][4] (64
-//     registers), as the D = 128 kernel's;
-//   * per 32-key tile, each warp computes the partial scores of its 16 rows
-//     over its D slice (mma.sync m16n8k16 bf16, fp32 accumulate); the D/128
-//     partials of a row group meet in shared memory and every warp of the
-//     group sums them in the same order (slice 0, 1, ...), so all of them
-//     hold bit-identical scores and run the same online softmax (running
-//     max and sum in registers, exp2 with the scale folded into log2 units)
-//     with no further exchange; then P V on the warp's D slice.  Q K^T is
-//     computed once (no per-slice recomputation), so the flops are those of
-//     one pass;
-//   * Q (16*kGroups x D) stays in shared memory for the whole block; K and V
-//     tiles stream through a two-stage ring filled by cp.async (16-byte
-//     copies, the next tile in flight while this one is computed), V read
-//     row-major through ldmatrix.trans (no transposed copy); the partial
-//     scores reuse the current K buffer once every warp is done reading it;
-//   * q/k/v are read in the JAX layout (B, S, H, D) through element strides
-//     (the video VAE hands over column slices of one fused q|k|v
-//     projection), rows past S are zero-filled by the copy and keys past S
-//     are masked to -inf, which replaces the TPU path's segment-id padding.
-// The row groups a block holds are chosen per D so that the warps' registers
-// (at most 65,536 / threads each) and the shared memory, (16*kGroups + 4*32)
-// rows of D + 8 bf16, stay within one SM:
-//   D = 384: 4 groups x 3 slices = 12 warps, 150,528 bytes;
-//   D = 512: 4 groups x 4 slices = 16 warps, 199,680 bytes (the 128-register
-//            cap of a 512-thread block);
-//   D = 640: 2 groups x 5 slices = 10 warps, 207,360 bytes (4 groups would
-//            need 248,832, above the 232,448 a block may have).
-// All are above the 48 KB default (cudaFuncSetAttribute), one block an SM.
-// No TMA or wgmma yet.
-//
-// Interface: a plain C function (ctypes), launching on the caller's stream
-// and returning cudaGetLastError().
+// Interface: a plain C function (ctypes) with the D <= 128 kernel's
+// signature: the tensor maps' geometry comes from the caller
+// (ops/attention.py), the library links no libcuda (hopper.cuh), and it
+// launches on the caller's stream and returns a cudaError_t.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math_constants.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBlockN = 32;    // keys per tile
-constexpr int kSliceD = 128;   // D columns per warp
-constexpr int kPad = 8;        // bf16 elements of padding per shared-memory row
-constexpr int kVec = 8;        // bf16 elements per 16-byte copy
+using namespace lp;
 
-// The block shape for head dim D with kGroups row groups of 16 queries.
-template <int D, int kGroups>
-struct WideShape {
-  static_assert(D % kSliceD == 0, "D must be a multiple of 128");
-  static constexpr int kSlices = D / kSliceD;
-  static constexpr int kWarps = kGroups * kSlices;
-  static constexpr int kThreads = kWarps * 32;
-  static constexpr int kBlockM = 16 * kGroups;  // query rows per block
+constexpr int kBlockM = 64;    // queries a block: one wgmma M
+constexpr int kBlockN = 32;    // keys a K/V tile
+constexpr int kConsumers = 2;  // warpgroups, one per half of D
+constexpr int kThreads = kWarpgroup * kConsumers;
+constexpr int kScores = kBlockM * kBlockN / kWarpgroup;  // score registers a thread (16)
+constexpr uint32_t kBoxQ = kBlockM * kRowBytes;          // bytes of one Q box
+constexpr uint32_t kBoxKV = kBlockN * kRowBytes;         // bytes of one K or V box
+
+template <int D>
+struct Wide {
+  static constexpr int kHalf = D / kConsumers;        // O columns a warpgroup owns
+  static constexpr int kChunks = D / kBoxCols;        // boxes across a row
+  static constexpr int kN128 = kHalf / 128;           // m64n128 P V products a k-step
+  static constexpr int kN64 = (kHalf % 128) / 64;     // and m64n64 ones (0 or 1)
+  // ring depths (2 K stages would pass 232,448 bytes at D = 640; 3 and 3
+  // at D = 384 took the same time as 2 and 2, 1,972.0 against 1,980.7 us)
+  static constexpr int kKStages = D == 640 ? 1 : 2;
+  static constexpr int kVStages = 2;
+  static constexpr uint32_t kQBytes = kBlockM * D * 2;
+  static constexpr uint32_t kKVBytes = kBlockN * D * 2;  // one K or one V tile
+  static constexpr uint32_t kXBytes = kConsumers * kBlockM * kBlockN * 4;  // partial scores
+  static constexpr size_t kSmem = 1024 /* alignment */ + kQBytes +
+                                  size_t(kKStages + kVStages) * kKVBytes + kXBytes +
+                                  64 /* barriers */;
+  static_assert(kHalf % kBoxCols == 0, "a warpgroup's half of D is whole boxes");
+  static_assert(kN128 * 128 + kN64 * 64 == kHalf, "P V products cover the half");
+  static_assert(kSmem <= 232448, "shared memory per block");
 };
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
+// Called by every lane of warp 0: the K tile `k_tile` into K stage `ks`
+// and the V tile `v_tile` into V stage `vs` (each where >= 0), one box a
+// lane (K on lanes 0.., V on lanes 16..), so that a tile's copies leave in
+// one instruction and do not hold up the warp's warpgroup.
+template <int D>
+__device__ __forceinline__ void load_tiles(unsigned char* sK, unsigned char* sV,
+                                           const CUtensorMap* tk, const CUtensorMap* tv,
+                                           uint64_t* k_full, uint64_t* v_full, int k_tile,
+                                           int ks, int v_tile, int vs, int h, int b) {
+  using W = Wide<D>;
+  static_assert(W::kChunks <= 16, "a tile's boxes on 16 lanes");
+  const int lane = threadIdx.x % 32;
+  const bool is_k = lane < 16;
+  const int tile = is_k ? k_tile : v_tile;
+  const int box = lane % 16;
+  if (tile < 0) return;
+  uint64_t* bar = is_k ? &k_full[ks] : &v_full[vs];
+  if (box == 0) mbar_expect_tx(bar, W::kKVBytes);
+  if (box < W::kChunks)
+    tma_load_4d((is_k ? sK + ks * W::kKVBytes : sV + vs * W::kKVBytes) + box * kBoxKV,
+                is_k ? tk : tv, bar, box * kBoxCols, h, tile * kBlockN, b);
 }
 
-// Shared memory is addressed with 32-bit byte addresses (one register each,
-// where a generic pointer takes two): the kernel sits at the 128-register
-// cap of a 512-thread block (D = 512).
-__device__ __forceinline__ uint32_t lds_u32(uint32_t addr) {
-  uint32_t v;
-  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
-  return v;
-}
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+wide_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int S,
+                long long o_sb, long long o_ss, long long o_sh, float scale_log2) {
+  using W = Wide<D>;
+  constexpr int kKS = W::kKStages;
+  constexpr int kVS = W::kVStages;
 
-__device__ __forceinline__ float lds_f32(uint32_t addr) {
-  float v;
-  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
-  return v;
-}
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = align_1024(smem_raw);
+  unsigned char* sK = sQ + W::kQBytes;
+  unsigned char* sV = sK + kKS * W::kKVBytes;
+  float* sX = reinterpret_cast<float*>(sV + kVS * W::kKVBytes);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sV + kVS * W::kKVBytes + W::kXBytes);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = k_full + kKS;
 
-__device__ __forceinline__ void sts_f32(uint32_t addr, float v) {
-  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
-}
-
-// 16-byte global -> shared copy; zero-fills the destination when !valid.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Four 8x8 bf16 matrices, transposed on load: lanes 8i..8i+7 address the
-// rows of matrix i, and r[i] receives this lane's mma B fragment of it.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// D(16x8, f32) += A(16x16, bf16, row) * B(16x8, bf16, col)
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <int D, int kGroups>
-struct WideSmem {
-  static constexpr int kLd = D + kPad;               // row stride of every tile, in bf16
-  static constexpr int kRowBytes = 2 * kLd;
-  static constexpr int kTileBytes = kBlockN * kRowBytes;  // one K or V tile
-  // Q, K ring, V ring
-  static constexpr int kRows = WideShape<D, kGroups>::kBlockM + 2 * kBlockN + 2 * kBlockN;
-  static constexpr size_t kBytes = size_t(kRows) * kRowBytes;
-  static_assert(kBytes <= 232448, "above the shared memory a block may have");
-};
-
-// Copies of `rows` rows of D bf16 from `src` (row stride `ld` elements) to
-// shared memory at `dst`; rows at or past `valid_rows` are zero-filled.
-template <int D, int kGroups, int kRowsCopied>
-__device__ __forceinline__ void copy_rows(uint32_t dst, const __nv_bfloat16* src, long long ld,
-                                          int valid_rows, int tid) {
-  constexpr int kThreads = WideShape<D, kGroups>::kThreads;
-  constexpr int kVecPerRow = D / kVec;
-  static_assert(kRowsCopied * kVecPerRow % kThreads == 0, "whole 16-byte copies per thread");
-#pragma unroll 1
-  for (int it = 0; it < kRowsCopied * kVecPerRow / kThreads; ++it) {
-    const int idx = tid + it * kThreads;
-    const int r = idx / kVecPerRow;
-    const int c = (idx % kVecPerRow) * kVec;
-    const bool ok = r < valid_rows;
-    cp_async16(dst + r * WideSmem<D, kGroups>::kRowBytes + 2 * c, src + (ok ? r * ld : 0) + c,
-               ok);
-  }
-}
-
-template <int D, int kGroups>
-__global__ void __launch_bounds__(WideShape<D, kGroups>::kThreads, 1)
-wide_attn_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int S,
-                     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
-                     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-                     long long v_sh, long long o_sb, long long o_ss, long long o_sh,
-                     float scale_log2) {
-  using Sm = WideSmem<D, kGroups>;
-  using Sh = WideShape<D, kGroups>;
-  constexpr int kBlockM = Sh::kBlockM;
-  // the partial scores (every warp's 16 rows x kBlockN fp32) fit in one K tile
-  static_assert(sizeof(float) * Sh::kWarps * 16 * kBlockN <= Sm::kTileBytes,
-                "partial scores do not fit in a K tile");
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const uint32_t sQ = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
-  const uint32_t sK0 = sQ + kBlockM * Sm::kRowBytes;  // K ring: 2 tiles
-  const uint32_t sV0 = sK0 + 2 * Sm::kTileBytes;      // V ring: 2 tiles
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane >> 2;   // fragment row group
-  const int t4 = lane & 3;   // thread within the group
-  const int rg = warp % kGroups;  // this warp's 16 query rows: 16 * rg ..
-  const int dq = warp / kGroups;  // this warp's D slice: kSliceD * dq ..
   const int m0 = blockIdx.x * kBlockM;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
-
-  // Q tile and the first K/V tile, as one group.
-  copy_rows<D, kGroups, kBlockM>(sQ, q + b * q_sb + h * q_sh + m0 * q_ss, q_ss, S - m0, tid);
-  copy_rows<D, kGroups, kBlockN>(sK0, kb, k_ss, S, tid);
-  copy_rows<D, kGroups, kBlockN>(sV0, vb, v_ss, S, tid);
-  cp_async_commit();
-
-  float acc[kSliceD / 8][4];
-#pragma unroll
-  for (int j = 0; j < kSliceD / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  // running max (log2 units) and partial sum for rows g and g + 8
-  float row_max[2] = {-CUDART_INF_F, -CUDART_INF_F};
-  float row_sum[2] = {0.f, 0.f};
-
-  // this lane's A-fragment address (Q), B-fragment offset within a K tile,
-  // ldmatrix row offset within a V tile, and partial-score slot
-  const uint32_t q_frag = sQ + (rg * 16 + g) * Sm::kRowBytes + 2 * (dq * kSliceD + t4 * 2);
-  const uint32_t k_frag = g * Sm::kRowBytes + 2 * (dq * kSliceD + t4 * 2);
-  const int mat = lane >> 3;
-  const uint32_t v_frag =
-      ((mat & 1) * 8 + (lane & 7)) * Sm::kRowBytes + 2 * (dq * kSliceD + (mat >> 1) * 8);
-  const uint32_t part_w = 4 * (warp * 16 * 32 + lane);  // + 4 * 32 * (nt * 4 + e)
-  // + 4 * 32 * (qd * kGroups * 16 + nt * 4 + e)
-  const uint32_t part_r = 4 * (rg * 16 * 32 + lane);
-
   const int n_tiles = (S + kBlockN - 1) / kBlockN;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int n0 = t * kBlockN;
-    const uint32_t slot = (t & 1) * Sm::kTileBytes;
-    cp_async_wait_all();  // this thread's copies of tile t have landed
-    __syncthreads();      // everyone's have; every warp is done with tile t - 1
-    if (t + 1 < n_tiles) {  // the next tile streams in while this one is computed
-      const uint32_t next = Sm::kTileBytes - slot;
-      copy_rows<D, kGroups, kBlockN>(sK0 + next, kb + (n0 + kBlockN) * k_ss, k_ss,
-                                     S - n0 - kBlockN, tid);
-      copy_rows<D, kGroups, kBlockN>(sV0 + next, vb + (n0 + kBlockN) * v_ss, v_ss,
-                                     S - n0 - kBlockN, tid);
-      cp_async_commit();
-    }
-    const uint32_t sK = sK0 + slot;
+  const int wg = threadIdx.x / kWarpgroup;
+  const int tid = threadIdx.x % kWarpgroup;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane >> 2;  // fragment row group
+  const int t4 = lane & 3;  // thread within the group
+  const int box0 = wg * (W::kHalf / kBoxCols);  // this half's first box
+  const bool loader = threadIdx.x < 32;         // warp 0 starts every TMA copy
 
-    // Partial scores: 16 rows x 32 keys over this warp's D slice.
-    float s[kBlockN / 8][4];
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kKS; ++s) mbar_init(&k_full[s], 1);
+    for (int s = 0; s < kVS; ++s) mbar_init(&v_full[s], 1);
+    mbar_init_fence();
+    mbar_expect_tx(q_full, W::kQBytes);
+  }
+  __syncwarp();
+  if (loader) {
+    if (lane < W::kChunks) tma_load_4d(sQ + lane * kBoxQ, &tq, q_full, lane * kBoxCols, h, m0, b);
+    for (int t = 0; t < kKS || t < kVS; ++t)
+      load_tiles<D>(sK, sV, &tk, &tv, k_full, v_full, t < kKS && t < n_tiles ? t : -1, t,
+                    t < kVS && t < n_tiles ? t : -1, t, h, b);
+  }
+  __syncthreads();
+
+  // O: rows g and g + 8 of this warp's 16, columns by n-tile of 8
+  float acc[W::kN128][64];
+  float acc64[W::kN64 > 0 ? W::kN64 : 1][32];
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll 2
-    for (int kk = 0; kk < kSliceD / 16; ++kk) {
-      const uint32_t pq = q_frag + 32 * kk;
-      const uint32_t qa[4] = {lds_u32(pq), lds_u32(pq + 8 * Sm::kRowBytes), lds_u32(pq + 16),
-                              lds_u32(pq + 8 * Sm::kRowBytes + 16)};
+  for (int n = 0; n < W::kN128; ++n)
 #pragma unroll
-      for (int nt = 0; nt < kBlockN / 8; ++nt) {
-        const uint32_t pk = sK + k_frag + nt * 8 * Sm::kRowBytes + 32 * kk;
-        mma_16816(s[nt], qa, lds_u32(pk), lds_u32(pk + 16));
+    for (int i = 0; i < 64; ++i) acc[n][i] = 0.f;
+  if constexpr (W::kN64 > 0) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc64[0][i] = 0.f;
+  }
+  float row_max[2] = {-CUDART_INF_F, -CUDART_INF_F};  // log2 units
+  float row_sum[2] = {0.f, 0.f};  // this thread's partial sums
+  float* x_mine = sX + wg * kScores * kWarpgroup + tid;
+  const float* x_other = sX + (1 - wg) * kScores * kWarpgroup + tid;
+
+  mbar_wait(q_full, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int ks = j % kKS;
+    const int vs = j % kVS;
+    const unsigned char* k_tile = sK + ks * W::kKVBytes;
+    const unsigned char* v_tile = sV + vs * W::kKVBytes;
+
+    // Partial S = Q K^T over this half of D: 64 x 32 fp32, kHalf / 16
+    // k-steps; a k-step is 32 bytes into a 128-byte swizzled box row.  The
+    // descriptors are offsets from two made in this tile (`opaque`): hoisted
+    // out of the loop, the 2 x kHalf / 16 of them would stay in registers
+    // beside O's.
+    const uint64_t dq = make_desc(opaque(smem_u32(sQ) + box0 * kBoxQ), 16, 8 * kRowBytes);
+    const uint64_t dk = make_desc(opaque(smem_u32(k_tile) + box0 * kBoxKV), 16, 8 * kRowBytes);
+    float sc[kScores];
+    mbar_wait(&k_full[ks], (j / kKS) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < W::kHalf / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      wgmma_ss_n32(sc, dq + (((kk / 4) * kBoxQ + off) >> 4),
+                   dk + (((kk / 4) * kBoxKV + off) >> 4), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // The two halves meet: thread tid of either warpgroup holds the same
+    // (row, key) positions, so each writes its partials in register order
+    // and reads the other's from the same slots.
+    if (j > 0) __syncthreads();  // last tile's reads of the exchange are done
+#pragma unroll
+    for (int i = 0; i < kScores; ++i) x_mine[i * kWarpgroup] = sc[i];
+    __syncthreads();
+    // Both warpgroups are past Q K^T_j and P V_{j-1}: K stage ks and V
+    // stage (j - 1) % kVS are free, and the next tiles go into them.
+    if (loader) {
+      const int t = j - 1 + kVS;
+      load_tiles<D>(sK, sV, &tk, &tv, k_full, v_full, j + kKS < n_tiles ? j + kKS : -1, ks,
+                    j > 0 && t < n_tiles ? t : -1, t % kVS, h, b);
+    }
+#pragma unroll
+    for (int i = 0; i < kScores; ++i) sc[i] += x_other[i * kWarpgroup];
+
+    // Keys past S (last tile only) to -inf, then the online softmax in
+    // log2 units.  Register i holds row g + 8 ((i >> 1) & 1), key
+    // 8 (i >> 2) + 2 t4 + (i & 1) of the tile.
+    if ((j + 1) * kBlockN > S) {
+#pragma unroll
+      for (int i = 0; i < kScores; ++i) {
+        const int key = j * kBlockN + 8 * (i >> 2) + 2 * t4 + (i & 1);
+        if (key >= S) sc[i] = -CUDART_INF_F;
       }
     }
-
-    // The D/128 partials of a row group meet in the K tile (no longer read),
-    // in fragment order: part[warp][nt * 4 + e][lane].
-    __syncthreads();
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sts_f32(sK + part_w + 128 * (nt * 4 + e), s[nt][e]);
-    __syncthreads();
-    // Every warp of the group sums the same partials in the same order.
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll 1
-    for (int qd = 0; qd < Sh::kSlices; ++qd) {
-#pragma unroll
-      for (int nt = 0; nt < kBlockN / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[nt][e] += lds_f32(sK + part_r + 128 * (qd * kGroups * 16 + nt * 4 + e));
-    }
-
-    // Scale into log2 units, mask keys past S, update the running max.
-    float mx[2] = {row_max[0], row_max[1]};
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = n0 + nt * 8 + t4 * 2 + (e & 1);
-        const float val = key < S ? s[nt][e] * scale_log2 : -CUDART_INF_F;
-        s[nt][e] = val;
-        mx[e >> 1] = fmaxf(mx[e >> 1], val);
-      }
-    }
+    for (int i = 0; i < kScores; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
     float alpha[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      // every tile holds at least one valid key, so mx is finite here
-      alpha[r] = exp2f(row_max[r] - mx[r]);
-      row_max[r] = mx[r];
+      // every tile holds at least one key < S, so the new max is finite
+      const float m_new = fmaxf(row_max[r], mx[r] * scale_log2);
+      alpha[r] = exp2f(row_max[r] - m_new);
+      row_max[r] = m_new;
+      row_sum[r] *= alpha[r];
     }
-    float tile_sum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[nt][e] - mx[e >> 1]);
-        s[nt][e] = p;
-        tile_sum[e >> 1] += p;
-      }
+    for (int i = 0; i < kScores; ++i) {
+      const int r = (i >> 1) & 1;
+      sc[i] = exp2f(fmaf(sc[i], scale_log2, -row_max[r]));
+      row_sum[r] += sc[i];
     }
-    row_sum[0] = row_sum[0] * alpha[0] + tile_sum[0];
-    row_sum[1] = row_sum[1] * alpha[1] + tile_sum[1];
 #pragma unroll
-    for (int j = 0; j < kSliceD / 8; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
+    for (int n = 0; n < W::kN128; ++n)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[n][i] *= alpha[(i >> 1) & 1];
+    if constexpr (W::kN64 > 0) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc64[0][i] *= alpha[(i >> 1) & 1];
     }
 
-    // O += P V on this warp's D slice: the S accumulators of two n-tiles
-    // form one A fragment; V's B fragments come row-major via ldmatrix.trans,
-    // two n-tiles per load (lanes 0-7 / 8-15: keys 0-7 / 8-15 of n-tile j,
-    // lanes 16-31: the same keys of n-tile j + 1).
-    const uint32_t sV = sV0 + slot + v_frag;
+    // O += P V over this half: the S accumulators of two 8-key n-tiles
+    // form one bf16 A fragment; V is the MN-major B operand (LBO: the next
+    // 64 columns, one box; SBO: the next 8 keys), 16 keys = 2,048 bytes a
+    // k-step.
+    uint32_t pa[kBlockN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBlockN / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = pack_bf16x2(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+    mbar_wait(&v_full[vs], (j / kVS) & 1);
+#pragma unroll
+    for (int n = 0; n < W::kN128; ++n) fence_regs(acc[n]);
+    if constexpr (W::kN64 > 0) fence_regs(acc64[0]);
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      const uint64_t dv = make_desc(opaque(smem_u32(v_tile) + box0 * kBoxKV), kBoxKV,
+                                    8 * kRowBytes) + ((kk * 16 * kRowBytes) >> 4);
 #pragma unroll
-      for (int j = 0; j < kSliceD / 8; j += 2) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, sV + kk * 16 * Sm::kRowBytes + 16 * j);
-        mma_16816(acc[j], pa, vf[0], vf[1]);
-        mma_16816(acc[j + 1], pa, vf[2], vf[3]);
-      }
+      for (int n = 0; n < W::kN128; ++n) wgmma_rs(acc[n], pa[kk], dv + ((2 * n * kBoxKV) >> 4));
+      if constexpr (W::kN64 > 0)
+        wgmma_rs(acc64[0], pa[kk], dv + ((2 * W::kN128 * kBoxKV) >> 4));
     }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int n = 0; n < W::kN128; ++n) fence_regs(acc[n]);
+    if constexpr (W::kN64 > 0) fence_regs(acc64[0]);
   }
 
-  // Full row sums across the 4 threads of a row group, then normalize.
+  // Full row sums across the 4 threads of a row group, then normalise and
+  // store the rows < S.
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -344,56 +311,78 @@ wide_attn_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     t += __shfl_xor_sync(0xffffffffu, t, 2);
     inv[r] = 1.f / t;
   }
-  __nv_bfloat16* ob = o + b * o_sb + h * o_sh;
-  const int row0 = m0 + rg * 16 + g;
+  const int row0 = m0 + warp * 16 + g;
+  __nv_bfloat16* ob = o + b * o_sb + h * o_sh + wg * W::kHalf + t4 * 2;
+  __nv_bfloat16* o_lo = ob + (long long)row0 * o_ss;
+  __nv_bfloat16* o_hi = ob + (long long)(row0 + 8) * o_ss;
 #pragma unroll
-  for (int j = 0; j < kSliceD / 8; ++j) {
-    const int col = dq * kSliceD + j * 8 + t4 * 2;
-    if (row0 < S) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row0 * o_ss + col) =
-          __floats2bfloat162_rn(acc[j][0] * inv[0], acc[j][1] * inv[0]);
+  for (int n = 0; n < W::kN128; ++n)
+#pragma unroll
+    for (int n8 = 0; n8 < 16; ++n8) {
+      const int col = n * 128 + n8 * 8;
+      if (row0 < S)
+        *reinterpret_cast<__nv_bfloat162*>(o_lo + col) =
+            __floats2bfloat162_rn(acc[n][4 * n8] * inv[0], acc[n][4 * n8 + 1] * inv[0]);
+      if (row0 + 8 < S)
+        *reinterpret_cast<__nv_bfloat162*>(o_hi + col) =
+            __floats2bfloat162_rn(acc[n][4 * n8 + 2] * inv[1], acc[n][4 * n8 + 3] * inv[1]);
     }
-    if (row0 + 8 < S) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)(row0 + 8) * o_ss + col) =
-          __floats2bfloat162_rn(acc[j][2] * inv[1], acc[j][3] * inv[1]);
+  if constexpr (W::kN64 > 0) {
+#pragma unroll
+    for (int n8 = 0; n8 < 8; ++n8) {
+      const int col = W::kN128 * 128 + n8 * 8;
+      if (row0 < S)
+        *reinterpret_cast<__nv_bfloat162*>(o_lo + col) =
+            __floats2bfloat162_rn(acc64[0][4 * n8] * inv[0], acc64[0][4 * n8 + 1] * inv[0]);
+      if (row0 + 8 < S)
+        *reinterpret_cast<__nv_bfloat162*>(o_hi + col) =
+            __floats2bfloat162_rn(acc64[0][4 * n8 + 2] * inv[1], acc64[0][4 * n8 + 3] * inv[1]);
     }
   }
 }
 
-template <int D, int kGroups>
+// ---- host side -------------------------------------------------------------
+
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-                   const long long* st, float scale, cudaStream_t stream) {
-  using Sh = WideShape<D, kGroups>;
-  const size_t smem = WideSmem<D, kGroups>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      wide_attn_fwd_kernel<D, kGroups>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((S + Sh::kBlockM - 1) / Sh::kBlockM, H, B);
+                   const long long* geom, long long o_sb, long long o_ss, long long o_sh,
+                   float scale, cudaStream_t stream) {
+  using W = Wide<D>;
+  // the geometry must be the one this instantiation reads: the problem's
+  // dims and 64-column boxes of kBlockM (Q) or kBlockN (K, V) rows
+  CUtensorMap maps[3];
+  if (!geometry_matches(geom, B, S, H, D, kBlockM, kBlockN) || !encode_qkv(maps, q, k, v, geom))
+    return cudaErrorInvalidValue;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        wide_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)W::kSmem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid((S + kBlockM - 1) / kBlockM, H, B);
   const float log2e = 1.4426950408889634f;
-  wide_attn_fwd_kernel<D, kGroups><<<grid, Sh::kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, st[0], st[1],
-      st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale * log2e);
+  wide_fwd_kernel<D><<<grid, kThreads, W::kSmem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), S, o_sb, o_ss, o_sh,
+      scale * log2e);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, o: (B, S, H, D) bf16 with unit stride along D; strides in elements
-// as (batch, seq, head) for q, k, v, o in that order.  Returns a cudaError_t.
+// q, k, v: (B, S, H, D) bf16 tensors described by `geom` (3 x 11 int64s:
+// for q, k, v in turn dims (D, H, S, B), byte strides of H, S and B, and
+// the box (64, 1, rows, 1): 64 rows for q, 32 for k and v); o: (B, S, H, D)
+// bf16 with unit stride along D and element strides (batch, seq, head).
+// Returns a cudaError_t.
 extern "C" int lp_wide_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                     int B, int S, int H, int D, long long q_sb,
-                                     long long q_ss, long long q_sh, long long k_sb,
-                                     long long k_ss, long long k_sh, long long v_sb,
-                                     long long v_ss, long long v_sh, long long o_sb,
-                                     long long o_ss, long long o_sh, float scale,
-                                     void* stream) {
-  const long long st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-                            v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
+                                     int B, int S, int H, int D, const long long* geom,
+                                     long long o_sb, long long o_ss, long long o_sh,
+                                     float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || S <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  if (D == 384) return (int)launch<384, 4>(q, k, v, o, B, S, H, st, scale, s);
-  if (D == 512) return (int)launch<512, 4>(q, k, v, o, B, S, H, st, scale, s);
-  if (D == 640) return (int)launch<640, 2>(q, k, v, o, B, S, H, st, scale, s);
+  if (D == 384) return (int)launch<384>(q, k, v, o, B, S, H, geom, o_sb, o_ss, o_sh, scale, s);
+  if (D == 512) return (int)launch<512>(q, k, v, o, B, S, H, geom, o_sb, o_ss, o_sh, scale, s);
+  if (D == 640) return (int)launch<640>(q, k, v, o, B, S, H, geom, o_sb, o_ss, o_sh, scale, s);
   return (int)cudaErrorInvalidValue;
 }

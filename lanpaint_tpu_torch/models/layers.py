@@ -10,7 +10,7 @@ GroupNorm and the row norms compute their statistics in fp32.
 
 Self-attention goes through the hand-written flash-attention kernel
 (ops/attention.py) and every transformer LayerNorm and RMSNorm through the
-Triton row norm (ops/norms.py); the 77-token cross-attention stays plain
+row-norm kernel (ops/norms.py); the 77-token cross-attention stays plain
 PyTorch, as the JAX package leaves it to XLA.
 """
 

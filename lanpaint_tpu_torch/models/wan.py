@@ -17,7 +17,7 @@ TI2V-5B's S = 7,920, D = 128 the flash-attention kernel, the ragged tail
 masked in the kernel); `norm1` / `norm2` / the head's `layernorm_na` and
 `norm3`'s `LayerNormF32` through the row-norm kernel; and `_WanQKNorm`,
 RMS over the full projection width before the head reshape, through the
-same Triton row norm in its RMS mode with a scale (`ops.norms.rmsnorm`, one
+same row-norm kernel in its RMS mode with a scale (`ops.norms.rmsnorm`, one
 launch, counted in `rmsnorm.launches`).  Cross-attention over the 512 text
 tokens (Sk != S) takes `attention_ref`, as the JAX package leaves it to XLA.
 

@@ -30,50 +30,31 @@ Head dims above 128 take `wide_attention` (`csrc/wide_attention.cu`):
 the VAEs' mid attention, one head of D = 512 in the image VAE
 (`lanpaint_tpu/models/vae.py:81`) and of D = 384 / 640 in the Wan2.1 /
 Wan2.2 video VAEs (`lanpaint_tpu/models/video_vae.py:159`), where the TPU
-path reaches the splash kernel.  A D <= 128 consumer keeps its whole
-output row block in registers, 256 of them a thread at D = 512, so that
-kernel splits the output's D across warps in slices of 128 columns instead
-and sums the warps' partial scores in shared memory (its source says how).
+path reaches the splash kernel.  A consumer warpgroup of the D <= 128
+kernel keeps its whole output row block in registers, D / 2 of them a
+thread, so the wide kernel's two consumers share one 64-query tile and
+split the output's D in halves, and add their partial scores in shared
+memory (its source says how).  It is built from the same parts (TMA,
+`wgmma`, mbarriers) and reads the same tensor maps, with 64-row Q boxes
+and 32-row K/V boxes (`WIDE_BLOCK_M`, `WIDE_BLOCK_N`).
 
-Each source is built with nvcc into its own library at first use, into
-`lanpaint_tpu_torch/_build/` (ignored by git), keyed by a hash of the
-source, and loaded with ctypes.  The D <= 128 library reaches the driver's
+Each source is built with nvcc into its own library at first use
+(`ops/cuda_build.py`); the libraries reach the driver's
 `cuTensorMapEncodeTiled` through `cudaGetDriverEntryPoint` at run time and
-links no libcuda.
+link no libcuda.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 from typing import Optional
 
 import torch
 
-_PKG_DIR = Path(__file__).resolve().parent.parent
-_PTR = ctypes.c_void_p
+from . import cuda_build
+
 _I64 = ctypes.c_longlong
-# (q, k, v, out, B, S, H, D) + the layout arguments + (scale, stream)
-_HEAD = [_PTR] * 4 + [ctypes.c_int] * 4
-_TAIL = [ctypes.c_float, _PTR]
-# library name -> (CUDA source, its C entry point, the entry point's argtypes):
-# the D <= 128 kernel takes the tensor maps' geometry and out's strides,
-# the wide-head kernel the element strides of q, k, v and out
-SOURCES = {
-    "attention": (_PKG_DIR / "csrc" / "attention.cu", "lp_flash_attention_fwd",
-                  _HEAD + [ctypes.POINTER(_I64)] + [_I64] * 3 + _TAIL),
-    "wide_attention": (_PKG_DIR / "csrc" / "wide_attention.cu", "lp_wide_attention_fwd",
-                       _HEAD + [_I64] * 12 + _TAIL),
-}
-BUILD_DIR = _PKG_DIR / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SUPPORTED_HEAD_DIMS = (64, 128)
 WIDE_HEAD_DIMS = (384, 512, 640)
 # The D <= 128 kernel's tiles (csrc/attention.cu checks that the geometry
@@ -82,26 +63,31 @@ WIDE_HEAD_DIMS = (384, 512, 640)
 BLOCK_M = 128
 BLOCK_N = 128
 BOX_COLS = 64
+# the wide-head kernel's (csrc/wide_attention.cu): 64 queries, 32-key tiles
+WIDE_BLOCK_M = 64
+WIDE_BLOCK_N = 32
+# each kernel's head dims and (q, k/v) box rows, by wrapper name
+KERNELS = {"flash_attention": (SUPPORTED_HEAD_DIMS, BLOCK_M, BLOCK_N),
+           "wide_attention": (WIDE_HEAD_DIMS, WIDE_BLOCK_M, WIDE_BLOCK_N)}
 
-_LIBS: dict = {}
 
-
-def tma_geometry(shape, strides, data_ptr: int, rows: int) -> tuple:
-    """The 4D TMA tensor map of one (B, S, H, D) bf16 operand of the D <= 128
-    kernel, from its shape, element strides and data pointer alone:
-    (dims, byte strides, box), with dims (D, H, S, B) innermost first, the
-    byte strides of H, S and B, and a box of (BOX_COLS, 1, rows, 1)
-    elements (a D = 128 row is two boxes).  A dim of extent 1 is never
-    stepped, so its stride is taken as packed.
+def tma_geometry(shape, strides, data_ptr: int, rows: int,
+                 head_dims: tuple = SUPPORTED_HEAD_DIMS) -> tuple:
+    """The 4D TMA tensor map of one (B, S, H, D) bf16 operand of an
+    attention kernel, from its shape, element strides and data pointer
+    alone: (dims, byte strides, box), with dims (D, H, S, B) innermost
+    first, the byte strides of H, S and B, and a box of (BOX_COLS, 1, rows,
+    1) elements (a D = 128 row is two boxes, a D = 640 row ten).  A dim of
+    extent 1 is never stepped, so its stride is taken as packed.
 
     Raises ValueError for a layout TMA cannot take: a head dim outside
-    SUPPORTED_HEAD_DIMS or not of unit stride, a base address that is not
-    16-byte aligned, or a stride that is not a positive multiple of 16 bytes
-    (8 bf16 elements) below 2^40."""
+    `head_dims` (the D <= 128 kernel's by default) or not of unit stride, a
+    base address that is not 16-byte aligned, or a stride that is not a
+    positive multiple of 16 bytes (8 bf16 elements) below 2^40."""
     b, s, h, d = shape
-    if d not in SUPPORTED_HEAD_DIMS or strides[3] != 1:
+    if d not in head_dims or strides[3] != 1:
         raise ValueError(f"TMA layout: head dim {d} with stride {strides[3]}; the kernel takes "
-                         f"{SUPPORTED_HEAD_DIMS} with unit stride")
+                         f"{head_dims} with unit stride")
     if data_ptr % 16:
         raise ValueError(f"TMA layout: base address {data_ptr:#x} is not 16-byte aligned")
     byte_strides = []
@@ -116,10 +102,12 @@ def tma_geometry(shape, strides, data_ptr: int, rows: int) -> tuple:
     return (d, h, s, b), tuple(byte_strides), (BOX_COLS, 1, rows, 1)
 
 
-def _tma_geometries(q, k, v):
-    """q's, k's and v's geometry as the kernel's int64 array (3 x 11)."""
-    vals = [x for t, rows in ((q, BLOCK_M), (k, BLOCK_N), (v, BLOCK_N))
-            for part in tma_geometry(t.shape, t.stride(), t.data_ptr(), rows) for x in part]
+def _tma_geometries(q, k, v, head_dims=SUPPORTED_HEAD_DIMS, block_m=BLOCK_M, block_n=BLOCK_N):
+    """q's, k's and v's geometry as the kernel's int64 array (3 x 11): boxes
+    of `block_m` rows for q and `block_n` for k and v."""
+    vals = [x for t, rows in ((q, block_m), (k, block_n), (v, block_n))
+            for part in tma_geometry(t.shape, t.stride(), t.data_ptr(), rows, head_dims)
+            for x in part]
     return (_I64 * len(vals))(*vals)
 
 
@@ -132,52 +120,6 @@ def attention_ref(q, k, v, scale: Optional[float] = None):
     qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
     probs = torch.softmax((qf @ kf.transpose(-1, -2)) * scale, dim=-1)
     return (probs @ vf).transpose(1, 2).to(q.dtype)
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return os.path.join(home, "bin", "nvcc")
-
-
-def build_library(name: str = "attention", defines: tuple = ()) -> Path:
-    """Compile one CUDA source of SOURCES into a shared library unless a
-    build for the same source bytes and flags exists; returns its path.
-    `defines` ("NAME=VALUE") are passed as -D flags (a measurement's
-    variant of a kernel).  The compiler's output (ptxas register and spill
-    counts) is kept beside it as `<name>.log`."""
-    source = SOURCES[name][0]
-    flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
-    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode())
-    lib_path = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
-    if lib_path.exists():
-        return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *flags, "-o", tmp, str(source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    lib_path.with_suffix(".log").write_text(log)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed building {source.name}:\n{log}")
-    os.replace(tmp, lib_path)
-    return lib_path
-
-
-def _library(name: str = "attention"):
-    """The loaded library `name`, built first if need be, with its one entry
-    point's argtypes set (SOURCES)."""
-    if name not in _LIBS:
-        lib = ctypes.CDLL(str(build_library(name)))
-        fn = getattr(lib, SOURCES[name][1])
-        fn.argtypes = SOURCES[name][2]
-        fn.restype = ctypes.c_int
-        _LIBS[name] = lib
-    return _LIBS[name]
 
 
 def _check_cuda_inputs(op: str, q, k, v, head_dims):
@@ -198,34 +140,22 @@ def _check_cuda_inputs(op: str, q, k, v, head_dims):
         raise ValueError(f"{op}: head dim {q.shape[-1]} not in {head_dims}")
 
 
-def _entry(name: str):
-    """The C entry point of library `name`."""
-    return getattr(_library(name), SOURCES[name][1])
-
-
-def _launch(op, entry, q, k, v, scale, layout_args):
-    """Allocate the output and launch a kernel through its C `entry` point
-    on the current stream; `layout_args(out)` gives the entry point's
-    arguments that describe the operands' layout.  Raises on a refused
-    launch."""
+def _tma_launch(op, entry, q, k, v, scale):
+    """Check q/k/v, compute their tensor maps' geometry for kernel `op`
+    (KERNELS), allocate the output and launch through the C `entry` point
+    (a build of the kernel's source) on the current stream.  Raises on a
+    refused launch."""
+    head_dims, block_m, block_n = KERNELS[op]
+    _check_cuda_inputs(op, q, k, v, head_dims)
+    geom = _tma_geometries(q, k, v, head_dims, block_m, block_n)
     b, s, h, d = q.shape
     scale = (1.0 / math.sqrt(d)) if scale is None else float(scale)
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    err = entry(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, d,
-        *layout_args(out), scale, torch.cuda.current_stream(q.device).cuda_stream)
+    err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, d, geom,
+                *out.stride()[:3], scale, cuda_build.stream_handle(q.device))
     if err != 0:
         raise RuntimeError(f"{op} kernel launch failed: CUDA error {err}")
     return out
-
-
-def _flash_launch(entry, q, k, v, scale):
-    """Check q/k/v, compute their tensor maps' geometry and launch the
-    D <= 128 kernel through `entry` (a build of csrc/attention.cu)."""
-    _check_cuda_inputs("flash_attention", q, k, v, SUPPORTED_HEAD_DIMS)
-    geom = _tma_geometries(q, k, v)
-    return _launch("flash_attention", entry, q, k, v, scale,
-                   lambda out: (geom, *out.stride()[:3]))
 
 
 def flash_attention(q, k, v, scale: Optional[float] = None):
@@ -238,7 +168,7 @@ def flash_attention(q, k, v, scale: Optional[float] = None):
         return attention_ref(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    out = _flash_launch(_entry("attention"), q, k, v, scale)
+    out = _tma_launch("flash_attention", cuda_build.entry("attention"), q, k, v, scale)
     flash_attention.launches += 1
     return out
 
@@ -251,16 +181,13 @@ def wide_attention(q, k, v, scale: Optional[float] = None):
     (D in WIDE_HEAD_DIMS) -> (B, S, H, D).
 
     A CPU tensor takes `attention_ref`.  A CUDA tensor launches the
-    wide-head Hopper kernel (bf16) or raises.  Each launch adds one to
-    `wide_attention.launches`."""
+    wide-head Hopper kernel (bf16, a layout `tma_geometry` takes) or
+    raises.  Each launch adds one to `wide_attention.launches`."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"wide_attention: unsupported device {q.device}")
-    _check_cuda_inputs("wide_attention", q, k, v, WIDE_HEAD_DIMS)
-    out = _launch("wide_attention", _entry("wide_attention"), q, k, v, scale,
-                  lambda out: [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                               *out.stride()[:3]])
+    out = _tma_launch("wide_attention", cuda_build.entry("wide_attention"), q, k, v, scale)
     wide_attention.launches += 1
     return out
 

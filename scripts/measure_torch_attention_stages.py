@@ -18,7 +18,6 @@ and stage count, after the card's nvidia-smi name and power limit.
 """
 
 import argparse
-import ctypes
 import json
 import math
 import os
@@ -30,7 +29,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import torch  # noqa: E402
 
-from lanpaint_tpu_torch.ops import attention  # noqa: E402
+from lanpaint_tpu_torch.ops import attention, cuda_build  # noqa: E402
 
 SHAPES = {64: [(1, 4096, 10, 64), (1, 1024, 20, 64), (2, 1000, 4, 64)],
           128: [(1, 4608, 24, 128), (1, 7920, 24, 128), (2, 1000, 4, 128)]}
@@ -49,15 +48,6 @@ def device_us(fn, n: int = 20) -> float:
     return 1e3 * start.elapsed_time(end) / n
 
 
-def entry(defines):
-    """The kernel's C entry point in a build with `defines`."""
-    fn = getattr(ctypes.CDLL(str(attention.build_library("attention", defines))),
-                 attention.SOURCES["attention"][1])
-    fn.argtypes = attention.SOURCES["attention"][2]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--d64", type=int, nargs="+", default=[2, 3, 4, 6])
@@ -71,8 +61,8 @@ def main() -> int:
     variants = [(64, n) for n in args.d64] + [(128, n) for n in args.d128]
     defines = {v: (f"LP_ATTN_STAGES_D{v[0]}={v[1]}",) for v in variants}
     with ThreadPoolExecutor(len(variants)) as pool:  # one nvcc each, side by side
-        list(pool.map(lambda v: attention.build_library("attention", defines[v]), variants))
-    fns = {v: entry(defines[v]) for v in variants}
+        list(pool.map(lambda v: cuda_build.build_library("attention", defines[v]), variants))
+    fns = {v: cuda_build.load_entry("attention", defines[v]) for v in variants}
     gen = torch.Generator(device="cuda").manual_seed(0)
     for d, shapes in SHAPES.items():
         stages = [n for dd, n in variants if dd == d]
@@ -80,7 +70,8 @@ def main() -> int:
             qkv = torch.randn((b, s, 3 * h * d), device="cuda", generator=gen).to(torch.bfloat16)
             q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.chunk(3, dim=-1))
             want = attention.attention_ref(q.float(), k.float(), v.float())
-            runs = {n: (lambda fn=fns[(d, n)]: attention._flash_launch(fn, q, k, v, None))
+            runs = {n: (lambda fn=fns[(d, n)]: attention._tma_launch("flash_attention", fn, q,
+                                                                     k, v, None))
                     for n in stages}
             err = {n: float((runs[n]().float() - want).abs().max()) for n in stages}
             del want

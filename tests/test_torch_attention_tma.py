@@ -206,3 +206,112 @@ def test_wan_self_attention_layouts(recorded):
     assert len(recorded) == 1
     for shape, stride, _ in recorded[0]:
         assert shape == (1, 1024, 2, 128) and stride == (1024 * 256, 256, 128, 1)
+
+
+# ---- the wide-head kernel (csrc/wide_attention.cu): D = 384 / 512 / 640 ----
+
+def _vae_views(b, s, d, device="meta"):
+    """The VAEs' mid-attention operands at one head: the video VAE's
+    (B*T, S, 1, 3D) `to_qkv` output split three ways, or the image VAE's
+    three dense projections viewed as (B, S, 1, D)."""
+    if d in (384, 640):
+        qkv = torch.empty((b, s, 1, 3 * d), dtype=torch.bfloat16, device=device)
+        return list(qkv.chunk(3, dim=-1))
+    return [torch.empty((b, s, d), dtype=torch.bfloat16, device=device).view(b, s, 1, d)
+            for _ in range(3)]
+
+
+WIDE_LAYOUTS = {  # name: (q, k, v) at a main path's full size
+    "wan22_vae_d640": lambda: _vae_views(9, 3520, 640),   # 704x1280 x 33 frames
+    "wan21_vae_d384": lambda: _vae_views(9, 6240, 384),   # 480x832 x 33 frames
+    "sdxl_vae_d512": lambda: _vae_views(1, 16384, 512),   # 1024^2
+    "sdxl_vae_d512_s4096": lambda: _vae_views(1, 4096, 512),
+}
+
+
+@pytest.mark.parametrize("name", list(WIDE_LAYOUTS))
+def test_wide_geometry_of_vae_layouts(name):
+    """Dims (D, 1, S, B) with the head's extent-1 stride taken as packed, a
+    D-wide row read in D / 64 boxes of 128 bytes, 64-row boxes for q and
+    32-row boxes for k and v; the column slices of `to_qkv` start 2D and 4D
+    bytes into each row, both 16-byte aligned."""
+    q, k, v = WIDE_LAYOUTS[name]()
+    b, s, h, d = q.shape
+    assert h == 1 and d // tattn.BOX_COLS == {384: 6, 512: 8, 640: 10}[d]
+    for t, rows in ((q, tattn.WIDE_BLOCK_M), (k, tattn.WIDE_BLOCK_N), (v, tattn.WIDE_BLOCK_N)):
+        dims, strides, box = tattn.tma_geometry(t.shape, t.stride(), t.data_ptr(), rows,
+                                                tattn.WIDE_HEAD_DIMS)
+        assert dims == (d, 1, s, b) and box == (tattn.BOX_COLS, 1, rows, 1)
+        assert strides[0] == 2 * d  # H = 1: the packed stride, whatever torch reports
+        assert strides[1] == 2 * t.stride(1) and strides[2] == 2 * t.stride(0)
+    fused = d in (384, 640)
+    assert q.stride(1) == (3 * d if fused else d)
+    if fused:
+        assert (k.data_ptr() - q.data_ptr(), v.data_ptr() - q.data_ptr()) == (2 * d, 4 * d)
+        assert all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    geom = list(tattn._tma_geometries(q, k, v, tattn.WIDE_HEAD_DIMS, tattn.WIDE_BLOCK_M,
+                                      tattn.WIDE_BLOCK_N))
+    assert len(geom) == 33 and geom[:4] == [d, 1, s, b]
+    assert [geom[9], geom[11 + 9], geom[22 + 9]] == [64, 32, 32]
+
+
+def test_each_kernel_refuses_the_others_head_dims():
+    with pytest.raises(ValueError, match="head dim 640"):
+        tattn.tma_geometry((1, 64, 1, 640), (64 * 640, 640, 640, 1), 0, 128)
+    with pytest.raises(ValueError, match="head dim 128"):
+        tattn.tma_geometry((1, 64, 1, 128), (64 * 128, 128, 128, 1), 0, tattn.WIDE_BLOCK_M,
+                           tattn.WIDE_HEAD_DIMS)
+
+
+@pytest.mark.parametrize("d", [384, 512, 640])
+def test_emulated_wide_tma_box_reads_the_tensor(d):
+    """A box of each operand of the wide kernel, read through the geometry
+    as TMA would, equals the tensor's own (rows, 64) block with the rows
+    past S zero: the first box and the last box of a row, in the ragged last
+    query tile of a B = 2, S = 100 problem."""
+    b, s = 2, 100
+    gen = torch.Generator().manual_seed(d)
+    q, k, v = _vae_views(b, s, d, device="cpu")
+    for t in (q, k, v):
+        t.copy_(torch.randn(t.shape, generator=gen).to(t.dtype))
+    for t, rows in ((q, tattn.WIDE_BLOCK_M), (v, tattn.WIDE_BLOCK_N)):
+        geometry = tattn.tma_geometry(t.shape, t.stride(), t.data_ptr(), rows,
+                                      tattn.WIDE_HEAD_DIMS)
+        for c0, s0, bi in ((0, 0, 0), (d - 64, 64 if rows == 64 else 96, 1)):
+            want = torch.zeros((rows, 64), dtype=t.dtype)
+            part = t[bi, s0:s0 + rows, 0, c0:c0 + 64]
+            want[:part.shape[0]] = part
+            assert torch.equal(_tma_box(t, geometry, c0, 0, s0, bi), want)
+
+
+@pytest.fixture
+def recorded_wide(monkeypatch):
+    """Every wide_attention call of a forward, its operands checked by the
+    wide kernel's geometry on the way."""
+    calls = []
+    plain = layers.wide_attention
+
+    def record(q, k, v, scale=None):
+        calls.append([(t.shape, t.stride(), t.storage_offset()) for t in (q, k, v)])
+        tattn._tma_geometries(q, k, v, tattn.WIDE_HEAD_DIMS, tattn.WIDE_BLOCK_M,
+                              tattn.WIDE_BLOCK_N)
+        return plain(q, k, v, scale)
+
+    monkeypatch.setattr(layers, "wide_attention", record)
+    return calls
+
+
+def test_vae_mid_attention_layouts(recorded_wide):
+    """The image VAE's mid attention (D = 512) and the video VAE's (D = 640,
+    two frames) on 32 x 32 grids (S = 1,024): dense views, and column slices
+    of one fused projection with row stride 3D."""
+    from lanpaint_tpu_torch.models import vae, video_vae
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        vae.VAEAttnBlock(512)(torch.randn((1, 512, 32, 32), generator=gen))
+        video_vae.WanVAEAttnBlock(640)(torch.randn((1, 2, 32, 32, 640), generator=gen))
+    assert len(recorded_wide) == 2
+    (q5, _, _), (q6, k6, v6) = recorded_wide
+    assert q5[0] == (1, 1024, 1, 512) and q5[1][1] == 512
+    assert q6[0] == (2, 1024, 1, 640) and q6[1][:2] == (1024 * 1920, 1920)
+    assert (k6[2] - q6[2], v6[2] - q6[2]) == (640, 1280)  # element offsets of k and v
