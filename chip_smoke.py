@@ -31,9 +31,9 @@ exits non-zero without printing a result):
 1. device: nvidia-smi's name and power limit, torch and CUDA versions, the
    TF32 flags in force;
 2. build: one nvcc per CUDA source in csrc/ (the D <= 128 and the
-   wide-head attention libraries, the row norm), all started together,
-   while Triton compiles the fused think-step kernels; seconds for each,
-   and ptxas's register and spill counts for each kernel instantiation
+   wide-head attention libraries, the row norm, the fused think-step
+   kernels), all started together; seconds for each, and ptxas's register
+   and spill counts for each kernel instantiation
    (none may spill, and ptxas must not ignore either attention kernel's
    setmaxnreg); the count of wgmma (HGMMA) and TMA load (UTMALDG)
    instructions in the SASS of each attention instantiation (cuobjdump
@@ -48,9 +48,11 @@ exits non-zero without printing a result):
    and its operations over the peak of their type (989 TFLOP/s bf16 on
    the tensor cores, 67 TFLOP/s fp32 elsewhere), and for attention the
    achieved TFLOP/s and its share of the bound;
-   for the fused kernels also a non-finite coefficient case, the noise
-   statistics at noise_mult=1, and the non-model time of a think step,
-   fused against plain, at the SDXL and Flux latent sizes;
+   for the fused kernels also each phase at noise_mult=1 against its plain
+   version fed `fused.philox_normals` (the kernel's draw, made on the CPU),
+   a non-finite coefficient case, the noise statistics at noise_mult=1,
+   and the non-model time of a think step, fused against plain, at the
+   SDXL and Flux latent sizes;
 4. small UNet reference and 5. small DiT reference: a small model whose
    attention and norms go through the kernels, on the card in bf16 against
    the same weights in fp32 on the CPU, beside the CPU's own bf16 plain
@@ -94,8 +96,7 @@ with its device times in us).
 To run some phases alone: python3 -c "import chip_smoke as c; smi =
 c.phase_device(); c.phase_build(); c.phase_pixel(smi)".
 
-It needs one CUDA card, the CUDA toolkit (nvcc, cuobjdump) and triton; no
-network.
+It needs one CUDA card and the CUDA toolkit (nvcc, cuobjdump); no network.
 """
 
 import dataclasses
@@ -193,10 +194,15 @@ NORM_SHAPES = [
     ((1, 7920, 3072), "rmsnorm", {"video": 90}),
     ((1, 512, 3072), "rmsnorm", {}, {"video": 60}),
 ]
-FUSED_SHAPES = [(1, 4 * 128 * 128), (1, 16 * 128 * 128), (2, 1000)]  # SDXL, Flux, ragged
+# SDXL, Flux, ragged: whole quads a row, and M % 4 != 0 (quads straddle rows)
+FUSED_SHAPES = [(1, 4 * 128 * 128), (1, 16 * 128 * 128), (2, 1000), (3, 1001)]
 ATTN_TOL = dict(max_abs=2e-2, rel_l2=1e-2)
 NORM_TOL = dict(atol=2e-2, rtol=1e-2)
 FUSED_TOL = dict(rtol=1e-5, atol=1e-6)  # tests/test_fused.py's
+# noise_mult=1 against the plain version fed the CPU twin's normals: the
+# card's logf / sqrtf / sincospif against float64 ones rounded to fp32 (a
+# few ulp of a normal, times coefficients <= ~1) and FMA contraction
+FUSED_NOISE_TOL = dict(rtol=1e-5, atol=1e-5)
 # One H100 SXM's published peaks (NVIDIA's data sheet, dense, at 700 W): the
 # bound of a call is the larger of its bytes over PEAK_BYTES and its
 # operations over the peak of their type.
@@ -209,8 +215,9 @@ PEAK_BYTES = 3.35e12  # HBM3 bytes/s
 NORM_OPS = {"layernorm": 8, "layernorm_na": 6, "rmsnorm": 5}
 FUSED_OPS = 60
 # bytes per element the fused kernels must move: half step 4 fp32 reads and
-# 3 writes, warm finish 7 reads and 2 writes, cold finish 3 reads and 2 writes
-FUSED_BYTES = {"fused_half_step": 28, "fused_finish warm": 36, "fused_finish cold": 20}
+# 3 writes, warm finish 6 reads (x_half, v_half, x_half_od, c_old, c_new,
+# mask; not x_in) and 2 writes, cold finish 3 reads and 2 writes
+FUSED_BYTES = {"fused_half_step": 28, "fused_finish warm": 32, "fused_finish cold": 20}
 
 
 def say(line: str) -> None:
@@ -303,34 +310,21 @@ def phase_device() -> str:
     return smi
 
 
-def _compile_triton():
-    """One launch of each Triton program the main paths use (each fused
-    kernel variant)."""
-    t0 = time.perf_counter()
-    z = torch.zeros((1, 1024), device="cuda")
-    tab = torch.zeros((1, 2 * fused.N_COEF), device="cuda")
-    seed = torch.zeros((1,), dtype=torch.int64, device="cuda")
-    fused.fused_half_step(tab, tab, 1.0, z, z, z, z, seed=seed)
-    for warm in (True, False):
-        fused.fused_finish(tab, tab, 1.0, warm, z, z, z, z, z, z, z, seed=seed)
-    torch.cuda.synchronize()
-    return time.perf_counter() - t0
-
-
 # kernel instantiations each CUDA library must hold: the attention kernels
 # one per head dim, the row norm one per (x dtype, out dtype, vectors a
-# thread) of fp32 / bf16 and 1, 2, 4, 8
+# thread) of fp32 / bf16 and 1, 2, 4, 8, the fused think step one per
+# (phase, quads a thread) of half / warm / cold and 1, 2
 INSTANTIATIONS = {"attention": len(attention.SUPPORTED_HEAD_DIMS),
-                  "wide_attention": len(attention.WIDE_HEAD_DIMS), "row_norm": 2 * 2 * 4}
+                  "wide_attention": len(attention.WIDE_HEAD_DIMS), "row_norm": 2 * 2 * 4,
+                  "fused": 3 * 2}
 WGMMA_LIBRARIES = ("attention", "wide_attention")
 
 
 def phase_build() -> None:
-    """One nvcc (a subprocess) per CUDA source, all started together, and
-    Triton's compiles run side by side.  No instantiation may spill (the
-    ptxas logs are read); each attention kernel's `setmaxnreg` must not be
-    ignored, and the SASS of each of its instantiations must hold wgmma
-    (HGMMA) and TMA loads (UTMALDG)."""
+    """One nvcc (a subprocess) per CUDA source, all started together.  No
+    instantiation may spill (the ptxas logs are read); each attention
+    kernel's `setmaxnreg` must not be ignored, and the SASS of each of its
+    instantiations must hold wgmma (HGMMA) and TMA loads (UTMALDG)."""
     def nvcc(name):
         t0 = time.perf_counter()
         lib = cuda_build.build_library(name)
@@ -338,7 +332,6 @@ def phase_build() -> None:
 
     with ThreadPoolExecutor(len(cuda_build.SOURCES)) as pool:
         jobs = {name: pool.submit(nvcc, name) for name in cuda_build.SOURCES}
-        t_triton = _compile_triton()
         built = {name: job.result() for name, job in jobs.items()}
     for name, (lib, t_nvcc) in built.items():
         cuda_build.entry(name)
@@ -362,17 +355,17 @@ def phase_build() -> None:
                                                             for v in sass.values()):
                 raise AssertionError(f"an instantiation of the {name} kernel lacks wgmma "
                                      "(HGMMA) or TMA loads (UTMALDG) in its SASS")
-    say(f"phase 2 build: triton {t_triton:.1f} s (fused half + finish warm/cold), in parallel "
-        "with nvcc")
 
 
 def _instantiation(mangled: str) -> str:
     """A kernel instantiation named by its template arguments: D for the
     attention kernels, the mangled (x dtype, out dtype, vectors) for the
-    row norm."""
+    row norm, (phase, quads a thread) for the fused think step."""
     if "row_norm_kernelI" in mangled:
         return "row_norm<" + mangled.split("row_norm_kernelI", 1)[1].split("EEv", 1)[0] + ">"
     args = re.findall(r"Li(\d+)E", mangled)
+    if "fused_think_kernelI" in mangled:
+        return f"fused<{('half', 'warm', 'cold')[int(args[0])]}, {args[1]} quads>"
     return "D=" + "x".join(args) if args else mangled
 
 
@@ -525,19 +518,51 @@ def _fused_case(b, m, gen, sigma=0.6):
     return tx, ty, x, v, c, c_new, mask
 
 
-def _fused_phases(tx, ty, nm, x, v, c, c_new, mask, seed):
-    """(name, kernel outputs, plain outputs) of the three launches; the
-    finishes take the kernel half step's outputs on both sides."""
-    zeros = (torch.zeros_like(x),) * 3
+def _fused_phases(tx, ty, nm, x, v, c, c_new, mask, seed, twin=False):
+    """(name, kernel outputs, plain outputs) of the three launches (the
+    half step at launch 0, the finishes at 1); the finishes take the kernel
+    half step's outputs on both sides.  The plain versions take zeros for
+    normals, or with `twin` the kernel's own draw made on the CPU
+    (`fused.philox_normals`)."""
+    b, m = x.shape
+    if twin:
+        draws = [fused.philox_normals(seed, launch, b, m).cuda() for launch in (0, 1)]
+    else:
+        draws = [torch.zeros((3, b, m), device="cuda")] * 2
     half = fused.fused_half_step(tx, ty, nm, x, v, c, mask, seed=seed, launch=0)
-    half_ref = fused.fused_half_step_ref(tx, ty, nm, x, v, c, mask, *zeros)
+    half_ref = fused.fused_half_step_ref(tx, ty, nm, x, v, c, mask, *draws[0])
     out = [("half", half, half_ref)]
     for warm in (True, False):
         got = fused.fused_finish(tx, ty, nm, warm, x, *half, c, c_new, mask, seed=seed, launch=1)
-        want = fused.fused_finish_ref(tx, ty, nm, warm, x, *half, c, c_new, mask, *zeros)
+        want = fused.fused_finish_ref(tx, ty, nm, warm, x, *half, c, c_new, mask, *draws[1])
         out.append(("warm finish" if warm else "cold finish", got, want))
     torch.cuda.synchronize()
     return out
+
+
+def _offset_views(*arrays):
+    """Copies of (B, M) tensors that start 4 bytes past a 16-byte boundary:
+    contiguous, but the kernel must take its scalar path."""
+    out = []
+    for t in arrays:
+        buf = torch.empty(t.numel() + 4, device=t.device, dtype=t.dtype)
+        view = buf[1:1 + t.numel()].view(t.shape)
+        view.copy_(t)
+        out.append(view)
+    return out
+
+
+def _check_fused_draw(label, tx, ty, x, v, c, c_new, mask, seed) -> None:
+    """Each phase at noise_mult 1 against its plain version fed the kernel's
+    draw (FUSED_NOISE_TOL)."""
+    for name, got, want in _fused_phases(tx, ty, 1.0, x, v, c, c_new, mask, seed, twin=True):
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        if not all(torch.allclose(g, w, **FUSED_NOISE_TOL) for g, w in zip(got, want)):
+            raise AssertionError(f"fused {name} {label} at noise_mult 1 disagrees with its plain "
+                                 f"version fed philox_normals: max abs {err}, limits "
+                                 f"{FUSED_NOISE_TOL}")
+        say(f"phase 3 kernels: fused {name} {label} noise_mult 1 against the plain version fed "
+            f"philox_normals max_abs_err {err:.3g} ok")
 
 
 def _kernel_fused(gen) -> tuple:
@@ -553,6 +578,7 @@ def _kernel_fused(gen) -> tuple:
                 raise AssertionError(f"fused {name} ({b}, {m}) disagrees with its plain "
                                      f"version: max abs {err}, limits {FUSED_TOL}")
             say(f"phase 3 kernels: fused {name} ({b}, {m}) noise_mult 0 max_abs_err {err:.3g} ok")
+        _check_fused_draw(f"({b}, {m})", tx, ty, x, v, c, c_new, mask, seed)
         if b != 1:
             continue
         # times: each plain version draws its three normals as the kernel does
@@ -588,6 +614,10 @@ def _kernel_fused(gen) -> tuple:
                           shape=(b, m), mode=name)
             say(f"phase 3 kernels: {name} ({b}, {m}) {row_text(r)} (plain draws its normals)")
             rows.append(r)
+
+    # inputs 4 bytes off a 16-byte boundary: the scalar path
+    tx, ty, *arrays = _fused_case(2, 1000, gen)
+    _check_fused_draw("(2, 1000) unaligned", tx, ty, *_offset_views(*arrays), seed)
 
     # (b) a non-finite damped coefficient: the kernels select the OU branch
     tx, ty, x, v, c, c_new, mask = _fused_case(2, 1000, gen)
@@ -1084,9 +1114,9 @@ def kernels_line(rows: dict, launches: dict) -> list:
                            ("wide_attention",)),
         "row_norm": ("cuda", "lanpaint_tpu_torch/csrc/row_norm.cu",
                      "lanpaint_tpu/ops/norms.py:93", ("layernorm", "rmsnorm")),
-        "fused_half_step": ("triton", "lanpaint_tpu_torch/ops/fused.py",
+        "fused_half_step": ("cuda", "lanpaint_tpu_torch/csrc/fused.cu",
                             "lanpaint_tpu/ops/fused.py:239", ("fused_half_step",)),
-        "fused_finish": ("triton", "lanpaint_tpu_torch/ops/fused.py",
+        "fused_finish": ("cuda", "lanpaint_tpu_torch/csrc/fused.cu",
                          "lanpaint_tpu/ops/fused.py:259", ("fused_finish",)),
     }
 

@@ -49,8 +49,12 @@ iteration, warm or cold as a compile-time flag).  Only the mask-mixed `a`
 is built latent-sized; every other coefficient stays in two (B, 24)
 tables.  On a CUDA latent the kernels draw their own normals: step 2 is
 replaced by ONE int64 draw (a one-element tensor on the card) from the
-generator per call, the Philox seed; launch 2i (half) and 2i + 1 (finish)
-key their streams with seed + launch.  `noise_feed` is refused there.  On
+generator per call, the Philox4x32-10 key.  Launch 2i (half) and 2i + 1
+(finish) put their index in the counter: stream j of flat element e of
+the (B, M) view is lane e % 4 of Philox(counter (e >> 2, launch, j, 0),
+key (seed_lo, seed_hi)), so the streams of different launches are
+disjoint by construction, and `ops/fused.philox_normals` draws the same
+numbers on the CPU.  `noise_feed` is refused there.  On
 the CPU the plain fused versions take step 2's draws (or the feed's),
 mapped as half (eps_y1, eps_v1, v_stat), warm finish (eps_y2, eps_v2,
 v_stat) and cold finish (eps_y1, eps_v1, v_stat), which reproduces the

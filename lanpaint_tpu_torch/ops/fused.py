@@ -1,5 +1,5 @@
-"""The think step's two pointwise phases as fused Triton kernels for Hopper,
-with their plain PyTorch versions.
+"""The think step's two pointwise phases as a CUDA C++ kernel for Hopper,
+with their plain PyTorch versions and the plain twin of the kernel's draw.
 
 Replaces the Pallas TPU kernels of `lanpaint_tpu/ops/fused.py`:
 `fused_half_step` (`_half_kernel`, the pre-model phase: mask-mixed damped
@@ -11,18 +11,31 @@ and as the engine's jnp-style path (`engine.lanpaint_update` with the flag
 off), up to the random stream.
 
 What bounds them on this card: bytes, and at latent sizes the launch.
-Each element reads per-batch scalars, does ~60 flops and draws 3 normals;
-the half step moves 28 B an element (4 fp32 reads, 3 writes), the finish
-36 B (7 reads, 2 writes) — 7.3 and 9.4 MB at Flux's 262,144 latent
-elements, ~3 us at 3.35 TB/s.  The design: a flat contiguous (B, M) view
-of the latent (no TPU-style (rows, 128) tiling or padding: each program
-masks its own tail), one program per 1,024 elements of one batch row, the
-row's two (B, 24) coefficient tables loaded as scalars and mixed per
-element by the region mask, and the normals drawn in registers with
-Philox (`tl.randn4x`), so no latent-sized noise tensor reaches device
-memory.  The Philox seed is a one-element int64 tensor on the card (drawn
-from the run's generator, so the loop needs no host sync) plus a launch
-index; the counter is the element's flat index.
+Each element reads per-batch scalars, does ~60 flops and draws up to 3
+normals; the half step moves 28 B an element (4 fp32 reads, 3 writes), the
+warm finish 32 B (6 reads, 2 writes), the cold finish 20 B (3 reads, 2
+writes): 7.3, 8.4 and 5.2 MB at Flux's 262,144 latent elements, 1.6-2.5 us
+at 3.35 TB/s.  The kernel (`csrc/fused.cu`, one library, one C entry
+point taking the phase) works on a flat contiguous (B, M) view cut into
+quads of four consecutive flat indices: a thread takes `quads` of them,
+16-byte loads and stores where a quad lies in one batch row and every
+pointer is 16-byte aligned, element by element otherwise; the block reads
+its row's two (B, 24) table rows once; the normals are drawn in registers,
+so no latent-sized noise tensor reaches device memory; and a launch is one
+ctypes call.  Its block shape is `BLOCK_SHAPE`, from
+`scripts/measure_torch_fused.py`.
+
+The draw.  Stream j of element e (flat index in (B, M)) is lane e % 4 of
+Philox4x32-10 with counter (e >> 2, launch, j, 0) and key (seed_lo,
+seed_hi), the 64 bits of a one-element int64 tensor on the card (drawn
+from the run's generator, so the loop needs no host sync); launch is the
+wrapper's `launch` argument.  Streams 0, 1, 2 are (ey, ev, vs) in the half
+step and (ey2, ev2, vs) in the finish.  A call's four words give two
+Box-Muller pairs: u1 = (w >> 8) * 2^-24 + 2^-25, u2 = (w' >> 8) * 2^-24,
+normals (r cos 2 pi u2, r sin 2 pi u2) with r = sqrt(-2 ln u1), as the TPU
+kernel maps its bits; all-zero bits give (sqrt(-2 ln 2^-25), 0).
+`philox_normals` draws the same numbers on the CPU (for tests and
+`chip_smoke.py`; the engine never calls it).
 
 Coefficient tables: one (B, 2 * N_COEF) fp32 table per region branch (x =
 unknown, y = known), the half-step row then the full-step row, each
@@ -32,17 +45,16 @@ kick) and dt in the full row (the overdamped position kick), as the JAX
 package packs them.  They are built from `engine._branch_scalars`, the
 port's one parameterization.
 
-Triton is imported, and the kernels compiled, inside the launching
-functions, so this module imports where triton is absent.
+The kernel is built (`ops/cuda_build.py`) where it is first launched, so
+this module imports where there is no nvcc.
 """
 
 from __future__ import annotations
 
-import os
-from pathlib import Path
-
+import numpy as np
 import torch
 
+from . import cuda_build
 from .sho import OUCoeffs, SHOCoeffs, ou_apply, sho_apply
 
 N_COEF = 12
@@ -51,13 +63,17 @@ N_COEF = 12
 HALF_FIELDS = (3, 4, 5, 6, 7, 8, 9, 17, 18, 19, 0, 2)
 FULL_FIELDS = (10, 11, 12, 13, 14, 15, 16, 20, 21, 22, 0, 1)
 TABLE_FIELDS = HALF_FIELDS + FULL_FIELDS
-BLOCK = 1024  # elements per program
-
-# bound to `triton.language` and the jitted helpers when the kernels are
-# first built (the kernel bodies resolve them as module globals)
-tl = None
-_coef = _sho = _ou = _finite_k = None
-_KERNELS = None
+# the kernel's phase argument
+HALF, WARM, COLD = 0, 1, 2
+# (threads a block, quads a thread): the block shape of least launch-weighted
+# device time at both main-path latent sizes (SDXL 4 x 128 x 128, Flux 16 x
+# 128 x 128) in the sweep on the card (scripts/measure_torch_fused.py;
+# NVIDIA H100 80GB HBM3, 700 W)
+BLOCK_SHAPE = (128, 1)
+MAX_ROWS = 65535  # the grid's second dimension
+# Philox4x32-10's round multipliers and key increments (Random123)
+PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 
 
 def pack_branch_coeffs(config, times):
@@ -124,113 +140,65 @@ def fused_finish_ref(coef_x, coef_y, noise_mult, warm: bool, x_in, x_half, v_hal
     return torch.where(ok, x_d, x_o), torch.where(ok, v_d, v_stat)
 
 
-# ---------------------------------------------------------------- the kernels
+# ---------------------------------------------------------------- the draw
 
 
-def _build():
-    global tl, _coef, _sho, _ou, _finite_k, _KERNELS
-    if _KERNELS is None:
-        os.environ.setdefault("TRITON_CACHE_DIR",
-                              str(Path(__file__).resolve().parent.parent / "_build" / "triton"))
-        import triton
-        import triton.language
+def philox4x32_10(counter, key):
+    """Philox4x32-10 of `counter` (four uint32 words, each an int or an
+    array, broadcast together) under `key` (two uint32 ints): the four
+    output words as uint32 arrays.  Each 32 x 32-bit product is taken in
+    uint64, where it is exact."""
+    c0, c1, c2, c3 = (a.astype(np.uint64) for a in np.broadcast_arrays(
+        *(np.asarray(w, dtype=np.uint64) for w in counter)))
+    low = np.uint64(0xFFFFFFFF)
+    k0, k1 = int(key[0]), int(key[1])
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + PHILOX_W[0]) & 0xFFFFFFFF, (k1 + PHILOX_W[1]) & 0xFFFFFFFF
+        p0, p1 = np.uint64(PHILOX_M[0]) * c0, np.uint64(PHILOX_M[1]) * c2
+        c0, c1, c2, c3 = ((p1 >> np.uint64(32)) ^ c1 ^ np.uint64(k0), p1 & low,
+                          (p0 >> np.uint64(32)) ^ c3 ^ np.uint64(k1), p0 & low)
+    return tuple(w.astype(np.uint32) for w in (c0, c1, c2, c3))
 
-        tl = triton.language
 
-        @triton.jit
-        def coef(cx_ptr, cy_ptr, row, j: tl.constexpr, mask):
-            cx = tl.load(cx_ptr + row + j)
-            cy = tl.load(cy_ptr + row + j)
-            return cx + (cy - cx) * mask
+def box_muller(w0, w1):
+    """Two fp32 standard normals from two uint32 words, as the kernel maps
+    them: u1 = (w0 >> 8) * 2^-24 + 2^-25 (never 0) and u2 = (w1 >> 8) *
+    2^-24 in fp32, then (r cos 2 pi u2, r sin 2 pi u2), r = sqrt(-2 ln u1),
+    each factor rounded to fp32 from float64."""
+    u1 = (w0 >> 8).astype(np.float32) * np.float32(2.0**-24) + np.float32(2.0**-25)
+    u2 = (w1 >> 8).astype(np.float32) * np.float32(2.0**-24)
+    r = np.sqrt(-2.0 * np.log(u1.astype(np.float64))).astype(np.float32)
+    turn = np.pi * (2.0 * u2.astype(np.float64))
+    return r * np.cos(turn).astype(np.float32), r * np.sin(turn).astype(np.float32)
 
-        @triton.jit
-        def sho(cx_ptr, cy_ptr, row, R: tl.constexpr, mask, y0, v0, c, ey, ev, nm):
-            wy_cy = _coef(cx_ptr, cy_ptr, row, R + 0, mask)
-            wy_v = _coef(cx_ptr, cy_ptr, row, R + 1, mask)
-            wv_cy = _coef(cx_ptr, cy_ptr, row, R + 2, mask)
-            wv_v = _coef(cx_ptr, cy_ptr, row, R + 3, mask)
-            l_yy = _coef(cx_ptr, cy_ptr, row, R + 4, mask) * nm
-            l_vy = _coef(cx_ptr, cy_ptr, row, R + 5, mask) * nm
-            l_vv = _coef(cx_ptr, cy_ptr, row, R + 6, mask) * nm
-            a = _coef(cx_ptr, cy_ptr, row, R + 10, mask)
-            drive = c - a * y0
-            y = y0 + wy_cy * drive + wy_v * v0 + l_yy * ey
-            v = wv_cy * drive + wv_v * v0 + l_vy * ey + l_vv * ev
-            return y, v
 
-        @triton.jit
-        def ou(cx_ptr, cy_ptr, row, R: tl.constexpr, mask, x0, c, eps, nm):
-            decay = _coef(cx_ptr, cy_ptr, row, R + 7, mask)
-            k = _coef(cx_ptr, cy_ptr, row, R + 8, mask)
-            ns = _coef(cx_ptr, cy_ptr, row, R + 9, mask) * nm
-            return decay * x0 + k * c + ns * eps
+def philox_normals(seed, launch: int, b: int, m: int) -> torch.Tensor:
+    """The three (b, m) fp32 normals streams the kernel draws on a (b, m)
+    view with `seed` (an int, or a one-element int64 tensor: its 64 bits
+    are the key) at `launch`, on the CPU: (3, b, m), streams 0, 1, 2."""
+    bits = int(seed) & 0xFFFFFFFFFFFFFFFF
+    key = (bits & 0xFFFFFFFF, bits >> 32)
+    n = b * m
+    quads = np.arange((n + 3) // 4, dtype=np.uint64)
+    out = np.empty((3, quads.size, 4), np.float32)
+    for j in range(3):
+        w = philox4x32_10((quads, launch, j, 0), key)
+        out[j, :, 0], out[j, :, 1] = box_muller(w[0], w[1])
+        out[j, :, 2], out[j, :, 3] = box_muller(w[2], w[3])
+    return torch.from_numpy(out.reshape(3, -1)[:, :n].reshape(3, b, m).copy())
 
-        @triton.jit
-        def finite(y, v):
-            # NaN fails both comparisons, +-inf the bound
-            return (tl.abs(y) <= 3.4028234663852886e38) & (tl.abs(v) <= 3.4028234663852886e38)
 
-        @triton.jit
-        def half_kernel(seed_ptr, seed_off, cx_ptr, cy_ptr, x_ptr, v_ptr, c_ptr, m_ptr,
-                        xh_ptr, vh_ptr, xho_ptr, n_cols, nm, BLOCK: tl.constexpr):
-            b = tl.program_id(1)
-            cols = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-            inb = cols < n_cols
-            idx = b * n_cols + cols
-            row = b * 24
-            x = tl.load(x_ptr + idx, mask=inb, other=0.0)
-            v = tl.load(v_ptr + idx, mask=inb, other=0.0)
-            c = tl.load(c_ptr + idx, mask=inb, other=0.0)
-            mask = tl.load(m_ptr + idx, mask=inb, other=0.0)
-            ey, ev, vs, _ = tl.randn4x(tl.load(seed_ptr) + seed_off, idx)
-            xh_d, vh_d = _sho(cx_ptr, cy_ptr, row, 0, mask, x, v, c, ey, ev, nm)
-            xh_o = _ou(cx_ptr, cy_ptr, row, 0, mask, x, c, ey, nm)
-            ok = _finite_k(xh_d, vh_d)
-            tl.store(xh_ptr + idx, tl.where(ok, xh_d, xh_o), mask=inb)
-            tl.store(vh_ptr + idx, tl.where(ok, vh_d, vs * nm), mask=inb)
-            tl.store(xho_ptr + idx, xh_o, mask=inb)
-
-        @triton.jit
-        def finish_kernel(seed_ptr, seed_off, cx_ptr, cy_ptr, xin_ptr, xh_ptr, vh_ptr, xho_ptr,
-                          co_ptr, cn_ptr, m_ptr, xo_ptr, vo_ptr, n_cols, nm,
-                          WARM: tl.constexpr, BLOCK: tl.constexpr):
-            b = tl.program_id(1)
-            cols = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-            inb = cols < n_cols
-            idx = b * n_cols + cols
-            row = b * 24
-            mask = tl.load(m_ptr + idx, mask=inb, other=0.0)
-            c_new = tl.load(cn_ptr + idx, mask=inb, other=0.0)
-            ey2, ev2, vs, _ = tl.randn4x(tl.load(seed_ptr) + seed_off, idx)
-            v_stat = vs * nm
-            if WARM:
-                xh = tl.load(xh_ptr + idx, mask=inb, other=0.0)
-                vh = tl.load(vh_ptr + idx, mask=inb, other=0.0)
-                xh_o = tl.load(xho_ptr + idx, mask=inb, other=0.0)
-                c_old = tl.load(co_ptr + idx, mask=inb, other=0.0)
-                dc = c_new - c_old
-                v_kick = vh + _coef(cx_ptr, cy_ptr, row, 11, mask) * dc
-                x_d, v_d = _sho(cx_ptr, cy_ptr, row, 0, mask, xh, v_kick, c_old, ey2, ev2, nm)
-                x_kick = xh_o + _coef(cx_ptr, cy_ptr, row, 23, mask) * dc
-                x_o = _ou(cx_ptr, cy_ptr, row, 0, mask, x_kick, c_old, ey2, nm)
-            else:
-                x_in = tl.load(xin_ptr + idx, mask=inb, other=0.0)
-                x_d, v_d = _sho(cx_ptr, cy_ptr, row, 12, mask, x_in, v_stat, c_new, ey2, ev2, nm)
-                x_o = _ou(cx_ptr, cy_ptr, row, 12, mask, x_in, c_new, ey2, nm)
-            ok = _finite_k(x_d, v_d)
-            tl.store(xo_ptr + idx, tl.where(ok, x_d, x_o), mask=inb)
-            tl.store(vo_ptr + idx, tl.where(ok, v_d, v_stat), mask=inb)
-
-        _coef, _sho, _ou, _finite_k = coef, sho, ou, finite
-        _KERNELS = (half_kernel, finish_kernel)
-    return _KERNELS
+# ---------------------------------------------------------------- the kernel
 
 
 def _check_cuda(name, seed, coef_x, coef_y, arrays):
+    if any(t is None for t in arrays):
+        raise ValueError(f"{name}: a latent array is missing")
+    if arrays[0].dim() != 2:
+        raise ValueError(f"{name}: latent arrays must be (B, M); got {tuple(arrays[0].shape)}")
     b, m = arrays[0].shape
     for t in arrays:
-        if t is None:
-            raise ValueError(f"{name}: a latent array is missing")
         if (t.device != arrays[0].device or t.dtype != torch.float32 or t.shape != (b, m)
                 or not t.is_contiguous()):
             raise ValueError(f"{name}: latent arrays must be contiguous ({b}, {m}) float32 on "
@@ -243,12 +211,9 @@ def _check_cuda(name, seed, coef_x, coef_y, arrays):
     if (not isinstance(seed, torch.Tensor) or seed.device != arrays[0].device
             or seed.dtype != torch.int64 or seed.numel() != 1):
         raise ValueError(f"{name}: seed must be a one-element int64 tensor on {arrays[0].device}")
-    if b * m >= 2**31:
-        raise ValueError(f"{name}: {b} x {m} elements exceed the kernel's int32 indexing")
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
+    if b * m >= 2**31 or b > MAX_ROWS:
+        raise ValueError(f"{name}: {b} x {m} elements exceed the kernel's int32 indexing or "
+                         f"its {MAX_ROWS} rows")
 
 
 def _route(name, x, normals):
@@ -265,54 +230,67 @@ def _route(name, x, normals):
     return "cuda"
 
 
+def _launch(wrapper, phase, seed, launch, coef_x, coef_y, noise_mult, x, v=None, x_od=None,
+            c_old=None, c_new=None, mask=None, n_out=2, config=None):
+    """Launch one phase and add one to `wrapper.launches`; `config`
+    overrides `BLOCK_SHAPE` (a sweep).  Returns the n_out outputs."""
+    b, m = x.shape
+    if not 0 <= launch < 2**32:
+        raise ValueError(f"{wrapper.__name__}: launch {launch} is not a uint32")
+    outs = [torch.empty_like(x) for _ in range(n_out)]
+    threads, quads = config or BLOCK_SHAPE
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = cuda_build.entry("fused")(
+        phase, seed.data_ptr(), launch, coef_x.data_ptr(), coef_y.data_ptr(), x.data_ptr(),
+        ptr(v), ptr(x_od), ptr(c_old), ptr(c_new), mask.data_ptr(), outs[0].data_ptr(),
+        outs[1].data_ptr(), ptr(outs[2] if n_out == 3 else None), b, m, noise_mult, threads,
+        quads, cuda_build.stream_handle(x.device))
+    if err != 0:
+        raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA error {err}")
+    wrapper.launches += 1
+    return tuple(outs)
+
+
 def fused_half_step(coef_x, coef_y, noise_mult, x, v, c, mask, *, seed=None, launch: int = 0,
                     normals=None):
     """Pre-model phase of a think step on (B, M) fp32 tensors.
 
     A CPU tensor takes `fused_half_step_ref` with `normals` = (ey, ev, vs).
-    A CUDA tensor launches the Triton kernel, which draws its normals from
-    Philox keyed by `seed` (one-element int64 tensor on the card) plus
-    `launch`, or raises.  Each launch adds one to `fused_half_step.launches`.
-    Returns (x_half, v_half, x_half_overdamped)."""
+    A CUDA tensor launches the kernel, which draws its normals with Philox
+    (counter (e >> 2, `launch`, stream, 0), key `seed`, a one-element int64
+    tensor on the card; `philox_normals` is its CPU twin), or raises.  Each
+    launch adds one to `fused_half_step.launches`.  Returns (x_half,
+    v_half, x_half_overdamped)."""
     if _route("fused_half_step", x, normals) == "cpu":
         return fused_half_step_ref(coef_x, coef_y, noise_mult, x, v, c, mask, *normals)
     _check_cuda("fused_half_step", seed, coef_x, coef_y, (x, v, c, mask))
-    b, m = x.shape
-    xh, vh, xh_o = (torch.empty_like(x) for _ in range(3))
-    half, _ = _build()
-    half[(_cdiv(m, BLOCK), b)](
-        seed, int(launch), coef_x, coef_y, x, v, c, mask, xh, vh, xh_o, m, float(noise_mult),
-        BLOCK=BLOCK, num_warps=4)
-    fused_half_step.launches += 1
-    return xh, vh, xh_o
+    return _launch(fused_half_step, HALF, seed, int(launch), coef_x, coef_y, float(noise_mult),
+                   x, v=v, c_old=c, mask=mask, n_out=3)
 
 
 def fused_finish(coef_x, coef_y, noise_mult, warm: bool, x_in, x_half, v_half, x_half_od,
                  c_old, c_new, mask, *, seed=None, launch: int = 0, normals=None):
     """Post-model phase of a think step on (B, M) fp32 tensors; `warm` is
     a host bool (a compile-time flag of the kernel).  When cold, x_half,
-    v_half, x_half_od and c_old are not read and may be None.
+    v_half, x_half_od and c_old are not read and may be None; when warm,
+    x_in is not read.
 
     A CPU tensor takes `fused_finish_ref` with `normals` = (ey2, ev2, vs);
-    a CUDA tensor launches the Triton kernel (normals from Philox, as in
+    a CUDA tensor launches the kernel (normals from Philox, as in
     `fused_half_step`) or raises.  Each launch adds one to
     `fused_finish.launches`.  Returns (x, v)."""
     if _route("fused_finish", x_in, normals) == "cpu":
         return fused_finish_ref(coef_x, coef_y, noise_mult, warm, x_in, x_half, v_half,
                                 x_half_od, c_old, c_new, mask, *normals)
-    arrays = (x_in, x_half, v_half, x_half_od, c_old, c_new, mask) if warm \
-        else (x_in, c_new, mask)
-    _check_cuda("fused_finish", seed, coef_x, coef_y, arrays)
-    if not warm:  # the cold variant reads none of these
-        x_half = v_half = x_half_od = c_old = x_in
-    b, m = x_in.shape
-    x_out, v_out = torch.empty_like(x_in), torch.empty_like(x_in)
-    _, finish = _build()
-    finish[(_cdiv(m, BLOCK), b)](
-        seed, int(launch), coef_x, coef_y, x_in, x_half, v_half, x_half_od, c_old, c_new, mask,
-        x_out, v_out, m, float(noise_mult), WARM=bool(warm), BLOCK=BLOCK, num_warps=4)
-    fused_finish.launches += 1
-    return x_out, v_out
+    if warm:
+        _check_cuda("fused_finish", seed, coef_x, coef_y,
+                    (x_half, v_half, x_half_od, c_old, c_new, mask))
+        return _launch(fused_finish, WARM, seed, int(launch), coef_x, coef_y,
+                       float(noise_mult), x_half, v=v_half, x_od=x_half_od, c_old=c_old,
+                       c_new=c_new, mask=mask)
+    _check_cuda("fused_finish", seed, coef_x, coef_y, (x_in, c_new, mask))
+    return _launch(fused_finish, COLD, seed, int(launch), coef_x, coef_y, float(noise_mult),
+                   x_in, c_new=c_new, mask=mask)
 
 
 fused_half_step.launches = 0
