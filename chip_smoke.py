@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py          # from the root of the repository
 
-Four main paths, each with random bf16 weights made on the card from a
+Five main paths, each with random bf16 weights made on the card from a
 seed, the euler solver, 20 steps, outer early stop 1 and a centre mask; 5
-think steps but for the video path's 2:
+think steps but for the video paths' 2:
 
 * SDXL-1024: karras, CFG 5 as two sequential passes, the unfused think
   step: (20 - 1) * 6 + 1 = 115 CFG pairs, 230 UNet forwards;
@@ -23,7 +23,16 @@ think steps but for the video path's 2:
   published 704x1280 with 33 of its 121 frames) and the Wan2.2 VAE: a
   (1, 48, 9, 44, 80) latent, S = 7,920 tokens, (20 - 1) * 3 + 1 = 58 CFG
   pairs, 116 DiT forwards, and two wide-head attention launches (the VAE's
-  mid attention, D = 640, over 9 frames of 3,520 tokens).
+  mid attention, D = 640, over 9 frames of 3,520 tokens);
+* Wan2.2 T2V-A14B video (the reference's own video workflow, the 14B
+  high/low-noise expert pair, through `api.inpaint_video` with its
+  defaults): `zoo.switching_denoiser` over two WAN22_T2V_14B_CONFIG experts
+  (hidden 5,120, 40 heads, 40 blocks; seeds 0 and 1) at the Wan2.2
+  boundary t = 0.875, the Wan2.1 VAE, a random (1, 3, 33, 480, 832) video
+  (the pair's published 480p with 33 of its 81 frames): a (1, 16, 9, 60,
+  104) latent, S = 14,040 tokens, 58 CFG pairs, 116 DiT forwards, 54 of
+  them the high-noise expert's (the first 9 steps have t >= 0.875) and 62
+  the low-noise one's, and two wide-head launches at D = 384.
 
 Phases, one line of output each or more (any failure raises and the script
 exits non-zero without printing a result):
@@ -57,7 +66,9 @@ exits non-zero without printing a result):
    attention and norms go through the kernels, on the card in bf16 against
    the same weights in fp32 on the CPU, beside the CPU's own bf16 plain
    path: one forward, and a 4-step LanPaint run with a shared think-noise
-   feed;
+   feed; for the UNet also the same run with each of the 22 solvers (a
+   shared solver-noise draw too), and `zoo.dual_model_denoiser` over two
+   small UNets with sequential CFG, its calls of each model counted;
 6. SDXL main path and 8. Flux main path: build, then LanPaintSampler twice
    (for Flux the first run is a 2-step warm-up); the second run is timed
    and its kernel launches counted: the output is finite, the known region
@@ -80,16 +91,21 @@ exits non-zero without printing a result):
    frame farther than the blend overlap from the mask equals the input bit
    for bit, the repainted region moved, and every kernel ran exactly its
    expected number of times (the wide-head attention twice);
-11. Wan2.1 VAE: one encode-decode round trip of WAN21_VAE_CONFIG at 480x832
-   x 33 frames, whose mid attention runs the wide-head kernel at D = 384.
+11. pair path (the two experts and the Wan2.1 VAE): the VAE's encode and
+   decode timed alone (its latent checked; the mid attention runs the
+   wide-head kernel at D = 384), one forward of each expert (at t = 0.9 and
+   t = 0.7, routed by the pair) under torch.profiler, a 2-step warm-up call
+   of `api.inpaint_video` (its ladder 1.0, 0.833, 0 runs both experts),
+   then one timed and counted call with its defaults: phase 10's checks,
+   and each expert's forwards counted.
 
 Then, on lines of their own: the nvidia-smi line, one JSON line with the
 per-kernel numbers, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-In the kernels line, `launches` is the four timed runs' count, and `ms` /
+In the kernels line, `launches` is the five timed runs' count, and `ms` /
 `plain_ms` / `library_ms` / `bound_ms` are the kernel's / plain version's /
 PyTorch call's per-launch times and the bound at each main-path shape times
-that shape's launches in the four timed runs, summed (`library_ms` null
+that shape's launches in the five timed runs, summed (`library_ms` null
 where a launched shape has no such call; each shape alone in `per_shape`,
 with its device times in us).
 
@@ -119,6 +135,7 @@ from torch.nn.attention import SDPBackend, sdpa_kernel
 from lanpaint_tpu_torch import (LanPaintConfig, LanPaintSampler, ModelKind, api, inpaint_image,
                                 inpaint_video)
 from lanpaint_tpu_torch.engine import lanpaint_update
+from lanpaint_tpu_torch import samplers
 from lanpaint_tpu_torch.models import dit, unet, vae, video_vae, wan, zoo
 from lanpaint_tpu_torch.ops import attention, cuda_build, fused, norms
 from lanpaint_tpu_torch.schedule import unify_times
@@ -130,9 +147,14 @@ PAIRS = (STEPS - EARLY_STOP) * (THINK + 1) + EARLY_STOP     # 115
 VIDEO_THINK = 2
 VIDEO_PAIRS = (STEPS - EARLY_STOP) * (VIDEO_THINK + 1) + EARLY_STOP  # 58
 VIDEO_SHAPE = (1, 3, 33, 704, 1280)  # TI2V-5B's 704x1280, 33 of its 121 frames
-WAN21_SHAPE = (1, 3, 33, 480, 832)   # the 14B pair's 480p with the Wan2.1 VAE
+WAN21_SHAPE = (1, 3, 33, 480, 832)   # the 14B pair's 480p, 33 of its 81 frames
+BOUNDARY = 0.875  # the Wan2.2 pair's switch: the high-noise expert serves t >= 0.875
+# the pair path's forwards by expert: on the "simple" ladder (shift 5) of 20
+# steps the first 9 have t >= 0.875: 9 * 3 CFG pairs; the low expert 10 * 3 + 1
+EXPERT_FORWARDS = {"high": 2 * 9 * (VIDEO_THINK + 1),
+                   "low": 2 * (10 * (VIDEO_THINK + 1) + EARLY_STOP)}
 FORWARDS = {"sdxl": 2 * PAIRS, "pixel": 2 * PAIRS, "flux": PAIRS,  # CFG 5 seq. / cfg 1
-            "video": 2 * VIDEO_PAIRS}                              # CFG 5 sequential
+            "video": 2 * VIDEO_PAIRS, "pair": 2 * VIDEO_PAIRS}     # CFG 5 sequential
 PER_FORWARD = {  # kernel launches per model forward
     "sdxl": {"flash_attention": 70, "layernorm": 210, "rmsnorm": 0},
     # 19 double + 38 single blocks; adaLN norms 4 + 1 per block + 1 final;
@@ -141,16 +163,19 @@ PER_FORWARD = {  # kernel launches per model forward
     # 30 blocks: self-attention; norm1, norm2, norm3 + the head's norm;
     # self q, self k and cross q RMS norms
     "video": {"flash_attention": 30, "layernorm": 91, "rmsnorm": 90},
+    "pair": {"flash_attention": 40, "layernorm": 121, "rmsnorm": 120},  # 40 blocks
 }
 PER_FORWARD["pixel"] = PER_FORWARD["sdxl"]
 PER_RUN = {  # per run: fused half on warm iterations, finish on every one; the
     # VAE's mid attention once in the encode and once in the decode; the
-    # Wan cross norm_k of 30 blocks in each of the two conds' precompute
+    # Wan cross norm_k of every block in each of the two conds' precompute
+    # (the pair's hoists both experts': 2 x 2 x 40)
     "sdxl": {"fused_half_step": 0, "fused_finish": 0, "wide_attention": 0},
     "pixel": {"fused_half_step": 0, "fused_finish": 0, "wide_attention": 2},
     "flux": {"fused_half_step": (STEPS - EARLY_STOP) * (THINK - 1),
              "fused_finish": (STEPS - EARLY_STOP) * THINK, "wide_attention": 0},
     "video": {"fused_half_step": 0, "fused_finish": 0, "wide_attention": 2, "rmsnorm": 60},
+    "pair": {"fused_half_step": 0, "fused_finish": 0, "wide_attention": 2, "rmsnorm": 160},
 }
 BLEND = 9  # MaskBlend overlap of the pixel and video paths
 SPLASH = "lanpaint_tpu/models/layers.py:131 (_splash_kernel)"
@@ -161,6 +186,7 @@ ATTN_SHAPES = [
      "lanpaint_tpu/models/layers.py:238 (flash_attention)"),
     ((1, 4608, 24, 128), {"flux": 57}, SPLASH),
     ((1, 7920, 24, 128), {"video": 30}, SPLASH),  # TI2V-5B at 704x1280 x 33 frames
+    ((1, 14040, 40, 128), {"pair": 40}, SPLASH),  # T2V-A14B at 480x832 x 33 frames
     ((2, 1000, 4, 64), {}, None),
     ((2, 1000, 4, 128), {}, None),
 ]
@@ -173,7 +199,7 @@ WIDE_SHAPES = [
     ((1, 4096, 1, 512), {}, SPLASH_VAE),             # 512^2
     ((1, 4000, 1, 512), {}, SPLASH_VAE),             # a ragged S
     ((9, 3520, 1, 640), {"video": 2}, SPLASH_VIDEO),  # Wan2.2 VAE, 704x1280 x 33 frames
-    ((9, 6240, 1, 384), {}, SPLASH_VIDEO),           # Wan2.1 VAE, 480x832 x 33 frames
+    ((9, 6240, 1, 384), {"pair": 2}, SPLASH_VIDEO),  # Wan2.1 VAE, 480x832 x 33 frames
     ((2, 1100, 1, 640), {}, SPLASH_VIDEO),           # a ragged S
     ((2, 1100, 1, 384), {}, SPLASH_VIDEO),
 ]
@@ -193,6 +219,10 @@ NORM_SHAPES = [
     ((1, 7920, 3072), "layernorm", {"video": 30}),
     ((1, 7920, 3072), "rmsnorm", {"video": 90}),
     ((1, 512, 3072), "rmsnorm", {}, {"video": 60}),
+    ((1, 14040, 5120), "layernorm_na", {"pair": 81}),
+    ((1, 14040, 5120), "layernorm", {"pair": 40}),
+    ((1, 14040, 5120), "rmsnorm", {"pair": 120}),
+    ((1, 512, 5120), "rmsnorm", {}, {"pair": 160}),
 ]
 # SDXL, Flux, ragged: whole quads a row, and M % 4 != 0 (quads straddle rows)
 FUSED_SHAPES = [(1, 4 * 128 * 128), (1, 16 * 128 * 128), (2, 1000), (3, 1001)]
@@ -420,7 +450,7 @@ def _kernel_attention(gen, kernel=attention.flash_attention, shapes=ATTN_SHAPES,
             q, k, v = (t.contiguous() for t in (q, k, v))
         out = kernel(q, k, v)
         torch.cuda.synchronize()
-        want = attention.attention_ref(q.float(), k.float(), v.float())
+        want = _plain_attention(q.float(), k.float(), v.float())
         err = float((out.float() - want).abs().max())
         rel = rel_l2(out.float(), want)
         del want
@@ -429,7 +459,7 @@ def _kernel_attention(gen, kernel=attention.flash_attention, shapes=ATTN_SHAPES,
             raise AssertionError(f"{kernel.__name__} {shape} disagrees with attention_ref: "
                                  f"max abs {err}, rel L2 {rel}, limits {ATTN_TOL}")
         backends = _sdpa_backends(q, k, v)
-        r = timed_row(lambda: kernel(q, k, v), lambda: attention.attention_ref(q, k, v), err,
+        r = timed_row(lambda: kernel(q, k, v), lambda: _plain_attention(q, k, v), err,
                       {} if per_run else calls, run_calls=calls if per_run else None,
                       bounds=bound(4 * b * s * h * d * 2, flops, PEAK_BF16),
                       library=lambda: _sdpa(q, k, v),
@@ -441,6 +471,18 @@ def _kernel_attention(gen, kernel=attention.flash_attention, shapes=ATTN_SHAPES,
             f"{100 * 1e3 * r['bound_ms'] / r['us']:.1f}% of the bound ok")
         rows.append(r)
     return rows
+
+
+def _plain_attention(q, k, v):
+    """`attention.attention_ref` over groups of heads whose fp32 logits stay
+    under 8 GB (all heads at once below that): the pair's (1, 14040, 40,
+    128) would hold 31.5 GB of logits three times over at once."""
+    b, s, h, _ = q.shape
+    group = max(1, int(8e9 // (4 * b * s * k.shape[1])))
+    if group >= h:
+        return attention.attention_ref(q, k, v)
+    return torch.cat([attention.attention_ref(*(t[:, :, i:i + group] for t in (q, k, v)))
+                      for i in range(0, h, group)], dim=2)
 
 
 def _sdpa(q, k, v):
@@ -700,6 +742,45 @@ def _three_ways(build, cfg, seed):
     return [(ref_den, ref_mod, "cpu"), (*plain, "cpu"), (*card, "cuda")]
 
 
+def _small_inputs(latent_shape, steps):
+    """latent, initial noise, a centre pixel mask and a think-noise feed of
+    `steps` rows, from one CPU generator."""
+    gen = torch.Generator().manual_seed(5)
+    latent = torch.randn(latent_shape, generator=gen)
+    noise = torch.randn(latent_shape, generator=gen)
+    px = latent_shape[-1] * 8
+    mask = torch.zeros((px, px))
+    mask[px // 4:3 * px // 4, px // 4:3 * px // 4] = 1.0
+    feed = torch.randn((steps, 2, 5) + tuple(latent_shape), generator=gen)
+    return latent, noise, mask, feed
+
+
+def _small_runs(models, sampler_kw, inputs, cond, sigmas) -> list:
+    """A 4-step LanPaint run (2 think steps) of each model on its device,
+    every one fed `inputs`: the repainted square of each result, on the CPU."""
+    latent, noise, mask, feed = inputs
+    q = latent.shape[-1] // 4
+    runs = []
+    for den, _, dev in models:
+        sam = LanPaintSampler(den, config=LanPaintConfig(n_steps=2), **sampler_kw)
+        on_dev = [None if c is None else
+                  {k: v.to(dev) if torch.is_tensor(v) else v for k, v in c.items()}
+                  for c in cond]
+        samples, _ = sam(latent=latent.to(dev), sigmas=sigmas, cond=on_dev[0],
+                         uncond=on_dev[1], mask=mask.to(dev), noise=noise.to(dev),
+                         noise_feed=feed.to(dev))
+        runs.append(samples.cpu()[..., q:3 * q, q:3 * q])
+    return runs
+
+
+def _against_fp32(outs) -> tuple:
+    """(card's, plain bf16 path's relative L2 error against the fp32 CPU
+    reference, whether the card's is within twice the plain's + 1e-3 and
+    finite) of the three ways' outputs."""
+    plain, card = (rel_l2(out, outs[0]) for out in outs[1:])
+    return card, plain, card <= 2 * plain + 1e-3 and bool(torch.isfinite(outs[2]).all())
+
+
 def _small_reference(label, models, forward, sampler_kw, latent_shape, cond, sigmas):
     """The card's relative L2 error against the fp32 CPU reference must be
     no more than twice the plain bf16 path's, plus 1e-3, for one forward
@@ -712,31 +793,82 @@ def _small_reference(label, models, forward, sampler_kw, latent_shape, cond, sig
     ran = {k: f.launches - before[k] for k, f in (("attention", attention.flash_attention),
                                                   ("layernorm", norms.layernorm),
                                                   ("rmsnorm", norms.rmsnorm))}
-    gen = torch.Generator().manual_seed(5)
-    latent = torch.randn(latent_shape, generator=gen)
-    noise = torch.randn(latent_shape, generator=gen)
-    px = latent_shape[-1] * 8
-    mask = torch.zeros((px, px))
-    mask[px // 4:3 * px // 4, px // 4:3 * px // 4] = 1.0
-    feed = torch.randn((len(sigmas) - 1, 2, 5) + tuple(latent_shape), generator=gen)
-    q = latent_shape[-1] // 4
-    runs = []
-    for den, _, dev in models:
-        sam = LanPaintSampler(den, config=LanPaintConfig(n_steps=2), **sampler_kw)
-        on_dev = [None if c is None else {k: v.to(dev) for k, v in c.items()} for c in cond]
-        samples, _ = sam(latent=latent.to(dev), sigmas=sigmas, cond=on_dev[0],
-                         uncond=on_dev[1], mask=mask.to(dev), noise=noise.to(dev),
-                         noise_feed=feed.to(dev))
-        runs.append(samples.cpu()[..., q:3 * q, q:3 * q])  # the repainted square
-    (fwd_plain, fwd_card), (run_plain, run_card) = (
-        [rel_l2(out, outs[0]) for out in outs[1:]] for outs in (fwd, runs))
-    ok = (fwd_card <= 2 * fwd_plain + 1e-3 and run_card <= 2 * run_plain + 1e-3
-          and bool(torch.isfinite(runs[2]).all()))
+    runs = _small_runs(models, sampler_kw, _small_inputs(latent_shape, len(sigmas) - 1), cond,
+                       sigmas)
+    fwd_card, fwd_plain, fwd_ok = _against_fp32(fwd)
+    run_card, run_plain, run_ok = _against_fp32(runs)
+    ok = fwd_ok and run_ok
     say(f"{label}: rel_l2 against fp32 on the CPU (limit 2x the plain bf16 path's + 1e-3): "
         f"forward card {fwd_card:.3g} plain {fwd_plain:.3g}; 4-step LanPaint run card "
         f"{run_card:.3g} plain {run_plain:.3g}; card-forward launches {ran} "
         f"{'ok' if ok else 'FAIL'}")
     return ok, ran
+
+
+def _solver_noise(x, generator, step, slot):
+    """Solver noise shared by the three ways: slot `slot` of step `step`
+    from its own seeded CPU generator (samplers._noise_like's contract)."""
+    gen = torch.Generator().manual_seed(1000 * step + slot)
+    return torch.randn(tuple(x.shape), generator=gen).to(device=x.device, dtype=x.dtype)
+
+
+def _small_solvers(models, cond, sigmas, latent_shape) -> None:
+    """The 4-step LanPaint run of `_small_reference` (CFG 5 sequential) with
+    each of the 22 solvers, the think-noise feed and the solver noise
+    (`_solver_noise`) shared by the three ways: the card within twice the
+    plain bf16 path's error against fp32 on the CPU, plus 1e-3."""
+    inputs = _small_inputs(latent_shape, len(sigmas) - 1)
+    noise_like, samplers._noise_like = samplers._noise_like, _solver_noise
+    failed = []
+    try:
+        for name in samplers.SAMPLER_NAMES:
+            card, plain, ok = _against_fp32(_small_runs(
+                models, dict(cfg=5.0, sequential_cfg=True, sampler_name=name), inputs, cond,
+                sigmas))
+            say(f"phase 4 small UNet solver {name}: 4-step LanPaint run rel_l2 against fp32 on "
+                f"the CPU card {card:.3g} plain {plain:.3g} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(name)
+    finally:
+        samplers._noise_like = noise_like
+    if failed:
+        raise AssertionError(f"solvers {failed} on the card are less accurate than the plain "
+                             "path")
+
+
+def _count_calls(den, counts, key):
+    """Count `den`'s model calls under counts[key]."""
+    apply = den.apply
+
+    def counted(x, t, cond):
+        counts[key] += 1
+        return apply(x, t, cond)
+
+    den.apply = counted
+
+
+def _small_dual(models, cond, sigmas, latent_shape) -> None:
+    """`zoo.dual_model_denoiser` over two small UNets (phase 4's, seed 3,
+    for the positive branch and one of seed 4 for the negative) with
+    sequential CFG 5 and `model_select` in the negative cond, three ways:
+    the card within twice the plain path's error plus 1e-3, and on the card
+    each model called once per CFG pair."""
+    negatives = _three_ways(zoo.build_unet, SMALL_UNET, seed=4)
+    counts = {"pos": 0, "neg": 0}
+    _count_calls(models[2][0], counts, "pos")
+    _count_calls(negatives[2][0], counts, "neg")
+    duals = [(zoo.dual_model_denoiser(p[0], n[0]), None, p[2]) for p, n in zip(models, negatives)]
+    cond = (cond[0], dict(cond[1], model_select=1.0))
+    card, plain, ok = _against_fp32(_small_runs(
+        duals, dict(cfg=5.0, sequential_cfg=True), _small_inputs(latent_shape, len(sigmas) - 1),
+        cond, sigmas))
+    pairs = (len(sigmas) - 2) * 3 + 1  # 2 think steps + the final denoise; outer early stop 1
+    ok = ok and counts == {"pos": pairs, "neg": pairs}
+    say(f"phase 4 small UNet dual_model_denoiser (seeds 3 and 4, sequential CFG 5): 4-step "
+        f"LanPaint run rel_l2 against fp32 on the CPU card {card:.3g} plain {plain:.3g}; model "
+        f"calls on the card {counts} (want {pairs} each) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the dual-model pair on the card failed its check")
 
 
 SMALL_UNET = unet.UNetConfig(model_channels=64, channel_mult=(1, 2), num_res_blocks=1,
@@ -751,6 +883,7 @@ def phase_small_unet() -> None:
     (the CPU tests measure the same on the tiny UNet), and CFG 5 amplifies
     it in the run, so the limit follows the plain path."""
     models = _three_ways(zoo.build_unet, SMALL_UNET, seed=3)
+    sigmas = calculate_sigmas(models[0][0].sigma_table, "karras", 4)
     gen = torch.Generator().manual_seed(5)
     x = torch.randn((1, 4, 32, 32), generator=gen)
     t = torch.tensor([420.0])
@@ -760,11 +893,12 @@ def phase_small_unet() -> None:
     ok, ran = _small_reference(
         "phase 4 small UNet reference", models,
         lambda mod, dev: mod(x.to(dev), t.to(dev), ctx.to(dev)),
-        dict(cfg=5.0, sequential_cfg=True), (1, 4, 32, 32), cond,
-        calculate_sigmas(models[0][0].sigma_table, "karras", 4))
+        dict(cfg=5.0, sequential_cfg=True), (1, 4, 32, 32), cond, sigmas)
     if not (ok and ran["attention"] and ran["layernorm"]):
         raise AssertionError("the small UNet on the card is less accurate than the plain path "
                              "or did not go through the kernels")
+    _small_solvers(models, cond, sigmas, (1, 4, 32, 32))
+    _small_dual(models, cond, sigmas, (1, 4, 32, 32))
 
 
 def phase_small_dit() -> None:
@@ -1090,13 +1224,72 @@ def phase_video(smi: str) -> dict:
     return launches
 
 
-def phase_wan21_vae(smi: str) -> None:
-    """One encode-decode round trip of the Wan2.1 VAE at 480x832 x 33
-    frames: its mid attention runs the wide-head kernel at D = 384."""
+def phase_pair(smi: str) -> dict:
+    """Wan2.2 T2V-A14B video inpainting at 480x832 x 33 frames:
+    `api.inpaint_video` with its defaults (euler "simple", 20 steps x 2
+    think, CFG 5, here as two sequential passes, blend 9) on
+    `zoo.switching_denoiser` over two WAN22_T2V_14B_CONFIG experts (random
+    bf16 weights, seeds 0 and 1) and the Wan2.1 VAE, a random video and a 2D
+    centre mask; a 2-step warm-up call, then one timed and counted call with
+    each expert's forwards counted."""
+    t0 = time.perf_counter()
+    experts, n_params, counts = {}, {}, {"high": 0, "low": 0}
+    for key, seed in (("high", 0), ("low", 1)):
+        den, module = zoo.build_wan(wan.WAN22_T2V_14B_CONFIG, device="cuda",
+                                    param_dtype=torch.bfloat16, seed=seed,
+                                    name=f"wan22-t2v-a14b-{key}")
+        _count_calls(den, counts, key)
+        experts[key], n_params[key] = den, sum(p.numel() for p in module.parameters())
+    pair = zoo.switching_denoiser(experts["high"], experts["low"], boundary=BOUNDARY)
     model = zoo.build_wan_vae(video_vae.WAN21_VAE_CONFIG, device="cuda",
-                              param_dtype=torch.bfloat16, seed=6)
-    _vae_round_trip("phase 11 Wan2.1 VAE (mid attention at D = 384)", model, WAN21_SHAPE,
-                    (1, 16, 9, 60, 104), 7, smi)
+                              param_dtype=torch.bfloat16, seed=2)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_vae = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    video = torch.rand(WAN21_SHAPE, device="cuda", generator=gen) * 2.0 - 1.0
+    cond, uncond = ({"context": torch.randn((1, 512, 4096), device="cuda", generator=gen)}
+                    for _ in range(2))
+    enc_ms, dec_ms, latent = _vae_times(model, video)
+    b, _, frames, hh, ww = WAN21_SHAPE  # (1, 16, 9, 60, 104): stride 4 in time, 8 in space
+    want = (b, 16, 1 + (frames - 1) // 4, hh // 8, ww // 8)
+    if tuple(latent.shape) != want or not bool(torch.isfinite(latent).all()):
+        raise AssertionError(f"Wan2.1 VAE encode gave {tuple(latent.shape)}, finite "
+                             f"{bool(torch.isfinite(latent).all())}")
+    pre = pair.precompute(cond)
+    profiles = {}
+    for key, t in (("high", 0.9), ("low", 0.7)):
+        before = dict(counts)
+        t_dev = torch.tensor([t], device="cuda")
+        profiles[key] = profile_forward(lambda: pair.route(t)(latent, t_dev, pre))
+        if counts[key] - before[key] != 2 or sum(counts.values()) - sum(before.values()) != 2:
+            raise AssertionError(f"the pair did not route t = {t} to the {key}-noise expert")
+    del pre
+
+    kw = dict(positive=cond, negative=uncond, seed=0, sequential_cfg=True)
+    t0 = time.perf_counter()
+    inpaint_video(pair, model, video=video, mask=_centre_mask(*WAN21_SHAPE[-2:]), steps=2,
+                  blend_overlap=BLEND, **kw)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    if min(counts.values()) < 4:  # the warm-up's ladder 1.0, 0.833, 0 runs both experts
+        raise AssertionError(f"the warm-up left an expert cold: {counts}")
+    counts.update(high=0, low=0)
+    ok, launches, text = _pixel_workflow(inpaint_video, pair, model, video, "pair", **kw)
+    ok = ok and counts == EXPERT_FORWARDS
+    say(f"phase 11 pair path: inpaint_video, Wan2.2 T2V-A14B pair (high "
+        f"{n_params['high'] / 1e9:.3f} B + low {n_params['low'] / 1e9:.3f} B params bf16, "
+        f"boundary {BOUNDARY}) + Wan2.1 VAE ({n_vae / 1e6:.1f} M), init {t_init:.1f} s | "
+        f"{WAN21_SHAPE} -> latent {tuple(latent.shape)}, S = {latent[0, 0].numel() // 4} | VAE "
+        f"encode {enc_ms:.2f} ms decode {dec_ms:.2f} ms (median of 3; mid attention at D = 384) "
+        f"| one forward under "
+        f"torch.profiler: high expert at t = 0.9: {_profile_text(profiles['high'])}; low expert "
+        f"at t = 0.7: {_profile_text(profiles['low'])} | euler simple {STEPS} x think "
+        f"{VIDEO_THINK}, cfg 5 sequential, blend {BLEND}, first run (2 steps) {t_first:.2f} s, "
+        f"expert forwards {counts} (want {EXPERT_FORWARDS}), {text} on {smi}")
+    if not ok:
+        raise AssertionError("phase 11 pair path check failed")
+    return launches
 
 
 def kernels_line(rows: dict, launches: dict) -> list:
@@ -1176,8 +1369,11 @@ def main() -> int:
     launches["video"] = phase_video(smi)
     api._SAMPLER_CACHE.clear()  # ksampler's sampler cache holds the Wan model
     gc.collect()
+    torch.cuda.empty_cache()  # TI2V-5B's weights go before the pair's 57 GB arrive
+    launches["pair"] = phase_pair(smi)
+    api._SAMPLER_CACHE.clear()
+    gc.collect()
     torch.cuda.empty_cache()
-    phase_wan21_vae(smi)
     print(smi)
     print(json.dumps({"kernels": kernels_line(rows, launches)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

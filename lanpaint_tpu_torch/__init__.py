@@ -3,9 +3,9 @@
 The PyTorch / CUDA port of `lanpaint_tpu`, module for module.  Plain tensor
 code is PyTorch; the TPU package's Pallas kernels are hand-written Hopper
 kernels (ops/attention.py with csrc/attention.cu and
-csrc/wide_attention.cu, ops/norms.py with csrc/row_norm.cu, ops/fused.py in
-Triton), built at first use.  Builders and entry points run on the CUDA card unless the caller
-names another device.
+csrc/wide_attention.cu, ops/norms.py with csrc/row_norm.cu, ops/fused.py with
+csrc/fused.cu), built at first use.  The `build_*` functions and the entry
+points run on the CUDA card unless the caller names another device.
 """
 
 from .api import (

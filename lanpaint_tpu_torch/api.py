@@ -20,10 +20,9 @@ outer solver loop with the per-step think loop and CFG double pass (or,
 without a mask, the plain CFG denoise), and the terminal inverse noise
 scaling.
 
-Not ported yet: every solver but euler (`samplers.get_solver` raises
-NotImplementedError naming it); `edit_image` (it needs Qwen-Image's
-reference tokens) and the `LanPaintPipeline` of `pipeline.py` (text
-encoders and loaders) are absent.
+Every solver of the JAX package runs here (`samplers.SAMPLER_NAMES`).
+Not ported yet: `edit_image` (it needs Qwen-Image's reference tokens) and
+the `LanPaintPipeline` of `pipeline.py` (text encoders and loaders).
 """
 
 from __future__ import annotations
@@ -76,7 +75,9 @@ class LanPaintSampler:
     device of `latent`; conditioning is moved there.
 
     `denoise_mask_fn(sigma, mask) -> mask` reshapes the latent-grid mask per
-    outer step (`sigma` a 0-dim fp32 tensor on the latent's device).
+    outer step (`sigma` a 0-dim fp32 tensor on the latent's device).  A
+    model of several experts (`Denoiser.route`, zoo.switching_denoiser) is
+    routed per model call from the host sigma.
     `callback(i, denoised, x)` fires after each outer step with the global
     step index.  With `return_aux` a call returns (samples, denoised, aux),
     aux an `engine.ThinkAux` stacked over the outer steps (`steps_done` (N,)
@@ -101,7 +102,7 @@ class LanPaintSampler:
         sequential_cfg: bool = False,
         return_aux: bool = False,
     ):
-        samplers.get_solver(sampler_name)  # unknown / unported names raise here
+        samplers.get_solver(sampler_name)  # an unknown name raises here
         self.model = model
         self.config = config
         self.sampler_name = sampler_name
@@ -141,11 +142,15 @@ class LanPaintSampler:
         seeded `seed + 1` (reference nodes.py:208-212) instead of being the
         initial noise.  `chunk_steps`: run the ladder as segments of at most
         that many outer steps; each carries the global step index, the
-        solver carry and the generator on, so the result equals one run.
+        solver carry, the table rows of the full ladder (deis, heunpp2) and
+        the generator on, so the result equals one run; dpm_fast segments
+        are whole groups of its uniform-t grid (a segment may span
+        chunk_steps + 2 grid steps), each run against the full ladder.
         `noise_feed` (parity/replay mode): (total_steps, n_max, 5,
         *latent.shape) standard-normal draws the think loop consumes instead
         of the generator, row per outer step (engine.lanpaint_update
-        contract).
+        contract), the step of a model call being that of its nearest ladder
+        sigma (`samplers.model_step`; the row index clamped to the feed).
 
         RNG order: one `torch.Generator` on the latent's device, seeded with
         the seed's low 32 bits, draws the initial noise (unless `noise` is
@@ -186,38 +191,43 @@ class LanPaintSampler:
             cond = self.model.precompute(cond)
             if uncond is not None:
                 uncond = self.model.precompute(uncond)
-        denoise = make_cfg_double_denoiser(
-            self.model.apply, cond, uncond, self.cfg, self.cfg_big,
-            self.disable_cfg1_optimization, self.pre_cfg_fns,
-            sequential=self.sequential_cfg)
+        denoise_at = self._denoise_at(cond, uncond)
 
         def host_times(sigma):
             # unified times on the CPU from the host sigma: the engine decides
-            # its loop length there without a device sync
+            # its loop length, and the sampler the expert, there without a
+            # device sync
             return unify_times(torch.full((b,), float(sigma), dtype=torch.float32), kind)
 
         if mask is None:
             def wrapped(x, sigma, step):
                 times = host_times(sigma)
                 t = times.flow_t if kind is ModelKind.FLOW else times.ve_sigma
-                out, _ = denoise(x, t.to(device))
+                out, _ = denoise_at(times)(x, t.to(device))
                 return out, x
         else:
             wrapped = self._inpaint_step(
-                denoise, host_times, prepare_mask(torch.as_tensor(mask, device=device),
-                                                  latent.shape, video),
+                denoise_at, host_times, prepare_mask(torch.as_tensor(mask, device=device),
+                                                     latent.shape, video),
                 latent, think_noise, total, gen, noise_feed)
 
         collect = self.return_aux and mask is not None
         chunk = total if not chunk_steps else max(1, int(chunk_steps))
+        if self.sampler_name == "dpm_fast":
+            # every launch sees the full ladder; its group range picks its share
+            segments = [(sig_host, None, 0, r) for r in _dpm_fast_ranges(total, chunk)]
+        else:
+            full_tables = samplers.prepare_tables(self.sampler_name, sig_host)
+            segments = [(sig_host[start:start + chunk + 1],
+                         {k: v[start:start + chunk] for k, v in full_tables.items()}, start, None)
+                        for start in range(0, total, chunk)]
         x, carry = x_init, samplers.init_carry(x_init)
         den_parts, auxs = [], []
-        for start in range(0, total, chunk):
-            end = min(start + chunk, total)
+        for seg, tables, start, g_range in segments:
             x, den, carry = samplers.sample(
-                wrapped, x, sig_host[start:end + 1], sampler=self.sampler_name, generator=gen,
-                callback=self.callback, step_offset=start, carry_in=carry, return_carry=True,
-                collect_aux=collect)
+                wrapped, x, seg, sampler=self.sampler_name, generator=gen,
+                callback=self.callback, tables=tables, step_offset=start, carry_in=carry,
+                return_carry=True, collect_aux=collect, dpm_fast_range=g_range)
             if collect:
                 den, seg_auxs = den
                 auxs += seg_auxs
@@ -233,8 +243,29 @@ class LanPaintSampler:
                            trace=torch.stack([a.trace for a in auxs]))
         return samples, den_all, aux
 
-    def _inpaint_step(self, denoise, host_times, denoise_mask, latent, think_noise, total, gen,
-                      noise_feed):
+    def _denoise_at(self, cond, uncond):
+        """`denoise_at(times)`: the CFG double denoiser over the model, or
+        over the expert its `route` picks from the host model time (the
+        batch mean of `times`' flow t, or VE sigma for an EPS model, as JAX's
+        `mean(t)`), one built per expert."""
+        built = {}
+
+        def denoise_at(times):
+            apply = self.model.apply
+            if self.model.route is not None:
+                t = times.flow_t if self.model.kind is ModelKind.FLOW else times.ve_sigma
+                apply = self.model.route(float(t.mean()))
+            if apply not in built:
+                built[apply] = make_cfg_double_denoiser(
+                    apply, cond, uncond, self.cfg, self.cfg_big,
+                    self.disable_cfg1_optimization, self.pre_cfg_fns,
+                    sequential=self.sequential_cfg)
+            return built[apply]
+
+        return denoise_at
+
+    def _inpaint_step(self, denoise_at, host_times, denoise_mask, latent, think_noise, total,
+                      gen, noise_feed):
         """The solver's model function on the inpaint path: one
         `lanpaint_update` (think loop, final denoise, known-region blend)."""
         cfg_ = self.config
@@ -253,13 +284,31 @@ class LanPaintSampler:
                 latent_mask = 1.0 - (dm > 0.5).float()
             # Outer early stop: zero think steps in the tail (nodes.py:177-183).
             n = 0 if total - step <= cfg_.outer_early_stop else cfg_.n_steps
+            times = host_times(sigma)
             out, x_new, aux = lanpaint_update(
-                denoise, x, latent_image=latent, noise=think_noise, latent_mask=latent_mask,
-                times=host_times(sigma), n_steps=n, config=cfg_, kind=kind, generator=gen,
-                noise_feed=None if noise_feed is None else noise_feed[step])
+                denoise_at(times), x, latent_image=latent, noise=think_noise,
+                latent_mask=latent_mask, times=times, n_steps=n, config=cfg_, kind=kind,
+                generator=gen,
+                noise_feed=None if noise_feed is None
+                else noise_feed[min(step, noise_feed.shape[0] - 1)])
             return (out, x_new, aux) if self.return_aux else (out, x_new)
 
         return wrapped
+
+
+def _dpm_fast_ranges(total: int, chunk: int) -> list:
+    """dpm_fast's launches as (g0, g1, include_final) group ranges of at
+    most `chunk` grid steps each, unless one group alone is longer (a group
+    is atomic), as lanpaint_tpu/api.py:344-360 cuts them."""
+    orders = samplers.dpm_fast_groups(total)
+    ranges, g0, span = [], 0, 0
+    for g, o in enumerate(orders):
+        if span and span + o > chunk:
+            ranges.append((g0, g, False))
+            g0, span = g, 0
+        span += o
+    ranges.append((g0, len(orders), True))
+    return ranges
 
 
 # ---------------------------------------------------------------------------

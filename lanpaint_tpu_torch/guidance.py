@@ -36,8 +36,14 @@ def resolve_cfg_big(prompt_mode: str, cfg: float, is_flux: bool = False) -> floa
 
 
 def _concat_tree(a, b):
-    """Concatenate two conditioning trees of the same structure on axis 0."""
+    """Concatenate two conditioning trees of the same structure on axis 0;
+    ValueError for dicts of different keys, as `jax.tree.map` raises (a
+    dual_model_denoiser's negative cond holds a `model_select` the positive
+    lacks, so its batched CFG fails here as in the JAX package)."""
     if isinstance(a, dict):
+        if set(a) != set(b):
+            raise ValueError(f"cond and uncond differ in their keys: {sorted(a)} against "
+                             f"{sorted(b)}")
         return {k: _concat_tree(a[k], b[k]) for k in a}
     if isinstance(a, (list, tuple)):
         return type(a)(_concat_tree(x, y) for x, y in zip(a, b))

@@ -55,6 +55,10 @@ class Denoiser:
     zoo.unet_precompute_kv): the sampler applies it once per call, outside
     the solver and think loops; the enriched cond must also give correct
     results when passed straight to apply().  The weights live in `module`.
+    `route(t) -> apply`, for a model of several experts
+    (zoo.switching_denoiser): the apply of the expert that serves model time
+    `t`, a host float (the batch mean); the sampler calls it once per model
+    call from its host sigma, so a forward reads nothing from the device.
     """
 
     apply: Callable[[torch.Tensor, torch.Tensor, Any], torch.Tensor]
@@ -66,3 +70,4 @@ class Denoiser:
     process_latent_out: Optional[Callable] = None
     module: Optional[torch.nn.Module] = None
     precompute: Optional[Callable[[Any], Any]] = None
+    route: Optional[Callable[[float], Callable]] = None

@@ -1,5 +1,6 @@
 """Weight bridge: the JAX package's flax UNet, MMDiT, Wan, VAE, Wan VAE and
-TAESD parameter trees -> this package's module state_dicts.
+TAESD parameter trees -> this package's module state_dicts (and a two-model
+wrapper's pair of trees -> its nn.ModuleDict's, `pair_params_from_flax`).
 
 The tree holds numpy arrays (e.g. `lanpaint_tpu.models.zoo.init_params_host`
 output or `jax.device_get` of device params); nothing here imports JAX.
@@ -87,3 +88,12 @@ def params_from_flax(tree) -> dict:
 
 unet_params_from_flax = dit_params_from_flax = wan_params_from_flax = params_from_flax
 vae_params_from_flax = wan_vae_params_from_flax = params_from_flax
+
+
+def pair_params_from_flax(trees) -> dict:
+    """Map a JAX two-model wrapper's parameters, {"high": tree, "low": tree}
+    (`zoo.switching_denoiser`) or {"pos": tree, "neg": tree}
+    (`zoo.dual_model_denoiser`), onto the port wrapper's `module`
+    (nn.ModuleDict) state_dict keys, each tree through `params_from_flax`."""
+    return {f"{name}.{key}": val for name, tree in trees.items()
+            for key, val in params_from_flax(tree).items()}

@@ -3,9 +3,11 @@ flow-matching MMDiTs and the Wan video DiTs for now) and the image and
 video VAEs.
 
 PyTorch counterpart of the UNet, MMDiT and Wan parts of
-`lanpaint_tpu/models/zoo.py`.  `build_unet`, `build_dit` and `build_wan`
-return (Denoiser, module); `build_vae` and `build_wan_vae` return the
-module.  Every builder builds on the CUDA card unless `device` names
+`lanpaint_tpu/models/zoo.py`, with its two-model wrappers
+(`switching_denoiser`, the Wan2.2 high/low-noise expert pair, and
+`dual_model_denoiser`).  `build_unet`, `build_dit` and `build_wan` return
+(Denoiser, module); `build_vae` and `build_wan_vae` return the module.
+Every `build_*` function builds on the CUDA card unless `device` names
 another (`utils.resolve_device`).
 Without a state_dict the weights are random, drawn on the target device
 from a seeded generator with the rule of
@@ -18,7 +20,9 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
+from torch import nn
 
 from ..config import ModelKind
 from ..schedule import bcast_to
@@ -259,3 +263,98 @@ def build_wan_vae(config: WanVAEConfig = WAN22_VAE_CONFIG, state_dict: Optional[
     with `param_dtype` parameters (random from `seed` without a
     state_dict), in eval mode."""
     return _materialize(WanVAE, config, state_dict, resolve_device(device), param_dtype, seed)
+
+
+# --------------------------------------------------------------------------
+# two-model wrappers
+
+
+def _expert_cond(cond, name: str):
+    """Expert `name`'s cond: its own precomputed one where the pair's
+    precompute made it, the pair's cond otherwise."""
+    if isinstance(cond, dict) and "experts" in cond:
+        return cond["experts"][name]
+    return cond
+
+
+def switching_denoiser(high: Denoiser, low: Denoiser, boundary: float = 0.875,
+                       name: str = "wan22-moe") -> Denoiser:
+    """Two-expert timestep-switched denoiser: the Wan2.2 high-noise +
+    low-noise pair (reference README.md:219-225).  The high-noise expert
+    serves model time t >= boundary (the batch mean, compared in float32),
+    the low-noise one the rest, as the JAX package's `lax.cond`.
+
+    The sampler routes each model call through `route` from its host sigma,
+    so only the chosen expert runs and no forward reads the device; `apply`,
+    for direct callers, reads t's mean itself (a device sync when t is on
+    the card).  `precompute` hoists each expert's run-constant conditioning
+    (the Wan cross-attention k/v) under cond["experts"][name]: the JAX pair
+    hoists nothing, and the port's hoist gives the forward's own bits
+    (tests/test_torch_wan.py).  `module` is an nn.ModuleDict {"high",
+    "low"}; `bridge.pair_params_from_flax` maps the JAX pair's parameters
+    onto its state_dict."""
+    if high.kind is not low.kind:
+        raise ValueError(f"the experts' kinds differ: {high.kind} and {low.kind}")
+    experts = {"high": high, "low": low}
+
+    def expert_apply(key):
+        den = experts[key]
+        return lambda x, t, cond: den.apply(x, t, _expert_cond(cond, key))
+
+    applies = {k: expert_apply(k) for k in experts}
+
+    def route(t: float):
+        return applies["high" if np.float32(t) >= np.float32(boundary) else "low"]
+
+    def apply(x, t, cond):
+        return route(float(torch.as_tensor(t, dtype=torch.float32).mean()))(x, t, cond)
+
+    def precompute(cond):
+        if not isinstance(cond, dict):
+            return cond
+        return dict(cond, experts={k: cond if d.precompute is None else d.precompute(cond)
+                                   for k, d in experts.items()})
+
+    return Denoiser(apply=apply, kind=high.kind, sigma_table=high.sigma_table,
+                    is_flux=high.is_flux, name=name, latent_channels=high.latent_channels,
+                    module=nn.ModuleDict({"high": high.module, "low": low.module}),
+                    precompute=precompute, route=route)
+
+
+def dual_model_denoiser(positive: Denoiser, negative: Denoiser,
+                        name: str = "dual-cfg") -> Denoiser:
+    """Two-model CFG, the reference Ideogram4 workflow's `DualModelGuider`
+    (docs/family_facts.md): the positive CFG branch runs `positive`, the
+    negative branch `negative`, and CFG mixes across the two.
+
+    Usage: put `"model_select": 1` in the NEGATIVE cond dict and sample with
+    `sequential_cfg=True`: each CFG pass then runs one model.  The batched
+    2B pass cannot route per half; it raises ValueError (cond and uncond
+    differ in their keys), as the JAX package's `jax.tree.map` does.  A
+    cond's model_select (its mean > 0.5 picks `negative`) is read on the
+    host: `precompute` turns it into a Python float once per sampler call,
+    and `apply` reads a Python number or a tensor (a device sync for one on
+    the card).  `module` is an nn.ModuleDict {"pos", "neg"}."""
+    if positive.kind is not negative.kind:
+        raise ValueError(f"the models' kinds differ: {positive.kind} and {negative.kind}")
+
+    def select(sel) -> float:
+        return float(torch.as_tensor(sel, dtype=torch.float32).mean())
+
+    def apply(x, t, cond):
+        sel, inner = 0.0, cond
+        if isinstance(cond, dict):
+            sel = cond.get("model_select", 0.0)
+            inner = {k: v for k, v in cond.items() if k != "model_select"}
+        return (negative if select(sel) > 0.5 else positive).apply(x, t, inner)
+
+    def precompute(cond):
+        if isinstance(cond, dict) and "model_select" in cond:
+            return dict(cond, model_select=select(cond["model_select"]))
+        return cond
+
+    return Denoiser(apply=apply, kind=positive.kind, sigma_table=positive.sigma_table,
+                    is_flux=positive.is_flux, name=name,
+                    latent_channels=positive.latent_channels,
+                    module=nn.ModuleDict({"pos": positive.module, "neg": negative.module}),
+                    precompute=precompute)

@@ -3,7 +3,9 @@
 `lanpaint_tpu_torch/config.py` and `sigmas.py` are copies (importing the
 JAX package's would import jax).  Defaults, validation and the derived
 properties must agree, and every scheduler must give the same ladder,
-bit for bit.
+bit for bit.  So must the solvers' host tables in `samplers.py`: the deis
+coefficients (`_deis_coeffs`, numpy), heunpp2's full-ladder rows
+(`prepare_tables`) and dpm_fast's step grouping.
 """
 
 import dataclasses
@@ -12,8 +14,10 @@ import numpy as np
 import pytest
 
 from lanpaint_tpu import config as jconfig
+from lanpaint_tpu import samplers as jsamplers
 from lanpaint_tpu import sigmas as jsigmas
 from lanpaint_tpu_torch import config as tconfig
+from lanpaint_tpu_torch import samplers as tsamplers
 from lanpaint_tpu_torch import sigmas as tsigmas
 
 
@@ -68,3 +72,23 @@ def test_calculate_sigmas_matches(scheduler):
                 np.testing.assert_array_equal(
                     np.asarray(tsigmas.apply_denoise(tt, scheduler, steps, denoise)),
                     np.asarray(jsigmas.apply_denoise(jt, scheduler, steps, denoise)))
+
+
+@pytest.mark.parametrize("n", [2, 5, 20, 33])
+def test_deis_and_heunpp2_tables_match_jax(n):
+    sigmas = tsigmas.karras(n, 0.03, 14.6).astype(np.float32)
+    np.testing.assert_array_equal(tsamplers._deis_coeffs(sigmas),
+                                  jsamplers._deis_coeffs(sigmas))
+    for name in ("deis", "heunpp2", "euler"):
+        want = jsamplers.prepare_tables(name, sigmas)
+        got = tsamplers.prepare_tables(name, sigmas)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert got[k].dtype == np.float32
+            np.testing.assert_array_equal(got[k], np.asarray(want[k]))
+
+
+def test_dpm_fast_groups_match_jax():
+    for total in range(1, 40):
+        assert tsamplers.dpm_fast_groups(total) == jsamplers.dpm_fast_groups(total)
+        assert tsamplers._dpm_fast_orders(total) == jsamplers._dpm_fast_orders(total)

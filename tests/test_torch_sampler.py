@@ -1,9 +1,9 @@
 """The port's sampler API (lanpaint_tpu_torch.api / samplers / masks).
 
-1. The five euler `LADDER_CASES` of tests/data/reference_goldens.npz: full
-   ladders recorded from the original torch LanPaint's outer path, replayed
-   through the port's public `LanPaintSampler` with the per-step noise feed,
-   at the JAX package's 5e-4.
+1. The six `LADDER_CASES` of tests/data/reference_goldens.npz (five euler,
+   one dpmpp_2m): full ladders recorded from the original torch LanPaint's
+   outer path, replayed through the port's public `LanPaintSampler` with
+   the per-step noise feed, at the JAX package's 5e-4.
 2. `prepare_mask` against the JAX package for 2D, 3D and 4D image masks
    and the video layouts, exactly (it is an index gather).
 """
@@ -34,7 +34,7 @@ def test_euler_ladders_are_the_five_named():
                              "ladder_euler_eps_video"]
 
 
-@pytest.mark.parametrize("name", EULER_LADDERS)
+@pytest.mark.parametrize("name", LADDER_CASES)
 def test_reference_ladder_through_port(goldens, name):
     """Same construction as tests/test_reference_golden.py's ladder test: the
     reference's dummy (0.4x+g, 0.55x-0.5g) expressed as cond/uncond passes
@@ -52,7 +52,8 @@ def test_reference_ladder_through_port(goldens, name):
     config = LanPaintConfig(n_steps=int(n_think), lamb=lamb, step_size=step_size, beta=beta,
                             friction=friction, outer_early_stop=int(early_stop))
     sam = LanPaintSampler(Denoiser(apply=apply, kind=kind), config=config,
-                          sampler_name="euler", cfg=2.0, cfg_big=0.5)
+                          sampler_name="dpmpp_2m" if "dpmpp2m" in name else "euler",
+                          cfg=2.0, cfg_big=0.5)
     sigmas = z[f"{name}/sigmas"]
     shape = z[f"{name}/g"].shape
     feed = build_ladder_feed(z, name, len(sigmas) - 1, max(int(n_think), 1), shape)
@@ -88,12 +89,14 @@ def test_prepare_mask_matches_jax(mask_shape, latent_shape, video):
 
 
 def test_get_solver_names_unported_solvers():
-    assert get_solver("euler") is not None
-    assert sorted(SAMPLER_NAMES) == sorted(J_SAMPLER_NAMES)
+    """No solver is left unported: every name the JAX package registers
+    resolves (dpm_fast to `_sample_dpm_fast`), and a LanPaintSampler
+    takes it; only an unknown name raises."""
+    assert SAMPLER_NAMES == J_SAMPLER_NAMES  # the same names in the same order
     for name in SAMPLER_NAMES:
-        if name != "euler":
-            with pytest.raises(NotImplementedError, match=name):
-                get_solver(name)
+        assert callable(get_solver(name)), name
+        LanPaintSampler(Denoiser(apply=lambda x, t, c: x, kind=ModelKind.EPS),
+                        sampler_name=name)
     with pytest.raises(ValueError, match="unknown sampler"):
         get_solver("no_such_solver")
 
