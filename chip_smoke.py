@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the root of the repository
 
-Five main paths, each with random bf16 weights made on the card from a
+Seven main paths, each with random bf16 weights made on the card from a
 seed, the euler solver, 20 steps, outer early stop 1 and a centre mask; 5
 think steps but for the video paths' 2:
 
@@ -14,6 +14,17 @@ think steps but for the video paths' 2:
   SDXL path above repaints the latent, the VAE decodes it and MaskBlend
   (overlap 9) feathers it into the image: two wide-head attention launches
   (the VAE's mid attention, D = 512, S = 16,384) besides the SDXL path's;
+  its conds are the pipeline path's prompt encodings;
+* single-file SDXL-1024 through `LanPaintPipeline` (the reference user's
+  node graph as one object): the SDXL UNet and VAE above with a CLIP-L and
+  a CLIP-G, exported into one BF16 safetensors file (3.469 B parameters),
+  read back with `from_single_file`, a prompt encoded by the port's
+  tokenizer and CLIP towers, then `pipe(prompt, image=..., mask=...)` with
+  the pixel path's settings: bit-equal to the pixel path's output;
+* single-file SD1.5 at its published 512^2 through the same pipeline
+  (SD15_CONFIG's first run on the card): its attention (head dims 40, 80,
+  160) stays plain as in the JAX package, its LayerNorms and the VAE's mid
+  attention (D = 512, S = 4,096) take the kernels;
 * Flux-dev-1024 (the reference's Flux_Inpaint workflow): "simple", cfg 1
   (cfg_big forced to 1), `use_fused_kernels=True`: 115 MMDiT forwards, 76
   fused half-step and 95 fused finish launches;
@@ -48,7 +59,8 @@ exits non-zero without printing a result):
    instructions in the SASS of each attention instantiation (cuobjdump
    -sass; neither may be 0);
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
-   card at the main paths' shapes (plus ragged shapes), with each kernel's
+   card at the main paths' shapes (plus ragged shapes, and SD2.1-v-768's two
+   D = 64 attention shapes, S = 9,216 and 2,304), with each kernel's
    time, the plain version's and, where one PyTorch call computes the same
    function (scaled_dot_product_attention, F.layer_norm, F.rms_norm), that
    call's, timed as a yardstick only: per launch including the host's
@@ -97,33 +109,57 @@ exits non-zero without printing a result):
    t = 0.7, routed by the pair) under torch.profiler, a 2-step warm-up call
    of `api.inpaint_video` (its ladder 1.0, 0.833, 0 runs both experts),
    then one timed and counted call with its defaults: phase 10's checks,
-   and each expert's forwards counted.
+   and each expert's forwards counted;
+12. single file, SDXL (run between phases 6 and 7, on their models): the
+   export, the file's write (a small writer here: the card's machine has
+   no safetensors package), `from_single_file` timed by step (the native
+   reader's read, split and import, the copy to the card), the tensors the
+   native reader widened (all of them, none by torch), the family and the
+   encoders, every tensor bit-equal to its source, `pipe.encode` timed;
+   after phase 7, the pipeline's call, timed and counted with phase 7's
+   checks and bit-equal to phase 7's output;
+13. single file, SD1.5 at 512^2: the same load checks, then the
+   pipeline's call and `inpaint_image` on the source modules with the
+   pipeline's prompt encodings, each timed and counted with phase 7's
+   checks, bit-equal to each other;
+14. the T5 text encoders at full width, fp32: T5-XXL and UMT5-XXL, one at
+   a time, one prompt at 512 tokens through `text.NativeEncoder`:
+   (1, 512, 4096), finite, timed.
 
 Then, on lines of their own: the nvidia-smi line, one JSON line with the
 per-kernel numbers, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-In the kernels line, `launches` is the five timed runs' count, and `ms` /
+In the kernels line, `launches` is the seven timed runs' count (phase
+13's `inpaint_image` run is a check and not counted), and `ms` /
 `plain_ms` / `library_ms` / `bound_ms` are the kernel's / plain version's /
 PyTorch call's per-launch times and the bound at each main-path shape times
-that shape's launches in the five timed runs, summed (`library_ms` null
+that shape's launches in the seven timed runs, summed (`library_ms` null
 where a launched shape has no such call; each shape alone in `per_shape`,
 with its device times in us).
 
 To run some phases alone: python3 -c "import chip_smoke as c; smi =
 c.phase_device(); c.phase_build(); c.phase_pixel(smi)".
 
-It needs one CUDA card and the CUDA toolkit (nvcc, cuobjdump); no network.
+It needs one CUDA card, the CUDA toolkit (nvcc, cuobjdump) and g++ (the
+checkpoint reader's native conversion, built at first use); no network.
+Phases 12 and 13 write their files into a temporary directory (~7 GB and
+~2 GB) and remove it.
 """
 
+import contextlib
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import os
 import re
+import shutil
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -132,11 +168,12 @@ import torch
 import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
-from lanpaint_tpu_torch import (LanPaintConfig, LanPaintSampler, ModelKind, api, inpaint_image,
-                                inpaint_video)
+from lanpaint_tpu_torch import (LanPaintConfig, LanPaintPipeline, LanPaintSampler, ModelKind, api,
+                                inpaint_image, inpaint_video)
 from lanpaint_tpu_torch.engine import lanpaint_update
-from lanpaint_tpu_torch import samplers
-from lanpaint_tpu_torch.models import dit, unet, vae, video_vae, wan, zoo
+from lanpaint_tpu_torch import samplers, text, tokenizers
+from lanpaint_tpu_torch.models import dit, load, textenc, unet, vae, video_vae, wan, zoo
+from lanpaint_tpu_torch.native import loader as native_loader
 from lanpaint_tpu_torch.ops import attention, cuda_build, fused, norms
 from lanpaint_tpu_torch.schedule import unify_times
 from lanpaint_tpu_torch.sigmas import calculate_sigmas
@@ -154,7 +191,8 @@ BOUNDARY = 0.875  # the Wan2.2 pair's switch: the high-noise expert serves t >= 
 EXPERT_FORWARDS = {"high": 2 * 9 * (VIDEO_THINK + 1),
                    "low": 2 * (10 * (VIDEO_THINK + 1) + EARLY_STOP)}
 FORWARDS = {"sdxl": 2 * PAIRS, "pixel": 2 * PAIRS, "flux": PAIRS,  # CFG 5 seq. / cfg 1
-            "video": 2 * VIDEO_PAIRS, "pair": 2 * VIDEO_PAIRS}     # CFG 5 sequential
+            "video": 2 * VIDEO_PAIRS, "pair": 2 * VIDEO_PAIRS,     # CFG 5 sequential
+            "pipeline": 2 * PAIRS, "sd15": 2 * PAIRS}
 PER_FORWARD = {  # kernel launches per model forward
     "sdxl": {"flash_attention": 70, "layernorm": 210, "rmsnorm": 0},
     # 19 double + 38 single blocks; adaLN norms 4 + 1 per block + 1 final;
@@ -165,7 +203,11 @@ PER_FORWARD = {  # kernel launches per model forward
     "video": {"flash_attention": 30, "layernorm": 91, "rmsnorm": 90},
     "pair": {"flash_attention": 40, "layernorm": 121, "rmsnorm": 120},  # 40 blocks
 }
-PER_FORWARD["pixel"] = PER_FORWARD["sdxl"]
+PER_FORWARD["pixel"] = PER_FORWARD["pipeline"] = PER_FORWARD["sdxl"]
+# SD1.5 at 512^2: 16 transformer blocks, 3 LayerNorms each; its head dims
+# (40, 80, 160) are not multiples of 64, so its attention stays plain, as
+# the JAX package leaves it to XLA
+PER_FORWARD["sd15"] = {"flash_attention": 0, "layernorm": 48, "rmsnorm": 0}
 PER_RUN = {  # per run: fused half on warm iterations, finish on every one; the
     # VAE's mid attention once in the encode and once in the decode; the
     # Wan cross norm_k of every block in each of the two conds' precompute
@@ -177,13 +219,16 @@ PER_RUN = {  # per run: fused half on warm iterations, finish on every one; the
     "video": {"fused_half_step": 0, "fused_finish": 0, "wide_attention": 2, "rmsnorm": 60},
     "pair": {"fused_half_step": 0, "fused_finish": 0, "wide_attention": 2, "rmsnorm": 160},
 }
+PER_RUN["pipeline"] = PER_RUN["sd15"] = PER_RUN["pixel"]
 BLEND = 9  # MaskBlend overlap of the pixel and video paths
 SPLASH = "lanpaint_tpu/models/layers.py:131 (_splash_kernel)"
 # (shape, calls per forward by path, TPU kernel it replaces)
 ATTN_SHAPES = [
-    ((1, 4096, 10, 64), {"sdxl": 10, "pixel": 10}, SPLASH),
-    ((1, 1024, 20, 64), {"sdxl": 60, "pixel": 60},
+    ((1, 4096, 10, 64), {"sdxl": 10, "pixel": 10, "pipeline": 10}, SPLASH),
+    ((1, 1024, 20, 64), {"sdxl": 60, "pixel": 60, "pipeline": 60},
      "lanpaint_tpu/models/layers.py:238 (flash_attention)"),
+    ((1, 9216, 5, 64), {}, SPLASH),   # SD2.1-v at 768^2: the 96x96 level
+    ((1, 2304, 10, 64), {}, SPLASH),  # and the 48x48 level
     ((1, 4608, 24, 128), {"flux": 57}, SPLASH),
     ((1, 7920, 24, 128), {"video": 30}, SPLASH),  # TI2V-5B at 704x1280 x 33 frames
     ((1, 14040, 40, 128), {"pair": 40}, SPLASH),  # T2V-A14B at 480x832 x 33 frames
@@ -195,8 +240,8 @@ ATTN_SHAPES = [
 SPLASH_VAE = SPLASH + " via lanpaint_tpu/models/vae.py:81"
 SPLASH_VIDEO = SPLASH + " via lanpaint_tpu/models/video_vae.py:159"
 WIDE_SHAPES = [
-    ((1, 16384, 1, 512), {"pixel": 2}, SPLASH_VAE),  # 1024^2: encode and decode
-    ((1, 4096, 1, 512), {}, SPLASH_VAE),             # 512^2
+    ((1, 16384, 1, 512), {"pixel": 2, "pipeline": 2}, SPLASH_VAE),  # 1024^2: encode, decode
+    ((1, 4096, 1, 512), {"sd15": 2}, SPLASH_VAE),    # 512^2
     ((1, 4000, 1, 512), {}, SPLASH_VAE),             # a ragged S
     ((9, 3520, 1, 640), {"video": 2}, SPLASH_VIDEO),  # Wan2.2 VAE, 704x1280 x 33 frames
     ((9, 6240, 1, 384), {"pair": 2}, SPLASH_VIDEO),  # Wan2.1 VAE, 480x832 x 33 frames
@@ -207,8 +252,12 @@ WIDE_SHAPES = [
 # rmsnorm input is the strided q/k view of a fused projection, as the DiT
 # hands it over, a 3D one a dense projection's output (Wan's full-width norm)
 NORM_SHAPES = [
-    ((1, 4096, 640), "layernorm", {"sdxl": 30, "pixel": 30}),
-    ((1, 1024, 1280), "layernorm", {"sdxl": 180, "pixel": 180}),
+    ((1, 4096, 640), "layernorm", {"sdxl": 30, "pixel": 30, "pipeline": 30}),
+    ((1, 1024, 1280), "layernorm", {"sdxl": 180, "pixel": 180, "pipeline": 180}),
+    ((1, 4096, 320), "layernorm", {"sd15": 15}),  # SD1.5 at 512^2, by level
+    ((1, 1024, 640), "layernorm", {"sd15": 15}),
+    ((1, 256, 1280), "layernorm", {"sd15": 15}),
+    ((1, 64, 1280), "layernorm", {"sd15": 3}),    # the middle block
     ((1, 4096, 3072), "layernorm_na", {"flux": 39}),
     ((1, 512, 3072), "layernorm_na", {"flux": 38}),
     ((1, 4608, 3072), "layernorm_na", {"flux": 38}),
@@ -1022,16 +1071,17 @@ def _vae_times(model, image) -> tuple:
 
 
 def _pixel_workflow(entry, den, model, source, path, **kw) -> tuple:
-    """One timed and counted call of a pixel workflow (`inpaint_image` or
-    `inpaint_video`, which takes `source` as its image or video) with a 2D
-    centre mask and MaskBlend overlap BLEND.  Checks that the output is
-    finite and of the source's shape, that every pixel (of every frame)
-    farther than the blend from the mask equals the source bit for bit, that
-    the repainted region moved, and that every kernel ran exactly as `path`
-    expects.  Returns (ok, launches, the result's text)."""
+    """One timed and counted call of a pixel workflow (`inpaint_image`, a
+    pipeline's call wrapped to its signature, or `inpaint_video`, which
+    takes `source` as its video) with a 2D centre mask and MaskBlend
+    overlap BLEND.  Checks that the output is finite and of the source's
+    shape, that every pixel (of every frame) farther than the blend from the
+    mask equals the source bit for bit, that the repainted region moved, and
+    that every kernel ran exactly as `path` expects.  Returns (ok,
+    launches, the result's text, the output)."""
     hh, ww = source.shape[-2:]
     mask = _centre_mask(hh, ww)
-    source_kw = {"image" if entry is inpaint_image else "video": source}
+    source_kw = {"video" if entry is inpaint_video else "image": source}
     _zero_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1055,36 +1105,53 @@ def _pixel_workflow(entry, den, model, source, path, **kw) -> tuple:
             f"peak {peak_gb:.1f} GB | finite {finite} shape {tuple(out.shape)} beyond-blend "
             f"pixels bit-equal {kept} repainted mean change {moved:.3g} | launches {launches} "
             f"(want {want}) {'ok' if ok else 'FAIL'}")
-    return ok, launches, text
+    return ok, launches, text, out
 
 
-def phase_pixel(smi: str, den=None) -> dict:
-    """Pixel-space inpainting at 1024^2: `api.inpaint_image` with the SDXL
-    UNet (phase 6's, or a new one) and the SDXL VAE, random bf16 weights."""
-    if den is None:
-        den, _, _ = _build_sdxl()
+def _build_sdxl_vae():
     t0 = time.perf_counter()
     model = zoo.build_vae(vae.SDXL_VAE_CONFIG, device="cuda", param_dtype=torch.bfloat16, seed=1)
     torch.cuda.synchronize()
-    t_init = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in model.parameters())
+    return model, time.perf_counter() - t0
+
+
+# the pixel workflows' sampler settings: euler karras, CFG 5 as two passes
+PIXEL_KW = dict(seed=0, steps=STEPS, cfg=5.0, scheduler="karras", num_steps=THINK,
+                sequential_cfg=True)
+
+
+def _pixel_image(side: int):
     gen = torch.Generator(device="cuda").manual_seed(2)
-    image = torch.rand((1, 3, 1024, 1024), device="cuda", generator=gen) * 2.0 - 1.0
-    cond, uncond = _sdxl_conds(gen)
+    return torch.rand((1, 3, side, side), device="cuda", generator=gen) * 2.0 - 1.0, gen
+
+
+def phase_pixel(smi: str, den=None, model=None, conds=None) -> tuple:
+    """Pixel-space inpainting at 1024^2: `api.inpaint_image` with the SDXL
+    UNet (phase 6's, or a new one) and the SDXL VAE (phase 12's, or a new
+    one), random bf16 weights, and `conds` (phase 12's prompt encodings, or
+    random ones).  Returns (launches, the output)."""
+    if den is None:
+        den, _, _ = _build_sdxl()
+    t_init = 0.0
+    if model is None:
+        model, t_init = _build_sdxl_vae()
+    n_params = sum(p.numel() for p in model.parameters())
+    image, gen = _pixel_image(1024)
+    cond, uncond = _sdxl_conds(gen) if conds is None else conds
     enc_ms, dec_ms, latent = _vae_times(model, image)
     if latent.shape != (1, 4, 128, 128) or not bool(torch.isfinite(latent).all()):
         raise AssertionError(f"SDXL VAE encode gave {tuple(latent.shape)}, finite "
                              f"{bool(torch.isfinite(latent).all())}")
-    ok, launches, text = _pixel_workflow(
-        inpaint_image, den, model, image, "pixel", positive=cond, negative=uncond, seed=0,
-        steps=STEPS, cfg=5.0, scheduler="karras", num_steps=THINK, sequential_cfg=True)
+    ok, launches, text, out = _pixel_workflow(
+        inpaint_image, den, model, image, "pixel", positive=cond, negative=uncond, **PIXEL_KW)
     say(f"phase 7 pixel path: inpaint_image, SDXL VAE ({n_params / 1e6:.1f} M params bf16, "
         f"init {t_init:.1f} s) + SDXL euler karras {STEPS} x think {THINK}, cfg 5 sequential, "
-        f"blend {BLEND} | VAE encode {enc_ms:.2f} ms decode {dec_ms:.2f} ms (1024^2, median of "
-        f"3) | {text} on {smi}")
+        f"blend {BLEND}, {'random' if conds is None else 'the pipeline prompt encodings as'} "
+        f"conds | VAE encode {enc_ms:.2f} ms decode {dec_ms:.2f} ms (1024^2, median of 3) | "
+        f"{text} on {smi}")
     if not ok:
         raise AssertionError("phase 7 pixel path check failed")
-    return launches
+    return launches, out
 
 
 def _vae_round_trip(label, model, shape, latent_shape, seed, smi, extra_ok=True) -> None:
@@ -1211,7 +1278,7 @@ def phase_video(smi: str) -> dict:
                   blend_overlap=BLEND, **kw)
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
-    ok, launches, text = _pixel_workflow(inpaint_video, den, model, video, "video", **kw)
+    ok, launches, text, _ = _pixel_workflow(inpaint_video, den, model, video, "video", **kw)
     say(f"phase 10 video path: inpaint_video, Wan2.2 TI2V-5B ({n_dit / 1e9:.3f} B params bf16) + "
         f"Wan2.2 VAE ({n_vae / 1e6:.1f} M), init {t_init:.1f} s | {VIDEO_SHAPE} -> latent "
         f"{tuple(latent.shape)}, S = 7920 | VAE encode {enc_ms:.2f} ms decode {dec_ms:.2f} ms "
@@ -1275,7 +1342,7 @@ def phase_pair(smi: str) -> dict:
     if min(counts.values()) < 4:  # the warm-up's ladder 1.0, 0.833, 0 runs both experts
         raise AssertionError(f"the warm-up left an expert cold: {counts}")
     counts.update(high=0, low=0)
-    ok, launches, text = _pixel_workflow(inpaint_video, pair, model, video, "pair", **kw)
+    ok, launches, text, _ = _pixel_workflow(inpaint_video, pair, model, video, "pair", **kw)
     ok = ok and counts == EXPERT_FORWARDS
     say(f"phase 11 pair path: inpaint_video, Wan2.2 T2V-A14B pair (high "
         f"{n_params['high'] / 1e9:.3f} B + low {n_params['low'] / 1e9:.3f} B params bf16, "
@@ -1290,6 +1357,315 @@ def phase_pair(smi: str) -> dict:
     if not ok:
         raise AssertionError("phase 11 pair path check failed")
     return launches
+
+
+# --------------------------------------------------------------------------
+# phases 12-14: checkpoint loading, the text stack and LanPaintPipeline
+
+PROMPT = "a photo of a corgi sitting on a wooden bench, best quality"
+LETTERS = "abcdefghijklmnopqrstuvwxyz"
+
+
+def _synthetic_clip_files(directory: str) -> tuple:
+    """vocab.json / merges.txt of CLIP's full size, 49,408 entries: the 256
+    byte symbols and their 256 end-of-word forms, 48,894 merges (two-,
+    three- and four-letter pieces over a-z, in rank order), and
+    <|startoftext|> = 49406, <|endoftext|> = 49407.  Returns their paths."""
+    vocab = {}
+    for ch in sorted(tokenizers.bytes_to_unicode().values()):
+        vocab[ch] = len(vocab)
+    for ch in sorted(tokenizers.bytes_to_unicode().values()):
+        vocab[ch + "</w>"] = len(vocab)
+    merges = []
+    pairs = itertools.chain(
+        ((a, b + end) for a, b in itertools.product(LETTERS, LETTERS) for end in ("", "</w>")),
+        ((a + b, c + end) for a, b, c in itertools.product(LETTERS, LETTERS, LETTERS)
+         for end in ("", "</w>")),
+        ((a + b + c, d + "</w>") for a, b, c, d in itertools.product(*[LETTERS] * 4)))
+    for a, b in pairs:
+        if len(vocab) == 49406:
+            break
+        merges.append((a, b))
+        vocab[a + b] = len(vocab)
+    vocab["<|startoftext|>"], vocab["<|endoftext|>"] = 49406, 49407
+    vocab_path, merges_path = (os.path.join(directory, n) for n in ("vocab.json", "merges.txt"))
+    with open(vocab_path, "w", encoding="utf-8") as f:
+        json.dump(vocab, f)
+    with open(merges_path, "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    return vocab_path, merges_path
+
+
+def _synthetic_unigram(vocab_size: int) -> tokenizers.UnigramTokenizer:
+    """A SentencePiece unigram vocabulary of `vocab_size` pieces with T5's
+    special ids (<pad> 0, </s> 1, <unk> 2): "▁", the prompt's words, a-z,
+    and filler pieces up to the size."""
+    pieces = [("<pad>", 0.0), ("</s>", 0.0), ("<unk>", 0.0), ("▁", -3.0)]
+    pieces += [("▁" + w, -1.0) for w in sorted(set(PROMPT.replace(",", "").split()))]
+    pieces += [(c, -4.0) for c in LETTERS + ","]
+    pieces += [(f"<filler_{i}>", -30.0) for i in range(vocab_size - len(pieces))]
+    return tokenizers.UnigramTokenizer(pieces, unk_id=2, eos_token_id=1)
+
+
+def write_safetensors(path: str, tensors: dict) -> int:
+    """Write `tensors` (torch, on any device) as a BF16 safetensors file:
+    the header's byte length (u64, little-endian), the JSON header padded
+    with spaces to 8 bytes, then each tensor's bytes in the header's order,
+    one tensor on the host at a time.  Returns the file's size in bytes."""
+    header, offset = {}, 0
+    for key, t in tensors.items():
+        header[key] = {"dtype": "BF16", "shape": list(t.shape),
+                       "data_offsets": [offset, offset + 2 * t.numel()]}
+        offset += 2 * t.numel()
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(t.detach().to(torch.bfloat16).contiguous().cpu().view(torch.int16).numpy().data)
+    return 8 + len(blob) + offset
+
+
+def _hf_to_openclip(sd: dict, layers: int) -> dict:
+    """An HF-layout CLIP state (`load.export_clip`'s keys) in the OpenCLIP
+    text-tower layout of single-file SDXL checkpoints (fused in_proj, the
+    projection stored as (width, proj) and used as x @ proj)."""
+    out = {
+        "token_embedding.weight": sd["text_model.embeddings.token_embedding.weight"],
+        "positional_embedding": sd["text_model.embeddings.position_embedding.weight"],
+        "ln_final.weight": sd["text_model.final_layer_norm.weight"],
+        "ln_final.bias": sd["text_model.final_layer_norm.bias"],
+        "text_projection": sd["text_projection.weight"].T,
+    }
+    for i in range(layers):
+        hf, oc = f"text_model.encoder.layers.{i}.", f"transformer.resblocks.{i}."
+        for part in ("weight", "bias"):
+            out[oc + "attn.in_proj_" + part] = torch.cat(
+                [sd[hf + f"self_attn.{n}_proj.{part}"] for n in "qkv"], dim=0)
+            for src, dst in (("self_attn.out_proj", "attn.out_proj"), ("layer_norm1", "ln_1"),
+                             ("layer_norm2", "ln_2"), ("mlp.fc1", "mlp.c_fc"),
+                             ("mlp.fc2", "mlp.c_proj")):
+                out[f"{oc}{dst}.{part}"] = sd[f"{hf}{src}.{part}"]
+    return out
+
+
+# the loading steps timed inside from_single_file: (module, function, span)
+LOAD_SPANS = [(load, "load_safetensors", "read"), (load, "split_checkpoint", "split and import")]
+LOAD_SPANS += [(load, n, "split and import")
+               for n in ("import_unet", "import_vae", "import_clip", "import_clip_openclip")]
+LOAD_SPANS += [(zoo, "build_unet", "to the card"), (zoo, "build_vae", "to the card"),
+               (zoo, "build_clip", "to the card")]
+
+
+@contextlib.contextmanager
+def _timed_calls(targets):
+    """Inside the block, every call of each (module, function, span) of
+    `targets` adds its seconds (to a synchronize) to the yielded dict's
+    `span` (the functions are looked up on their modules at call time)."""
+    spans, saved = {}, []
+    for mod, name, span in targets:
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+
+        def timed(*args, _fn=fn, _span=span, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                spans[_span] = spans.get(_span, 0.0) + time.perf_counter() - t0
+
+        setattr(mod, name, timed)
+    try:
+        yield spans
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _same_weights(a, b) -> bool:
+    """Whether two modules hold the same parameters, bit for bit."""
+    sa, sb = a.state_dict(), b.state_dict()
+    return sa.keys() == sb.keys() and all(
+        sa[k].dtype == sb[k].dtype and torch.equal(sa[k], sb[k]) for k in sa)
+
+
+def _single_file(label, parts, directory, **pipe_kw) -> tuple:
+    """Write `parts` [(prefix, checkpoint dict)] as one BF16 safetensors
+    file in `directory`, then `LanPaintPipeline.from_single_file` it in bf16
+    with the synthetic CLIP vocabulary.  Returns (pipe, the text of the
+    sizes and times)."""
+    tensors = {prefix + k: v for prefix, part in parts for k, v in part.items()}
+    n_params = sum(t.numel() for t in tensors.values())
+    path = os.path.join(directory, "model.safetensors")
+    t0 = time.perf_counter()
+    size = write_safetensors(path, tensors)
+    t_write = time.perf_counter() - t0
+    del tensors
+    vocab_path, merges_path = _synthetic_clip_files(directory)
+    native_loader.CONVERSIONS.update(native=0, torch=0)
+    t0 = time.perf_counter()
+    with _timed_calls(LOAD_SPANS) as spans:
+        pipe = LanPaintPipeline.from_single_file(path, vocab=vocab_path, merges=merges_path,
+                                                 param_dtype=torch.bfloat16, **pipe_kw)
+    t_load = time.perf_counter() - t0
+    gc.collect()  # the host's read buffer and fp32 arrays
+    conv = dict(native_loader.CONVERSIONS)
+    if not conv["native"] or conv["torch"]:
+        raise AssertionError(f"{label}: the reader did not widen natively: {conv}")
+    text_ = (f"{n_params / 1e9:.3f} B params, {size / 1e9:.3f} GB BF16 file: write "
+             f"{t_write:.2f} s, from_single_file {t_load:.2f} s = read (native reader) "
+             f"{spans['read']:.2f} s + split and import {spans['split and import']:.2f} s + to "
+             f"the card {spans['to the card']:.2f} s; tensors widened {conv}")
+    return pipe, text_
+
+
+def phase_single_file(smi: str, den) -> tuple:
+    """Single-file SDXL at full width: phase 6's UNet, a new SDXL VAE (seed
+    1, phase 7's), a seeded CLIP-L in the HF layout and a CLIP-G in the
+    OpenCLIP layout, exported into one BF16 safetensors file (a temporary
+    directory, removed), read back with `from_single_file`: the family and
+    the encoders, every tensor of the UNet, the VAE and both towers bit-equal
+    to its source, and `pipe.encode` timed and checked.  The VAE config is
+    passed: the JAX package's pipeline defaults to SD_VAE_CONFIG's scale for
+    both families.  Returns (pipe, the VAE, the prompt's and the empty
+    prompt's conds)."""
+    model, _ = _build_sdxl_vae()
+    towers = {name: zoo.build_clip(cfg, device="cuda", param_dtype=torch.bfloat16, seed=seed)
+              for name, cfg, seed in (("clip_l", textenc.CLIP_L_CONFIG, 2),
+                                      ("clip_g", textenc.CLIP_G_CONFIG, 3))}
+    parts = [
+        ("model.diffusion_model.",
+         load.export_unet(den.module.state_dict(), unet.SDXL_CONFIG, prefix="")),
+        ("first_stage_model.", load.export_vae(model.state_dict(), vae.SDXL_VAE_CONFIG)),
+        ("conditioner.embedders.0.transformer.",
+         load.export_clip(towers["clip_l"].state_dict(), textenc.CLIP_L_CONFIG)),
+        ("conditioner.embedders.1.model.", _hf_to_openclip(
+            load.export_clip(towers["clip_g"].state_dict(), textenc.CLIP_G_CONFIG),
+            textenc.CLIP_G_CONFIG.layers)),
+    ]
+    directory = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        pipe, loaded = _single_file("phase 12", parts, directory, vae_config=vae.SDXL_VAE_CONFIG)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    del parts
+    same = {"unet": _same_weights(pipe.model.module, den.module),
+            "vae": _same_weights(pipe.vae, model)}
+    same.update({n: _same_weights(pipe.encoders[n].module, t) for n, t in towers.items()})
+    conds = (pipe.encode(PROMPT), pipe.encode(""))
+    enc_ms = median_ms(lambda: pipe.encode(PROMPT), n=3, warmup=1)
+    ctx, y = conds[0]["context"], conds[0]["y"]
+    ok = (pipe.family == "sdxl" and sorted(pipe.encoders) == ["clip_g", "clip_l"]
+          and all(same.values()) and tuple(ctx.shape) == (1, 77, 2048)
+          and tuple(y.shape) == (1, 2816)
+          and all(bool(torch.isfinite(c[k]).all()) for c in conds for k in c))
+    say(f"phase 12 single-file SDXL: {loaded} | family {pipe.family}, encoders "
+        f"{sorted(pipe.encoders)}, bit-equal to the sources {same} | encode: context "
+        f"{tuple(ctx.shape)} y {tuple(y.shape)} finite, {enc_ms:.2f} ms (median of 3) on {smi} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 12 single-file load failed its checks")
+    return pipe, model, conds
+
+
+def _pipe_entry(pipe):
+    """`pipe`'s call in `_pixel_workflow`'s entry signature."""
+    return lambda _den, _model, **kw: pipe(PROMPT, **kw)
+
+
+def phase_pipeline_run(smi: str, pipe, reference) -> dict:
+    """The single-file SDXL pipeline's call, `pipe(PROMPT, image=...,
+    mask=..., steps=20, num_steps=5, cfg=5.0, sequential_cfg=True, seed=0)`
+    on phase 7's image and mask: phase 7's checks, and the output bit-equal
+    to phase 7's `inpaint_image` on the source UNet and VAE with the same
+    prompt encodings."""
+    image, _ = _pixel_image(1024)
+    ok, launches, text_, out = _pixel_workflow(_pipe_entry(pipe), None, None, image, "pipeline",
+                                               **PIXEL_KW)
+    same = torch.equal(out, reference)
+    say(f"phase 12 pipeline call: LanPaintPipeline(prompt, image, mask), SDXL euler karras "
+        f"{STEPS} x think {THINK}, cfg 5 sequential, blend {BLEND} | {text_} | output bit-equal "
+        f"to phase 7's inpaint_image {same} on {smi} {'ok' if ok and same else 'FAIL'}")
+    if not (ok and same):
+        raise AssertionError("phase 12 pipeline call failed its checks")
+    return launches
+
+
+def phase_sd15(smi: str) -> dict:
+    """Single-file SD1.5 at its published 512^2, full width: a seeded
+    SD15_CONFIG UNet, CLIP-L and SD_VAE_CONFIG VAE exported under the SD1.x
+    prefixes into one BF16 file and read back with `from_single_file` (its
+    defaults): the family, every tensor bit-equal to its source, then the
+    pipeline's call and `inpaint_image` on the source modules with the
+    pipeline's prompt encodings, each with phase 7's checks, bit-equal to
+    each other.  A 2-step warm-up call of the pipeline comes first, so both
+    timed calls are warm."""
+    den, module = zoo.build_sd15(device="cuda", param_dtype=torch.bfloat16, seed=5)
+    clip = zoo.build_clip(textenc.CLIP_L_CONFIG, device="cuda", param_dtype=torch.bfloat16,
+                              seed=6)
+    model = zoo.build_vae(vae.SD_VAE_CONFIG, device="cuda", param_dtype=torch.bfloat16, seed=7)
+    parts = [("model.diffusion_model.",
+              load.export_unet(module.state_dict(), unet.SD15_CONFIG, prefix="")),
+             ("first_stage_model.", load.export_vae(model.state_dict(), vae.SD_VAE_CONFIG)),
+             ("cond_stage_model.transformer.",
+              load.export_clip(clip.state_dict(), textenc.CLIP_L_CONFIG))]
+    directory = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        pipe, loaded = _single_file("phase 13", parts, directory)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    del parts
+    same = {"unet": _same_weights(pipe.model.module, module), "vae": _same_weights(pipe.vae, model),
+            "clip_l": _same_weights(pipe.encoders["clip_l"].module, clip)}
+    image, _ = _pixel_image(512)
+    t0 = time.perf_counter()  # SD1.5's first run on the card: a 2-step warm-up call
+    pipe(PROMPT, image=image, mask=_centre_mask(512, 512), blend_overlap=BLEND,
+         **{**PIXEL_KW, "steps": 2})
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    ok, launches, text_, out = _pixel_workflow(_pipe_entry(pipe), None, None, image, "sd15",
+                                               **PIXEL_KW)
+    conds = dict(positive=pipe.encode(PROMPT), negative=pipe.encode(""))
+    ok_ref, _, text_ref, reference = _pixel_workflow(inpaint_image, den, model, image, "sd15",
+                                                     **conds, **PIXEL_KW)
+    equal = torch.equal(out, reference)
+    ok = (ok and ok_ref and equal and pipe.family == "sd15" and sorted(pipe.encoders) == ["clip_l"]
+          and all(same.values()) and tuple(conds["positive"]["context"].shape) == (1, 77, 768))
+    say(f"phase 13 single-file SD1.5 at 512^2: {loaded} | family {pipe.family}, bit-equal to the "
+        f"sources {same} | pipeline call, euler karras {STEPS} x think {THINK}, cfg 5 "
+        f"sequential, blend {BLEND}, first run (2 steps) {t_first:.2f} s, warm: {text_} | inpaint_image on the sources: {text_ref} | "
+        f"outputs bit-equal {equal} on {smi} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 13 single-file SD1.5 failed its checks")
+    return launches
+
+
+def phase_t5(smi: str) -> None:
+    """The T5 text encoders at full width, one at a time in fp32 (seeded
+    random weights made on the card): T5_XXL_CONFIG (Flux, SD3) and
+    UMT5_XXL_CONFIG (Wan) encode one prompt at 512 tokens through
+    `NativeEncoder`: (1, 512, 4096), finite, timed (median of 3)."""
+    for name, cfg, seed in (("T5-XXL", textenc.T5_XXL_CONFIG, 8),
+                            ("UMT5-XXL", textenc.UMT5_XXL_CONFIG, 9)):
+        t0 = time.perf_counter()
+        module = zoo.build_t5(cfg, device="cuda", seed=seed)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in module.parameters())
+        enc = text.NativeEncoder("t5", module, cfg, _synthetic_unigram(cfg.vocab_size))
+        out = enc(PROMPT, 512)
+        ms = median_ms(lambda: enc(PROMPT, 512), n=3, warmup=1)
+        ok = tuple(out.shape) == (1, 512, 4096) and bool(torch.isfinite(out).all())
+        say(f"phase 14 {name}: {n_params / 1e9:.3f} B params fp32 (init {t_init:.1f} s), one "
+            f"prompt at 512 tokens -> {tuple(out.shape)} finite, {ms / 1e3:.4f} s (median of 3) "
+            f"on {smi} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"phase 14 {name} failed its checks")
+        del module, enc, out
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def kernels_line(rows: dict, launches: dict) -> list:
@@ -1357,11 +1733,17 @@ def main() -> int:
     phase_small_dit()
     launches = {}
     launches["sdxl"], den = phase_sdxl(smi)
-    launches["pixel"] = phase_pixel(smi, den)
-    del den
-    api._SAMPLER_CACHE.clear()  # ksampler's sampler cache holds the SDXL model
+    pipe, sdxl_vae, conds = phase_single_file(smi, den)
+    launches["pixel"], reference = phase_pixel(smi, den, sdxl_vae, conds)
+    launches["pipeline"] = phase_pipeline_run(smi, pipe, reference)
+    del den, pipe, sdxl_vae, conds, reference
+    api._SAMPLER_CACHE.clear()  # ksampler's sampler cache holds the SDXL models
     gc.collect()
-    torch.cuda.empty_cache()  # SDXL's weights go before Flux's 23.8 GB arrive
+    torch.cuda.empty_cache()
+    launches["sd15"] = phase_sd15(smi)
+    api._SAMPLER_CACHE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()  # SDXL's and SD1.5's weights go before Flux's 23.8 GB arrive
     launches["flux"] = phase_flux(smi)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1374,6 +1756,7 @@ def main() -> int:
     api._SAMPLER_CACHE.clear()
     gc.collect()
     torch.cuda.empty_cache()
+    phase_t5(smi)
     print(smi)
     print(json.dumps({"kernels": kernels_line(rows, launches)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,8 +4,11 @@ The PyTorch / CUDA port of `lanpaint_tpu`, module for module.  Plain tensor
 code is PyTorch; the TPU package's Pallas kernels are hand-written Hopper
 kernels (ops/attention.py with csrc/attention.cu and
 csrc/wide_attention.cu, ops/norms.py with csrc/row_norm.cu, ops/fused.py with
-csrc/fused.cu), built at first use.  The `build_*` functions and the entry
-points run on the CUDA card unless the caller names another device.
+csrc/fused.cu), built at first use.  `LanPaintPipeline` takes a single-file
+checkpoint and a prompt to an inpainted image (models/load.py, native/,
+tokenizers.py, models/textenc.py, text.py).  The `build_*` functions and
+the entry points run on the CUDA card unless the caller names another
+device.
 """
 
 from .api import (
@@ -21,7 +24,9 @@ from .api import (
 from .config import LanPaintConfig, ModelKind
 from .masks import mask_blend
 from .models.base import Denoiser
+from .pipeline import LanPaintPipeline
+from .text import encode_prompt
 
-__all__ = ["Denoiser", "LanPaintConfig", "LanPaintSampler", "ModelKind", "inpaint_image",
-           "inpaint_video", "ksampler", "ksampler_advanced", "mask_blend", "outpaint_image",
-           "sample_custom", "sample_custom_advanced"]
+__all__ = ["Denoiser", "LanPaintConfig", "LanPaintPipeline", "LanPaintSampler", "ModelKind",
+           "encode_prompt", "inpaint_image", "inpaint_video", "ksampler", "ksampler_advanced",
+           "mask_blend", "outpaint_image", "sample_custom", "sample_custom_advanced"]

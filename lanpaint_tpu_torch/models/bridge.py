@@ -1,6 +1,7 @@
-"""Weight bridge: the JAX package's flax UNet, MMDiT, Wan, VAE, Wan VAE and
-TAESD parameter trees -> this package's module state_dicts (and a two-model
-wrapper's pair of trees -> its nn.ModuleDict's, `pair_params_from_flax`).
+"""Weight bridge: the JAX package's flax UNet, MMDiT, Wan, VAE, Wan VAE,
+TAESD, CLIP and T5 parameter trees -> this package's module state_dicts
+(and a two-model wrapper's pair of trees -> its nn.ModuleDict's,
+`pair_params_from_flax`).
 
 The tree holds numpy arrays (e.g. `lanpaint_tpu.models.zoo.init_params_host`
 output or `jax.device_get` of device params); nothing here imports JAX.
@@ -11,14 +12,22 @@ The mapping, the same for every family:
 * `nn.scan` stacks every scanned block's parameters along a leading depth
   axis under `<stack>/block/...` (the UNet's `<transformer>/blocks/block`,
   the MMDiT's `double/block` and `single/block`, the Wan DiT's
-  `blocks/block`, its per-block `modulation` included); they are unstacked
+  `blocks/block`, its per-block `modulation` included), or, in the text
+  encoders, directly under a top-level `layers/...` (CLIP) or `blocks/...`
+  (T5, its per-layer relative-bias tables included); they are unstacked
   into `<stack>.<i>....`;
 * norm `scale` becomes `weight`; the GroupNorm32 wrapper's inner
   `GroupNorm_0` level disappears;
 * the fused `to_qkv` (c, 3c) kernel keeps its q|k|v column order, and the
   stacked `kv_cross` (depth, context_dim, 2c) parameter is taken as is, as
   are every other leaf the rule above does not name (the Wan VAE's RMS
-  `gamma`, the Wan DiT's `modulation` and `head_modulation`).
+  `gamma`, the Wan DiT's `modulation` and `head_modulation`, CLIP's
+  `text_projection` (width, projection_dim), used as `x @ proj`, and its
+  embedding tables, T5's `shared` and `rel_bias`).
+
+`state_key`, `module_layout` and `flax_layout` are the same rule for one
+leaf, on numpy arrays or torch tensors; `models/load.py` maps checkpoints
+through them.
 """
 
 from __future__ import annotations
@@ -44,24 +53,62 @@ def _to_tensor(arr) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr).copy())
 
 
-def _entry(path, arr):
-    """(state_dict key, numpy view in torch's layout) of one flax leaf."""
+def _transpose(arr, axes):
+    if isinstance(arr, torch.Tensor):
+        return arr.permute(*axes)
+    return np.transpose(arr, axes)
+
+
+# a flax kernel's axes -> torch's, by rank: DHWIO -> OIDHW, HWIO -> OIHW, (in, out) -> (out, in)
+_KERNEL_AXES = {5: (4, 3, 0, 1, 2), 4: (3, 2, 0, 1), 2: (1, 0)}
+_WEIGHT_AXES = {5: (2, 3, 4, 1, 0), 4: (2, 3, 1, 0), 2: (1, 0)}
+
+
+def state_key(path) -> str:
+    """The state_dict key of an unstacked flax leaf path."""
     *mods, leaf = path
     if mods and mods[-1].startswith("GroupNorm_"):
         mods = mods[:-1]
-    if leaf == "kernel":
-        if arr.ndim == 5:
-            arr = np.transpose(arr, (4, 3, 0, 1, 2))  # DHWIO -> OIDHW
-        elif arr.ndim == 4:
-            arr = np.transpose(arr, (3, 2, 0, 1))  # HWIO -> OIHW
-        elif arr.ndim == 2:
-            arr = arr.T
-        else:
-            raise ValueError(f"unexpected kernel rank {arr.ndim} at {'/'.join(path)}")
+    if leaf in ("kernel", "scale"):
         leaf = "weight"
-    elif leaf == "scale":
-        leaf = "weight"
-    return ".".join([*mods, leaf]), arr
+    return ".".join([*mods, leaf])
+
+
+def module_layout(path, arr):
+    """A flax leaf's value in the module's layout (a view, no copy)."""
+    if path[-1] != "kernel":
+        return arr
+    if arr.ndim not in _KERNEL_AXES:
+        raise ValueError(f"unexpected kernel rank {arr.ndim} at {'/'.join(path)}")
+    return _transpose(arr, _KERNEL_AXES[arr.ndim])
+
+
+def flax_layout(path, arr):
+    """The inverse of `module_layout`: a module parameter in flax's layout."""
+    if path[-1] != "kernel":
+        return arr
+    return _transpose(arr, _WEIGHT_AXES[arr.ndim])
+
+
+def is_stacked(path) -> bool:
+    """Whether a flax leaf path lies in a scanned stack (leading depth axis)."""
+    return "block" in path[:-1] or (
+        len(path) >= 2 and path[0] in ("layers", "blocks") and path[1] != "block")
+
+
+def unstack(path, depth: int):
+    """The path of depth `depth` of a stacked leaf: the index takes the
+    place of the scan's `block` level, or follows the text encoders'
+    top-level `layers` / `blocks`."""
+    if "block" in path[:-1]:
+        j = path.index("block")
+        return path[:j] + (str(depth),) + path[j + 1:]
+    return path[:1] + (str(depth),) + path[1:]
+
+
+def _entry(path, arr):
+    """(state_dict key, view in torch's layout) of one unstacked flax leaf."""
+    return state_key(path), module_layout(path, arr)
 
 
 def flax_entries(tree):
@@ -72,17 +119,16 @@ def flax_entries(tree):
     params = tree["params"] if "params" in tree else tree
     for path, arr in _flatten(params):
         arr = np.asarray(arr)
-        if "block" in path[:-1]:
-            j = path.index("block")
+        if is_stacked(path):
             for depth in range(arr.shape[0]):
-                yield _entry(path[:j] + (str(depth),) + path[j + 1:], arr[depth])
+                yield _entry(unstack(path, depth), arr[depth])
         else:
             yield _entry(path, arr)
 
 
 def params_from_flax(tree) -> dict:
-    """Map a flax UNet, MMDiT, Wan, VAE or Wan VAE parameter tree onto the
-    port module's `state_dict()` keys, as torch tensors."""
+    """Map a flax UNet, MMDiT, Wan, VAE, Wan VAE, CLIP or T5 parameter tree
+    onto the port module's `state_dict()` keys, as torch tensors."""
     return {key: _to_tensor(arr) for key, arr in flax_entries(tree)}
 
 

@@ -8,10 +8,12 @@ convolution casts inputs AND weights to the module's compute dtype first,
 which is what flax `Dense(dtype=bf16)` does with fp32 parameters.
 GroupNorm and the row norms compute their statistics in fp32.
 
-Self-attention goes through the hand-written flash-attention kernel
-(ops/attention.py) and every transformer LayerNorm and RMSNorm through the
-row-norm kernel (ops/norms.py); the 77-token cross-attention stays plain
-PyTorch, as the JAX package leaves it to XLA.
+Self-attention goes through `attention_bshd`, which takes the hand-written
+attention kernels (ops/attention.py) where the JAX package takes its TPU
+kernels, and every transformer LayerNorm and RMSNorm through the row-norm
+kernel (ops/norms.py); the 77-token cross-attention, and self-attention
+the JAX package leaves to XLA (S < 1024, or SD1.5's head dims), stay plain
+PyTorch.
 """
 
 from __future__ import annotations
@@ -149,8 +151,9 @@ class CrossAttention(nn.Module):
     """Self- or cross-attention of the UNet spatial transformer, fused layout.
 
     Self-attention (`context_dim is None`) projects q/k/v as ONE GEMM
-    (`to_qkv`, split q|k|v) and runs the flash-attention kernel on the
-    strided split views.  Cross-attention takes `to_q` and a precomputed
+    (`to_qkv`, split q|k|v) and runs `attention_bshd` on the strided split
+    views (the flash-attention kernel where the JAX package takes its TPU
+    kernel: S >= 1024 and D % 64 == 0).  Cross-attention takes `to_q` and a precomputed
     fused k|v tensor (`kv`, hoisted out of the depth loop by
     SpatialTransformer) and runs plain attention over the text tokens.
     """
@@ -173,7 +176,7 @@ class CrossAttention(nn.Module):
         heads = (self.num_heads, self.head_dim)
         if self.is_self:
             q, k, v = (t.unflatten(-1, heads) for t in self.to_qkv(x).chunk(3, dim=-1))
-            out = flash_attention(q, k, v)
+            out = attention_bshd(q, k, v)
         else:
             q = self.to_q(x).unflatten(-1, heads)
             k, v = (t.unflatten(-1, heads) for t in kv.chunk(2, dim=-1))

@@ -1,0 +1,845 @@
+"""Checkpoint loading: torch / safetensors state dicts -> this package's
+module state_dicts, and back.
+
+PyTorch counterpart of the parts of `lanpaint_tpu/models/load.py` whose
+models the port runs: the reader (`load_safetensors`,
+`safetensors_header_keys`), the entry-table machinery (`expected_keys`,
+`manifest_coverage`, `key_census`, `split_checkpoint`), and the importers
+and exporters of the SD UNets (with `fuse_unet_qkv` / `unfuse_unet_qkv`),
+the AutoencoderKL VAE, CLIP (HF and OpenCLIP layouts), T5 / UMT5, the
+MMDiT, the Wan DiT and the Wan VAE.
+
+The entry tables are the JAX package's, row for row: (checkpoint key, flax
+path, kind, stack), stack None for a plain tensor or (index, depth) for one
+depth of a scanned stack.  An importer maps each checkpoint tensor through
+the table's layout rule (`_t_in`, checkpoint -> flax) and then through
+`bridge`'s rule (flax -> module), leaf by leaf, so that its result equals
+`bridge.params_from_flax` of the JAX importer's tree bit for bit without
+building the tree (the two transposes cancel: most results are views of
+the checkpoint's own arrays).  An exporter runs the same rules backwards.
+Importers return torch tensors ready for the builders' `state_dict=`;
+exporters take a module's `state_dict()` and return the checkpoint's
+tensors, on the state's device.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import struct
+from typing import Dict
+
+import numpy as np
+import torch
+
+from . import bridge
+
+
+def _tensor(value) -> torch.Tensor:
+    """A checkpoint value as a torch tensor (numpy arrays are shared)."""
+    if isinstance(value, torch.Tensor):
+        return value
+    arr = np.ascontiguousarray(value)
+    if not arr.flags.writeable:  # torch may not share a read-only buffer
+        arr = arr.copy()
+    return torch.from_numpy(arr)
+
+
+def t_linear(w):
+    return w.permute(1, 0)
+
+
+def t_conv2d(w):
+    return w.permute(2, 3, 1, 0)  # OIHW -> HWIO
+
+
+def load_safetensors(path: str, native: bool = True) -> Dict[str, np.ndarray]:
+    """Read a safetensors file into numpy arrays, dequantizing fp8_scaled
+    tensors.
+
+    fp8_scaled layout: `<name>.weight` stored as float8_e4m3fn with a
+    matching `<name>.scale_weight` fp32 scalar or tensor; the weight is
+    fp8.astype(f32) * scale.  bf16 and fp8 widen to fp32; fp32 and fp16 pass
+    through.  The reader is `native/loader.py`: its C++ conversion, or with
+    `native=False` torch's dtypes.  A file it cannot read raises (the JAX
+    package falls back to the `safetensors` package, which the port does not
+    use)."""
+    from ..native.loader import load_safetensors_fast
+
+    return load_safetensors_fast(path, native=native)
+
+
+def _t_in(kind, w):
+    """checkpoint tensor -> flax leaf layout."""
+    if kind in ("linear", "linear_nb", "raw_linear"):
+        return t_linear(w)
+    if kind == "conv":
+        return t_conv2d(w)
+    if kind == "linear_or_conv1x1":
+        return t_linear(w[:, :, 0, 0] if w.ndim == 4 else w)
+    if kind == "conv3d":
+        # (O, I, kt, kh, kw) -> NDHWC kernel (kt, kh, kw, I, O)
+        return w.permute(2, 3, 4, 1, 0)
+    if kind == "conv2d3d":
+        # torch Conv2d inside a 3D graph -> the (1, kh, kw, I, O) kernel
+        return w[:, :, None].permute(2, 3, 4, 1, 0)
+    if kind in ("gamma4", "gamma3"):
+        return w.reshape(-1)  # Wan RMS_norm gamma (C,1,1,1)/(C,1,1) -> (C,)
+    if isinstance(kind, tuple) and kind[0] == "conv3d_as_linear":
+        # (O, I, pf, ph, pw) Conv3D kernel -> the patchify Dense (I*p, O)
+        return w.reshape(w.shape[0], -1).T if w.ndim == 5 else w
+    return w  # norms, raw
+
+
+def _t_out(kind, w):
+    """flax leaf -> checkpoint tensor layout."""
+    if kind in ("linear", "linear_nb", "linear_or_conv1x1", "raw_linear"):
+        return w.permute(1, 0)
+    if kind == "conv":
+        return w.permute(3, 2, 0, 1)
+    if kind == "conv3d":
+        return w.permute(4, 3, 0, 1, 2)
+    if kind == "conv2d3d":
+        return w.permute(4, 3, 0, 1, 2)[:, :, 0]
+    if kind == "gamma4":
+        return w.reshape(-1, 1, 1, 1)
+    if kind == "gamma3":
+        return w.reshape(-1, 1, 1)
+    if isinstance(kind, tuple) and kind[0] == "conv3d_as_linear":
+        if w.ndim == 2:  # kernel (I*pf*ph*pw, O) -> (O, I, pf, ph, pw)
+            return w.permute(1, 0).reshape(w.shape[1], *kind[1])
+        return w
+    return w
+
+
+def _leaves(kind):
+    """(ckpt_suffix, flax_leaf) pairs a kind contributes."""
+    if isinstance(kind, tuple):
+        kind = kind[0]
+    if kind in ("norm", "ln"):
+        return [("weight", "scale"), ("bias", "bias")]
+    if kind == "rms":
+        return [("scale", "scale")]
+    if kind in ("gamma4", "gamma3"):
+        return [("gamma", "gamma")]
+    if kind == "linear_nb":
+        return [("weight", "kernel")]
+    if kind == "raw":
+        return [("", "")]
+    if kind == "raw_linear":
+        return [("weight", "")]
+    return [("weight", "kernel"), ("bias", "bias")]
+
+
+class _StateBuilder:
+    """The port's `_TreeBuilder`: accumulates plain and depth-stacked leaves
+    by flax path, then emits the module's state_dict (each stacked leaf
+    unstacked into its depths' keys, each value in the module's layout)."""
+
+    def __init__(self):
+        self.plain = {}
+        self.stacks = {}
+
+    def set(self, path, value):
+        self.plain[tuple(path)] = value
+
+    def set_stacked(self, path, idx, depth, value):
+        slot = self.stacks.setdefault((tuple(path), depth), [None] * depth)
+        slot[idx] = value
+
+    def build(self) -> dict:
+        out = {}
+
+        def put(path, v):
+            out[bridge.state_key(path)] = bridge.module_layout(path, v).contiguous()
+
+        for path, v in self.plain.items():
+            put(path, v)
+        for (path, depth), vs in self.stacks.items():
+            missing = [i for i, v in enumerate(vs) if v is None]
+            if missing:
+                raise KeyError(f"missing stacked entries {missing} for {path}")
+            for i, v in enumerate(vs):
+                put(bridge.unstack(path, i), v)
+        return out
+
+
+# --------------------------------------------------------------------------
+# mapping tables.  Entry: (ckpt_key, flax_path, kind, stack)
+# stack = None for plain tensors, (idx, depth) for per-depth stacked leaves.
+
+
+def _unet_entries(cfg, encoder_only: bool = False):
+    e = []
+    e += [(f"time_embed.{i}", ("time_embed", n), "linear", None)
+          for i, n in [(0, "in_layer"), (2, "out_layer")]]
+    if cfg.adm_in_channels is not None:
+        e += [(f"label_emb.0.{i}", ("label_emb", n), "linear", None)
+              for i, n in [(0, "in_layer"), (2, "out_layer")]]
+    e.append(("input_blocks.0.0", ("input_conv",), "conv", None))
+    if not encoder_only:
+        e.append(("out.0", ("out_norm", "GroupNorm_0"), "norm", None))
+        e.append(("out.2", ("out_conv",), "conv", None))
+
+    def res(ckpt, flax, skip):
+        # skip_connection exists in real checkpoints ONLY when the block
+        # changes channel count (ldm ResBlock 1x1 conv)
+        out = [
+            (f"{ckpt}.in_layers.0", flax + ("in_norm", "GroupNorm_0"), "norm", None),
+            (f"{ckpt}.in_layers.2", flax + ("in_conv",), "conv", None),
+            (f"{ckpt}.emb_layers.1", flax + ("emb_proj",), "linear", None),
+            (f"{ckpt}.out_layers.0", flax + ("out_norm", "GroupNorm_0"), "norm", None),
+            (f"{ckpt}.out_layers.3", flax + ("out_conv",), "conv", None),
+        ]
+        if skip:
+            out.append((f"{ckpt}.skip_connection", flax + ("skip_conv",), "conv", None))
+        return out
+
+    def attn(ckpt, flax, depth):
+        out = [
+            (f"{ckpt}.norm", flax + ("norm", "GroupNorm_0"), "norm", None),
+            (f"{ckpt}.proj_in", flax + ("proj_in",), "linear_or_conv1x1", None),
+            (f"{ckpt}.proj_out", flax + ("proj_out",), "linear_or_conv1x1", None),
+        ]
+        base = flax + ("blocks", "block")
+        for j in range(depth):
+            b = f"{ckpt}.transformer_blocks.{j}"
+            st = (j, depth)
+            out += [
+                (f"{b}.norm1", base + ("norm1",), "ln", st),
+                (f"{b}.norm2", base + ("norm2",), "ln", st),
+                (f"{b}.norm3", base + ("norm3",), "ln", st),
+                (f"{b}.ff.net.0.proj", base + ("ff", "net_0", "proj"), "linear", st),
+                (f"{b}.ff.net.2", base + ("ff", "net_2"), "linear", st),
+            ]
+            for a in ("attn1", "attn2"):
+                out += [
+                    (f"{b}.{a}.to_q", base + (a, "to_q"), "linear_nb", st),
+                    (f"{b}.{a}.to_k", base + (a, "to_k"), "linear_nb", st),
+                    (f"{b}.{a}.to_v", base + (a, "to_v"), "linear_nb", st),
+                    (f"{b}.{a}.to_out.0", base + (a, "to_out"), "linear", st),
+                ]
+        return out
+
+    idx = 1
+    ch = cfg.model_channels
+    for level in range(len(cfg.channel_mult)):
+        oc = cfg.model_channels * cfg.channel_mult[level]
+        for i in range(cfg.num_res_blocks):
+            e += res(f"input_blocks.{idx}.0", (f"down_{level}_{i}_res",), skip=(ch != oc))
+            ch = oc
+            if cfg.transformer_depth[level] > 0:
+                e += attn(f"input_blocks.{idx}.1", (f"down_{level}_{i}_attn",),
+                          cfg.transformer_depth[level])
+            idx += 1
+        if level != len(cfg.channel_mult) - 1:
+            e.append((f"input_blocks.{idx}.0.op", (f"down_{level}_ds", "conv"), "conv", None))
+            idx += 1
+
+    e += res("middle_block.0", ("mid_res1",), skip=False)
+    if cfg.transformer_depth_middle > 0:
+        e += attn("middle_block.1", ("mid_attn",), cfg.transformer_depth_middle)
+        e += res("middle_block.2", ("mid_res2",), skip=False)
+    else:
+        e += res("middle_block.1", ("mid_res2",), skip=False)
+    if encoder_only:
+        return e
+
+    idx = 0
+    for level in reversed(range(len(cfg.channel_mult))):
+        for i in range(cfg.num_res_blocks + 1):
+            # up-path blocks concatenate the skip activation: in != out always
+            e += res(f"output_blocks.{idx}.0", (f"up_{level}_{i}_res",), skip=True)
+            k = 1
+            if cfg.transformer_depth[level] > 0:
+                e += attn(f"output_blocks.{idx}.{k}", (f"up_{level}_{i}_attn",),
+                          cfg.transformer_depth[level])
+                k += 1
+            if level != 0 and i == cfg.num_res_blocks:
+                e.append((f"output_blocks.{idx}.{k}.conv", (f"up_{level}_us", "conv"),
+                          "conv", None))
+            idx += 1
+    return e
+
+
+def _vae_entries(cfg):
+    """AutoencoderKL public layout: encoder.down.{i}.block.{j} /
+    decoder.up.{i}.block.{j} ResNets, mid block_1/attn_1/block_2, and the
+    SD-family quant convs (absent for the SD3/Flux 16ch VAEs)."""
+    def res(ckpt, flax):
+        return [
+            (f"{ckpt}.norm1", flax + ("norm1", "GroupNorm_0"), "norm", None),
+            (f"{ckpt}.conv1", flax + ("conv1",), "conv", None),
+            (f"{ckpt}.norm2", flax + ("norm2", "GroupNorm_0"), "norm", None),
+            (f"{ckpt}.conv2", flax + ("conv2",), "conv", None),
+            (f"{ckpt}.nin_shortcut", flax + ("nin_shortcut",), "conv", None),
+        ]
+
+    def attn(ckpt, flax):
+        out = [(f"{ckpt}.norm", flax + ("norm", "GroupNorm_0"), "norm", None)]
+        out += [(f"{ckpt}.{w}", flax + (w,), "conv", None) for w in ("q", "k", "v", "proj_out")]
+        return out
+
+    e = []
+    enc = ("encoder",)
+    e.append(("encoder.conv_in", enc + ("conv_in",), "conv", None))
+    for i in range(len(cfg.ch_mult)):
+        for j in range(cfg.num_res_blocks):
+            e += res(f"encoder.down.{i}.block.{j}", enc + (f"down_{i}_block_{j}",))
+        if i != len(cfg.ch_mult) - 1:
+            e.append((f"encoder.down.{i}.downsample.conv", enc + (f"down_{i}_ds",), "conv", None))
+    e += res("encoder.mid.block_1", enc + ("mid_block_1",))
+    e += attn("encoder.mid.attn_1", enc + ("mid_attn_1",))
+    e += res("encoder.mid.block_2", enc + ("mid_block_2",))
+    e.append(("encoder.norm_out", enc + ("norm_out", "GroupNorm_0"), "norm", None))
+    e.append(("encoder.conv_out", enc + ("conv_out",), "conv", None))
+    if cfg.quant_conv:
+        e.append(("quant_conv", enc + ("quant_conv",), "conv", None))
+
+    dec = ("decoder",)
+    if cfg.quant_conv:
+        e.append(("post_quant_conv", dec + ("post_quant_conv",), "conv", None))
+    e.append(("decoder.conv_in", dec + ("conv_in",), "conv", None))
+    e += res("decoder.mid.block_1", dec + ("mid_block_1",))
+    e += attn("decoder.mid.attn_1", dec + ("mid_attn_1",))
+    e += res("decoder.mid.block_2", dec + ("mid_block_2",))
+    for i in range(len(cfg.ch_mult)):
+        for j in range(cfg.num_res_blocks + 1):
+            e += res(f"decoder.up.{i}.block.{j}", dec + (f"up_{i}_block_{j}",))
+        if i != 0:
+            e.append((f"decoder.up.{i}.upsample.conv", dec + (f"up_{i}_us",), "conv", None))
+    e.append(("decoder.norm_out", dec + ("norm_out", "GroupNorm_0"), "norm", None))
+    e.append(("decoder.conv_out", dec + ("conv_out",), "conv", None))
+    return e
+
+
+def import_vae(state, cfg, prefix: str = None) -> dict:
+    """Import a VAE from a standalone file (bare keys) or a full checkpoint
+    (`first_stage_model.` prefix, auto-detected when prefix is None)."""
+    if prefix is None:
+        prefix = ("first_stage_model."
+                  if any(k.startswith("first_stage_model.") for k in state) else "")
+    return _import(state, _vae_entries(cfg), prefix)
+
+
+def export_vae(state_dict, cfg, prefix: str = "") -> dict:
+    return _export(state_dict, _vae_entries(cfg), prefix)
+
+
+def _dit_entries(cfg):
+    e = [
+        ("img_in", ("img_in",), "linear", None),
+        ("txt_in", ("txt_in",), "linear", None),
+        ("time_in.in_layer", ("time_in", "in_layer"), "linear", None),
+        ("time_in.out_layer", ("time_in", "out_layer"), "linear", None),
+        ("final_layer.adaLN_modulation.1", ("final_layer", "adaLN_modulation"), "linear", None),
+        ("final_layer.linear", ("final_layer", "linear"), "linear", None),
+    ]
+    if cfg.vec_dim > 0:
+        e += [("vector_in.in_layer", ("vector_in", "in_layer"), "linear", None),
+              ("vector_in.out_layer", ("vector_in", "out_layer"), "linear", None)]
+    if cfg.guidance_embed:
+        e += [("guidance_in.in_layer", ("guidance_in", "in_layer"), "linear", None),
+              ("guidance_in.out_layer", ("guidance_in", "out_layer"), "linear", None)]
+    for i in range(cfg.depth_double):
+        b = f"double_blocks.{i}"
+        p = ("double", "block")
+        st = (i, cfg.depth_double)
+        for s in ("img", "txt"):
+            e += [
+                (f"{b}.{s}_mod.lin", p + (f"{s}_mod", "lin"), "linear", st),
+                (f"{b}.{s}_attn.qkv", p + (f"{s}_attn_qkv",), "linear", st),
+                (f"{b}.{s}_attn.norm.query_norm", p + (f"{s}_attn_qknorm", "query_norm"),
+                 "rms", st),
+                (f"{b}.{s}_attn.norm.key_norm", p + (f"{s}_attn_qknorm", "key_norm"), "rms", st),
+                (f"{b}.{s}_attn.proj", p + (f"{s}_attn_proj",), "linear", st),
+                (f"{b}.{s}_mlp.0", p + (f"{s}_mlp_0",), "linear", st),
+                (f"{b}.{s}_mlp.2", p + (f"{s}_mlp_2",), "linear", st),
+            ]
+    for i in range(cfg.depth_single):
+        b = f"single_blocks.{i}"
+        p = ("single", "block")
+        st = (i, cfg.depth_single)
+        e += [
+            (f"{b}.modulation.lin", p + ("modulation", "lin"), "linear", st),
+            (f"{b}.linear1", p + ("linear1",), "linear", st),
+            (f"{b}.linear2", p + ("linear2",), "linear", st),
+            (f"{b}.norm.query_norm", p + ("qknorm", "query_norm"), "rms", st),
+            (f"{b}.norm.key_norm", p + ("qknorm", "key_norm"), "rms", st),
+        ]
+    return e
+
+
+def _wan_entries(cfg):
+    e = [
+        ("patch_embedding", ("patch_embedding",),
+         ("conv3d_as_linear", (cfg.in_channels,) + tuple(cfg.patch)), None),
+        ("text_embedding.0", ("text_embedding_0",), "linear", None),
+        ("text_embedding.2", ("text_embedding_2",), "linear", None),
+        ("time_embedding.0", ("time_embedding", "in_layer"), "linear", None),
+        ("time_embedding.2", ("time_embedding", "out_layer"), "linear", None),
+        ("time_projection.1", ("time_projection",), "linear", None),
+        ("head.head", ("head",), "linear", None),
+        ("head.modulation", ("head_modulation",), "raw", None),
+    ]
+    for i in range(cfg.depth):
+        b = f"blocks.{i}"
+        p = ("blocks", "block")
+        st = (i, cfg.depth)
+        e.append((f"{b}.modulation", p + ("modulation",), "raw", st))
+        for attn in ("self_attn", "cross_attn"):
+            for w in ("q", "k", "v", "o"):
+                e.append((f"{b}.{attn}.{w}", p + (attn, w), "linear", st))
+            for nw in ("norm_q", "norm_k"):
+                e.append((f"{b}.{attn}.{nw}", p + (attn, nw), "rms", st))
+        e += [
+            (f"{b}.norm3", p + ("norm3",), "ln", st),
+            (f"{b}.ffn.0", p + ("ffn_0",), "linear", st),
+            (f"{b}.ffn.2", p + ("ffn_2",), "linear", st),
+        ]
+    return e
+
+
+# --------------------------------------------------------------------------
+# generic import / export over an entry table
+
+
+def safetensors_header_keys(path: str):
+    """Read ONLY a safetensors file's JSON header: {key: (dtype, shape)}.
+
+    No tensor data is touched (the header is the first `u64-length` bytes),
+    so this works instantly on multi-GB checkpoints.  Mirrors
+    load_safetensors' fp8_scaled handling: `<name>.scale_weight` companions
+    are dropped (the loader folds them into `<name>.weight`)."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        hdr = json.loads(f.read(n))
+    hdr.pop("__metadata__", None)
+    return {k: (v.get("dtype"), tuple(v.get("shape", ())))
+            for k, v in hdr.items() if not k.endswith(".scale_weight")}
+
+
+def key_census(have_keys, want_keys, family: str) -> dict:
+    """Diff a checkpoint's key set against an importer's expected set:
+    `missing` = keys the import table expects but the file lacks,
+    `leftover` = file keys the table would silently drop."""
+    have = set(have_keys)
+    want = set(want_keys)
+    return {
+        "family": family,
+        "expected": len(want),
+        "in_file": len(have),
+        "matched": len(want & have),
+        "missing": sorted(want - have),
+        "leftover": sorted(have - want),
+        "ok": want == have,
+    }
+
+
+def expected_keys(entries, prefix: str = ""):
+    """The full set of checkpoint keys an entry table consumes."""
+    keys = set()
+    for ckpt, _path, kind, _stack in entries:
+        for suffix, _leaf in _leaves(kind):
+            keys.add(prefix + ckpt + ("." + suffix if suffix else ""))
+    return keys
+
+
+def manifest_coverage(state_keys, entries, prefix: str = ""):
+    """(consumed, leftover, missing) of an importer vs a key manifest:
+    `leftover` the manifest keys the importer would silently drop,
+    `missing` the keys the table expects but the manifest lacks."""
+    want = expected_keys(entries, prefix)
+    have = set(state_keys)
+    return want & have, have - want, want - have
+
+
+def _import(state, entries, prefix):
+    sb = _StateBuilder()
+    for ckpt, path, kind, stack in entries:
+        for suffix, leaf in _leaves(kind):
+            key = prefix + ckpt + ("." + suffix if suffix else "")
+            if key not in state:
+                continue
+            # layout transforms apply to weight/gamma tensors, never biases
+            val = _tensor(state[key])
+            if suffix in ("weight", "gamma"):
+                val = _t_in(kind, val)
+            p = tuple(path) + ((leaf,) if leaf else ())
+            if stack is None:
+                sb.set(p, val)
+            else:
+                sb.set_stacked(p, stack[0], stack[1], val)
+    return sb.build()
+
+
+def _export(state_dict, entries, prefix):
+    out = {}
+    for ckpt, path, kind, stack in entries:
+        for suffix, leaf in _leaves(kind):
+            p = tuple(path) + ((leaf,) if leaf else ())
+            if stack is not None:
+                p = bridge.unstack(p, stack[0])
+            key = bridge.state_key(p)
+            if key not in state_dict:
+                continue
+            w = bridge.flax_layout(p, state_dict[key])
+            if suffix in ("weight", "gamma"):
+                w = _t_out(kind, w)
+            out[prefix + ckpt + ("." + suffix if suffix else "")] = w
+    return out
+
+
+_ATTN1_Q = re.compile(r"^(.*)\.blocks\.(\d+)\.attn1\.to_q\.weight$")
+
+
+def fuse_unet_qkv(state: dict) -> dict:
+    """Import-time QKV fusion of a UNet state_dict in split layout (the
+    checkpoint's, as `_import` maps it) into the port UNet's fused one, as
+    `lanpaint_tpu.models.load.fuse_unet_qkv` fuses the flax tree: in every
+    SpatialTransformer
+
+    * attn1 to_q / to_k / to_v (c, c) -> to_qkv (3c, c), q|k|v in order;
+    * attn2 to_k / to_v (c, ctx) of every depth -> the stacked `kv_cross`
+      (depth, ctx, 2c) = k^T|v^T per depth.
+
+    Returns a new dict; the checkpoint's keys stay split."""
+    out = dict(state)
+    depths: Dict[str, int] = {}
+    for key in state:
+        m = _ATTN1_Q.match(key)
+        if m:
+            depths[m.group(1)] = max(depths.get(m.group(1), 0), int(m.group(2)) + 1)
+    for st, depth in depths.items():
+        kv = []
+        for j in range(depth):
+            a1, a2 = f"{st}.blocks.{j}.attn1.", f"{st}.blocks.{j}.attn2."
+            out[a1 + "to_qkv.weight"] = torch.cat(
+                [out.pop(f"{a1}to_{n}.weight") for n in "qkv"], dim=0)
+            kv.append(torch.cat([out.pop(f"{a2}to_{n}.weight").T for n in "kv"], dim=-1))
+        out[f"{st}.kv_cross"] = torch.stack(kv)
+    return out
+
+
+def unfuse_unet_qkv(state: dict) -> dict:
+    """Inverse of `fuse_unet_qkv` (views of the fused tensors)."""
+    out = dict(state)
+    for key in [k for k in state if k.endswith(".kv_cross")]:
+        st = key[: -len(".kv_cross")]
+        kc, vc = out.pop(key).chunk(2, dim=-1)
+        for j in range(kc.shape[0]):
+            a1, a2 = f"{st}.blocks.{j}.attn1.", f"{st}.blocks.{j}.attn2."
+            for n, w in zip("qkv", out.pop(a1 + "to_qkv.weight").chunk(3, dim=0)):
+                out[f"{a1}to_{n}.weight"] = w
+            out[a2 + "to_k.weight"], out[a2 + "to_v.weight"] = kc[j].T, vc[j].T
+    return out
+
+
+def import_unet(state, cfg, prefix: str = "model.diffusion_model.") -> dict:
+    """An ldm/sgm UNet checkpoint -> the port UNet's (fused) state_dict."""
+    return fuse_unet_qkv(_import(state, _unet_entries(cfg), prefix))
+
+
+def export_unet(state_dict, cfg, prefix: str = "model.diffusion_model.") -> dict:
+    return _export(unfuse_unet_qkv(state_dict), _unet_entries(cfg), prefix)
+
+
+def import_dit(state, cfg, prefix: str = "") -> dict:
+    return _import(state, _dit_entries(cfg), prefix)
+
+
+def export_dit(state_dict, cfg, prefix: str = "") -> dict:
+    return _export(state_dict, _dit_entries(cfg), prefix)
+
+
+def import_wan(state, cfg, prefix: str = "") -> dict:
+    # Wan RMSNorm tensors are stored as '.weight'
+    state = {k.replace(".norm_q.weight", ".norm_q.scale")
+              .replace(".norm_k.weight", ".norm_k.scale"): v
+             for k, v in state.items()}
+    return _import(state, _wan_entries(cfg), prefix)
+
+
+def export_wan(state_dict, cfg, prefix: str = "") -> dict:
+    out = _export(state_dict, _wan_entries(cfg), prefix)
+    return {k.replace(".norm_q.scale", ".norm_q.weight")
+             .replace(".norm_k.scale", ".norm_k.weight"): v
+            for k, v in out.items()}
+
+
+def _wan_vae_entries(cfg):
+    """Wan causal video VAE (models/video_vae.py) <-> the public
+    wan_2.1_vae.safetensors / qwen_image_vae.safetensors layout
+    (`encoder.downsamples.{i}.residual.{0,2,3,6}`, middle res/attn/res,
+    `conv1`/`conv2` quant pair, decoder mirror with `num_res_blocks+1`
+    blocks per stage).  With `cfg.stage_shortcuts` (Wan2.2) each stage
+    nests one more Sequential level, `encoder.downsamples.{i}.downsamples.
+    {j}` / `decoder.upsamples.{i}.upsamples.{j}`, and the decoder's
+    upsample conv keeps its width."""
+
+    def res(ckpt, flax, cin, cout):
+        out = [
+            (f"{ckpt}.residual.0", flax + ("norm1",), "gamma4", None),
+            (f"{ckpt}.residual.2", flax + ("conv1", "conv"), "conv3d", None),
+            (f"{ckpt}.residual.3", flax + ("norm2",), "gamma4", None),
+            (f"{ckpt}.residual.6", flax + ("conv2", "conv"), "conv3d", None),
+        ]
+        if cin != cout:
+            out.append((f"{ckpt}.shortcut", flax + ("shortcut", "conv"), "conv3d", None))
+        return out
+
+    def attn(ckpt, flax):
+        return [
+            (f"{ckpt}.norm", flax + ("norm",), "gamma3", None),
+            (f"{ckpt}.to_qkv", flax + ("to_qkv",), "conv2d3d", None),
+            (f"{ckpt}.proj", flax + ("proj",), "conv2d3d", None),
+        ]
+
+    e = [("encoder.conv1", ("encoder", "conv1", "conv"), "conv3d", None)]
+    dims = [cfg.dim * u for u in (1,) + tuple(cfg.dim_mult)]
+    nested = cfg.stage_shortcuts  # Wan2.2 vae2_2.py Down_/Up_ResidualBlock
+    idx = 0
+    cin = dims[0]
+    for i in range(len(cfg.dim_mult)):
+        cout = dims[i + 1]
+        if nested:
+            stage = f"encoder.downsamples.{i}.downsamples"
+            idx = 0
+        else:
+            stage = "encoder.downsamples"
+        for j in range(cfg.num_res_blocks):
+            e += res(f"{stage}.{idx}", ("encoder", f"down_{i}_block_{j}"), cin, cout)
+            cin = cout
+            idx += 1
+        if i != len(cfg.dim_mult) - 1:
+            e.append((f"{stage}.{idx}.resample.1",
+                      ("encoder", f"down_{i}_ds", "resample", "conv"), "conv2d3d", None))
+            if cfg.temporal_downsample[i]:
+                e.append((f"{stage}.{idx}.time_conv",
+                          ("encoder", f"down_{i}_ds", "time_conv"), "conv3d", None))
+            idx += 1
+    c = dims[-1]
+    e += res("encoder.middle.0", ("encoder", "mid_block_1"), c, c)
+    e += attn("encoder.middle.1", ("encoder", "mid_attn"))
+    e += res("encoder.middle.2", ("encoder", "mid_block_2"), c, c)
+    e += [("encoder.head.0", ("encoder", "head_norm"), "gamma4", None),
+          ("encoder.head.2", ("encoder", "head_conv", "conv"), "conv3d", None),
+          ("conv1", ("quant_conv", "conv"), "conv3d", None),
+          ("conv2", ("post_quant_conv", "conv"), "conv3d", None),
+          ("decoder.conv1", ("decoder", "conv1", "conv"), "conv3d", None)]
+    rev = tuple(reversed(cfg.dim_mult))
+    ddims = [cfg.dim * u for u in (rev[0],) + rev]
+    temporal_up = tuple(reversed(cfg.temporal_downsample))
+    c = ddims[0]
+    e += res("decoder.middle.0", ("decoder", "mid_block_1"), c, c)
+    e += attn("decoder.middle.1", ("decoder", "mid_attn"))
+    e += res("decoder.middle.2", ("decoder", "mid_block_2"), c, c)
+    idx = 0
+    cin = ddims[0]
+    for i in range(len(cfg.dim_mult)):
+        cout = ddims[i + 1]
+        if nested:
+            stage = f"decoder.upsamples.{i}.upsamples"
+            idx = 0
+        else:
+            stage = "decoder.upsamples"
+        for j in range(cfg.num_res_blocks + 1):
+            e += res(f"{stage}.{idx}", ("decoder", f"up_{i}_block_{j}"), cin, cout)
+            cin = cout
+            idx += 1
+        if i != len(cfg.dim_mult) - 1:
+            if temporal_up[i]:
+                e.append((f"{stage}.{idx}.time_conv",
+                          ("decoder", f"up_{i}_us", "time_conv"), "conv3d", None))
+            e.append((f"{stage}.{idx}.resample.1",
+                      ("decoder", f"up_{i}_us", "resample", "conv"), "conv2d3d", None))
+            idx += 1
+            # Wan2.1's upsample conv halves the width; 2.2 keeps it
+            cin = cout if nested else cout // 2
+    e += [("decoder.head.0", ("decoder", "head_norm"), "gamma4", None),
+          ("decoder.head.2", ("decoder", "head_conv", "conv"), "conv3d", None)]
+    return e
+
+
+def import_wan_vae(state, cfg, prefix: str = "") -> dict:
+    return _import(state, _wan_vae_entries(cfg), prefix)
+
+
+def export_wan_vae(state_dict, cfg, prefix: str = "") -> dict:
+    return _export(state_dict, _wan_vae_entries(cfg), prefix)
+
+
+# --------------------------------------------------------------------------
+# text encoders (models/textenc.py): CLIP and T5 / UMT5 in the HF
+# transformers state-dict layouts (CLIPTextModel(.WithProjection),
+# T5EncoderModel / UMT5EncoderModel), and CLIP's OpenCLIP layout
+
+
+def _clip_entries(cfg):
+    e = [
+        ("embeddings.token_embedding.weight", ("token_embedding",), "raw", None),
+        ("embeddings.position_embedding.weight", ("position_embedding",), "raw", None),
+        ("final_layer_norm", ("final_ln",), "ln", None),
+    ]
+    if cfg.projection_dim:
+        e.append(("text_projection", ("text_projection",), "raw_linear", None))
+    for i in range(cfg.layers):
+        b = f"encoder.layers.{i}"
+        st = (i, cfg.layers)
+        e += [
+            (f"{b}.self_attn.q_proj", ("layers", "q"), "linear", st),
+            (f"{b}.self_attn.k_proj", ("layers", "k"), "linear", st),
+            (f"{b}.self_attn.v_proj", ("layers", "v"), "linear", st),
+            (f"{b}.self_attn.out_proj", ("layers", "out"), "linear", st),
+            (f"{b}.layer_norm1", ("layers", "ln1"), "ln", st),
+            (f"{b}.layer_norm2", ("layers", "ln2"), "ln", st),
+            (f"{b}.mlp.fc1", ("layers", "fc1"), "linear", st),
+            (f"{b}.mlp.fc2", ("layers", "fc2"), "linear", st),
+        ]
+    return e
+
+
+def import_clip(state, cfg, prefix: str = "text_model.") -> dict:
+    """HF CLIPTextModel(.WithProjection) -> the CLIPTextEncoder state_dict.
+
+    `text_projection.weight` lives OUTSIDE the text_model prefix in HF
+    checkpoints; it is aliased in automatically.  The module's
+    `text_projection` is (width, projection_dim), the transpose of a torch
+    Linear's weight."""
+    state = dict(state)
+    for key in ("text_projection.weight", "text_projection"):
+        if key in state and prefix + "text_projection.weight" not in state:
+            state[prefix + "text_projection.weight"] = state[key]
+            break
+    return _import(state, _clip_entries(cfg), prefix)
+
+
+def export_clip(state_dict, cfg, prefix: str = "text_model.") -> dict:
+    out = _export(state_dict, _clip_entries(cfg), prefix)
+    key = prefix + "text_projection.weight"
+    if key in out:
+        out["text_projection.weight"] = out.pop(key)
+    return out
+
+
+def _t5_entries(cfg):
+    e = [
+        ("shared.weight", ("shared",), "raw", None),
+        ("encoder.final_layer_norm", ("final_ln",), "ln", None),
+    ]
+    if not cfg.per_layer_rel_bias:
+        e.append(("encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight",
+                  ("rel_bias",), "raw", None))
+    for i in range(cfg.layers):
+        b = f"encoder.block.{i}"
+        st = (i, cfg.layers)
+        if cfg.per_layer_rel_bias:
+            e.append((f"{b}.layer.0.SelfAttention.relative_attention_bias.weight",
+                      ("blocks", "rel_bias"), "raw", st))
+        e += [
+            (f"{b}.layer.0.SelfAttention.q", ("blocks", "q"), "linear_nb", st),
+            (f"{b}.layer.0.SelfAttention.k", ("blocks", "k"), "linear_nb", st),
+            (f"{b}.layer.0.SelfAttention.v", ("blocks", "v"), "linear_nb", st),
+            (f"{b}.layer.0.SelfAttention.o", ("blocks", "o"), "linear_nb", st),
+            (f"{b}.layer.0.layer_norm", ("blocks", "ln1"), "ln", st),
+            (f"{b}.layer.1.DenseReluDense.wi_0", ("blocks", "wi0"), "linear_nb", st),
+            (f"{b}.layer.1.DenseReluDense.wi_1", ("blocks", "wi1"), "linear_nb", st),
+            (f"{b}.layer.1.DenseReluDense.wo", ("blocks", "wo"), "linear_nb", st),
+            (f"{b}.layer.1.layer_norm", ("blocks", "ln2"), "ln", st),
+        ]
+    return e
+
+
+def import_t5(state, cfg, prefix: str = "") -> dict:
+    """HF T5EncoderModel / UMT5EncoderModel -> the T5Encoder state_dict."""
+    state = dict(state)
+    if prefix + "shared.weight" not in state:  # tied-embedding alias
+        alt = prefix + "encoder.embed_tokens.weight"
+        if alt in state:
+            state[prefix + "shared.weight"] = state[alt]
+    return _import(state, _t5_entries(cfg), prefix)
+
+
+def export_t5(state_dict, cfg, prefix: str = "") -> dict:
+    return _export(state_dict, _t5_entries(cfg), prefix)
+
+
+def import_clip_openclip(state, cfg, prefix: str = "") -> dict:
+    """OpenCLIP text-tower layout -> the CLIPTextEncoder state_dict.
+
+    This is the layout embedded in single-file SD2.x/SDXL checkpoints
+    (`conditioner.embedders.1.model.*`): fused `attn.in_proj_weight/bias`,
+    `transformer.resblocks.{i}.*`, `ln_final`, `positional_embedding`, and
+    a `text_projection` stored ALREADY as (width, projection_dim), used as
+    `x @ proj`, unlike a torch Linear."""
+    sb = _StateBuilder()
+
+    def put(p, v, stack=None):
+        if stack is None:
+            sb.set(p, v)
+        else:
+            sb.set_stacked(p, stack[0], stack[1], v)
+
+    g = lambda k: _tensor(state[prefix + k])  # noqa: E731
+    put(("token_embedding",), g("token_embedding.weight"))
+    put(("position_embedding",), g("positional_embedding"))
+    put(("final_ln", "scale"), g("ln_final.weight"))
+    put(("final_ln", "bias"), g("ln_final.bias"))
+    if cfg.projection_dim:
+        tp = g("text_projection")
+        if tp.shape[0] == cfg.projection_dim and tp.shape[0] != tp.shape[1]:
+            tp = tp.T  # tolerate transposed exports
+        put(("text_projection",), tp)
+    w = cfg.width
+    for i in range(cfg.layers):
+        b = f"transformer.resblocks.{i}."
+        st = (i, cfg.layers)
+        inw = g(b + "attn.in_proj_weight")  # (3w, w) torch layout
+        inb = g(b + "attn.in_proj_bias")
+        for j, nm in enumerate(("q", "k", "v")):
+            put(("layers", nm, "kernel"), t_linear(inw[j * w:(j + 1) * w]), st)
+            put(("layers", nm, "bias"), inb[j * w:(j + 1) * w], st)
+        put(("layers", "out", "kernel"), t_linear(g(b + "attn.out_proj.weight")), st)
+        put(("layers", "out", "bias"), g(b + "attn.out_proj.bias"), st)
+        for src, dst in (("ln_1", "ln1"), ("ln_2", "ln2")):
+            put(("layers", dst, "scale"), g(f"{b}{src}.weight"), st)
+            put(("layers", dst, "bias"), g(f"{b}{src}.bias"), st)
+        for src, dst in (("mlp.c_fc", "fc1"), ("mlp.c_proj", "fc2")):
+            put(("layers", dst, "kernel"), t_linear(g(f"{b}{src}.weight")), st)
+            put(("layers", dst, "bias"), g(f"{b}{src}.bias"), st)
+    return sb.build()
+
+
+# single-file checkpoint splitting (the layout every reference workflow's
+# CheckpointLoaderSimple consumes: UNet + CLIP(s) + VAE in one safetensors).
+# As in the JAX package, no prefix covers an SD2.x single file's OpenCLIP-H
+# tower (`cond_stage_model.model.`).
+
+_SINGLE_FILE_PREFIXES = {
+    "unet": ("model.diffusion_model.",),
+    "vae": ("first_stage_model.", "vae."),
+    # SDXL dual text encoders / SD1.x single
+    "clip_l": ("conditioner.embedders.0.transformer.",
+               "cond_stage_model.transformer.",
+               "text_encoders.clip_l.transformer."),
+    "clip_g": ("conditioner.embedders.1.model.",
+               "text_encoders.clip_g.transformer.",
+               "conditioner.embedders.0.model."),
+    "t5": ("text_encoders.t5xxl.transformer.",),
+}
+
+
+def split_checkpoint(state) -> Dict[str, dict]:
+    """Split a single-file SD/SDXL/SD3-style state dict into component
+    sub-dicts keyed by component name, with prefixes stripped.  Components
+    absent from the file are omitted.  The clip_g sub-dict is OpenCLIP
+    layout when it came from `conditioner.embedders.*.model.` (single-file
+    SDXL) and HF layout when from `text_encoders.*` (SD3-style)."""
+    out: Dict[str, dict] = {}
+    for comp, prefixes in _SINGLE_FILE_PREFIXES.items():
+        for p in prefixes:
+            sub = {k[len(p):]: v for k, v in state.items() if k.startswith(p)}
+            if sub:
+                out.setdefault(comp, sub)
+                break
+    return out

@@ -1,4 +1,4 @@
-"""Stable-Diffusion UNet (the SDXL configuration for now) as a torch module.
+"""Stable-Diffusion UNet family (SD1.5 / SD2.x / SDXL) as a torch module.
 
 PyTorch counterpart of `lanpaint_tpu/models/unet.py`, fused-QKV layout.
 NCHW layout, compute in `config.dtype` (bf16 by default), GroupNorm in
@@ -47,6 +47,8 @@ class UNetConfig:
     dtype: torch.dtype = torch.bfloat16
 
 
+SD15_CONFIG = UNetConfig()
+SD21_CONFIG = UNetConfig(context_dim=1024, head_dim=64)
 SDXL_CONFIG = UNetConfig(
     channel_mult=(1, 2, 4),
     transformer_depth=(0, 2, 10),
@@ -180,3 +182,18 @@ class UNetModel(nn.Module):
     def spatial_transformers(self):
         """(name, SpatialTransformer) pairs, in registration order."""
         return [(n, m) for n, m in self.named_children() if isinstance(m, SpatialTransformer)]
+
+
+def sdxl_pooled_y(pooled_text: torch.Tensor, height: int = 1024, width: int = 1024,
+                  crop_h: int = 0, crop_w: int = 0, target_h: Optional[int] = None,
+                  target_w: Optional[int] = None) -> torch.Tensor:
+    """Assemble SDXL's 2816-dim micro-conditioning vector: pooled CLIP text
+    (1280) + sinusoidal embeds of (orig_h, orig_w, crop_h, crop_w, target_h,
+    target_w), 256 each."""
+    target_h = height if target_h is None else target_h
+    target_w = width if target_w is None else target_w
+    b = pooled_text.shape[0]
+    sizes = torch.tensor([[height, width, crop_h, crop_w, target_h, target_w]],
+                         dtype=torch.float32, device=pooled_text.device).repeat(b, 1)
+    embs = [timestep_embedding(sizes[:, i], 256) for i in range(6)]
+    return torch.cat([pooled_text] + embs, dim=-1)

@@ -1,12 +1,15 @@
-"""Model zoo: packaged Denoisers (the eps-prediction UNets, the
-flow-matching MMDiTs and the Wan video DiTs for now) and the image and
-video VAEs.
+"""Model zoo: packaged Denoisers (the eps- and v-prediction UNets, the
+flow-matching MMDiTs and the Wan video DiTs for now), the image and video
+VAEs and the CLIP and T5 text encoders.
 
 PyTorch counterpart of the UNet, MMDiT and Wan parts of
 `lanpaint_tpu/models/zoo.py`, with its two-model wrappers
 (`switching_denoiser`, the Wan2.2 high/low-noise expert pair, and
-`dual_model_denoiser`).  `build_unet`, `build_dit` and `build_wan` return
-(Denoiser, module); `build_vae` and `build_wan_vae` return the module.
+`dual_model_denoiser`) and the checkpoint key census
+(`family_expected_keys`, `family_census`) of the families the port runs.
+`build_unet`, `build_dit` and `build_wan` return (Denoiser, module);
+`build_vae`, `build_wan_vae`, `build_clip` and `build_t5` return the
+module.
 Every `build_*` function builds on the CUDA card unless `device` names
 another (`utils.resolve_device`).
 Without a state_dict the weights are random, drawn on the target device
@@ -31,7 +34,10 @@ from ..utils import resolve_device
 from .base import Denoiser
 from .dit import FLUX_DEV_CONFIG, FLUX_SCHNELL_CONFIG, TINY_DIT_CONFIG, DiTConfig, MMDiT
 from .layers import GroupNorm32, LayerNormF32, RMSNorm
-from .unet import SDXL_CONFIG, TINY_UNET_CONFIG, UNetConfig, UNetModel
+from . import textenc
+from .textenc import (CLIP_L_CONFIG, T5_XXL_CONFIG, CLIPTextConfig, CLIPTextEncoder, T5Config,
+                      T5Encoder)
+from .unet import SD15_CONFIG, SD21_CONFIG, SDXL_CONFIG, TINY_UNET_CONFIG, UNetConfig, UNetModel
 from .vae import SDXL_VAE_CONFIG, VAE, VAEConfig
 from .video_vae import WAN22_VAE_CONFIG, RMSNorm3d, WanVAE, WanVAEConfig
 from .wan import TINY_WAN_CONFIG, WanConfig, WanModel, _WanQKNorm
@@ -56,7 +62,8 @@ def init_params_(module: torch.nn.Module, seed: int = 0, scale: float = 0.02):
     device = next(module.parameters()).device
     gen = torch.Generator(device=device).manual_seed(seed)
     for mod in module.modules():
-        is_norm = isinstance(mod, (GroupNorm32, LayerNormF32, RMSNorm, RMSNorm3d, _WanQKNorm))
+        is_norm = isinstance(mod, (GroupNorm32, LayerNormF32, RMSNorm, RMSNorm3d, _WanQKNorm,
+                                   textenc.LayerNorm, textenc.RMSNorm))
         for pname, p in mod.named_parameters(recurse=False):
             if pname == "bias":
                 p.zero_()
@@ -84,13 +91,15 @@ def build_unet(
     config: UNetConfig,
     state_dict: Optional[dict] = None,
     *,
+    v_prediction: bool = False,
     device=None,
     param_dtype: torch.dtype = torch.float32,
     seed: int = 0,
     name: str = "unet",
 ):
     """Build the UNet Denoiser on `device` (the CUDA card when None) with
-    `param_dtype` parameters."""
+    `param_dtype` parameters.  `v_prediction` reads the model's output as
+    v (SD2.x-v): x0 = x / (1 + s^2) - s / sqrt(1 + s^2) * v."""
     device = resolve_device(device)
     module = _materialize(UNetModel, config, state_dict, device, param_dtype, seed)
 
@@ -114,6 +123,8 @@ def build_unet(
         ctx = cond["context"] if isinstance(cond, dict) else cond
         kvc = cond.get("kv_cache") if isinstance(cond, dict) else None
         eps = module(x_in, t_disc, ctx, y, kv_cache=kvc)
+        if v_prediction:
+            return x / (1.0 + s**2) - s / torch.sqrt(1.0 + s**2) * eps
         return x - s * eps
 
     den = Denoiser(apply=apply, kind=ModelKind.EPS, sigma_table=table, name=name,
@@ -135,6 +146,14 @@ def unet_precompute_kv(module: UNetModel, cond):
     if not cache:
         return cond
     return dict(cond, kv_cache=cache)
+
+
+def build_sd15(state_dict=None, **kw):
+    return build_unet(SD15_CONFIG, state_dict, name="sd15", **kw)
+
+
+def build_sd21_v(state_dict=None, **kw):
+    return build_unet(SD21_CONFIG, state_dict, v_prediction=True, name="sd21-v", **kw)
 
 
 def build_sdxl(state_dict=None, **kw):
@@ -206,6 +225,28 @@ def build_vae(config: VAEConfig = SDXL_VAE_CONFIG, state_dict: Optional[dict] = 
     with `param_dtype` parameters (random from `seed` without a
     state_dict), in eval mode."""
     return _materialize(VAE, config, state_dict, resolve_device(device), param_dtype, seed)
+
+
+# --------------------------------------------------------------------------
+# text encoders
+
+
+def build_clip(config: CLIPTextConfig = CLIP_L_CONFIG, state_dict: Optional[dict] = None, *,
+               device=None, param_dtype: torch.dtype = torch.float32,
+               seed: int = 0) -> CLIPTextEncoder:
+    """The CLIP text encoder of `config` on `device` (the CUDA card when
+    None) with `param_dtype` parameters (random from `seed` without a
+    state_dict), in eval mode."""
+    return _materialize(CLIPTextEncoder, config, state_dict, resolve_device(device), param_dtype,
+                        seed)
+
+
+def build_t5(config: T5Config = T5_XXL_CONFIG, state_dict: Optional[dict] = None, *,
+             device=None, param_dtype: torch.dtype = torch.float32, seed: int = 0) -> T5Encoder:
+    """The T5 / UMT5 encoder of `config` on `device` (the CUDA card when
+    None) with `param_dtype` parameters (random from `seed` without a
+    state_dict), in eval mode."""
+    return _materialize(T5Encoder, config, state_dict, resolve_device(device), param_dtype, seed)
 
 
 # --------------------------------------------------------------------------
@@ -358,3 +399,54 @@ def dual_model_denoiser(positive: Denoiser, negative: Denoiser,
                     latent_channels=positive.latent_channels,
                     module=nn.ModuleDict({"pos": positive.module, "neg": negative.module}),
                     precompute=precompute)
+
+
+# --------------------------------------------------------------------------
+# checkpoint key census
+
+# the JAX package's census families whose models the port does not run yet,
+# by the ROADMAP item that ports them
+_CENSUS_WAITS = {
+    "flux2-dev": "A.14", "flux2-klein": "A.14", "krea2": "A.14", "anima": "A.14",
+    "qwen": "A.14", "hidream": "A.14", "sd35-large": "A.14", "sd35-medium": "A.14",
+    "sd3-medium": "A.14", "zimage": "A.14", "hyvideo": "A.14",
+}
+
+
+def family_expected_keys(family: str):
+    """The full checkpoint key set each family's importer consumes, from
+    the import tables alone (no tensor is allocated): the key census of
+    `lanpaint_tpu.models.zoo.family_expected_keys` for the families the
+    port runs.  A family whose model waits for a later ROADMAP item raises
+    NotImplementedError naming it; an unknown family raises ValueError as
+    the JAX package does."""
+    from . import load as L
+
+    if family in ("sd15", "sd21", "sdxl"):
+        cfg = {"sd15": SD15_CONFIG, "sd21": SD21_CONFIG, "sdxl": SDXL_CONFIG}[family]
+        return L.expected_keys(L._unet_entries(cfg), "model.diffusion_model.")
+    if family in ("flux-dev", "flux-schnell"):
+        cfg = FLUX_DEV_CONFIG if family == "flux-dev" else FLUX_SCHNELL_CONFIG
+        return L.expected_keys(L._dit_entries(cfg), "")
+    if family in ("wan-14b", "wan-5b"):
+        from .wan import WAN22_T2V_14B_CONFIG, WAN22_TI2V_5B_CONFIG
+
+        cfg = WAN22_T2V_14B_CONFIG if family == "wan-14b" else WAN22_TI2V_5B_CONFIG
+        return L.expected_keys(L._wan_entries(cfg), "")
+    if family in _CENSUS_WAITS:
+        raise NotImplementedError(
+            f"family {family!r}: its model and importer are not ported yet "
+            f"(ROADMAP {_CENSUS_WAITS[family]})")
+    raise ValueError(
+        f"no key census for family {family!r}; supported: sd15 sd21 sdxl "
+        "flux-dev flux-schnell flux2-dev flux2-klein krea2 anima qwen "
+        "hidream sd35-large sd35-medium sd3-medium zimage wan-14b wan-5b "
+        "hyvideo")
+
+
+def family_census(checkpoint_path: str, family: str) -> dict:
+    """Header-only key census of a checkpoint vs a family's import table."""
+    from . import load as L
+
+    have = L.safetensors_header_keys(checkpoint_path)
+    return L.key_census(have, family_expected_keys(family), family)

@@ -1,0 +1,213 @@
+"""One-object pipeline: checkpoint file -> prompt -> inpainted image.
+
+PyTorch counterpart of `lanpaint_tpu/pipeline.py`.  The reference's user
+assembles a node graph (CheckpointLoaderSimple -> CLIPTextEncode ->
+VAEEncode -> LanPaint_KSampler -> VAEDecode -> LanPaint_MaskBlend, e.g.
+reference example_workflows/SDXL_Inpaint.json); `LanPaintPipeline` is that
+graph as one object:
+
+    pipe = LanPaintPipeline.from_single_file(
+        "sd_xl_base_1.0.safetensors", vocab="vocab.json", merges="merges.txt",
+        param_dtype=torch.bfloat16)
+    out = pipe("a corgi", image=img, mask=mask, steps=30, num_steps=5)
+
+Every stage stays overridable: pass your own Denoiser / encoders / VAE to
+the constructor, or call `.encode()` / `.sample()` directly.  The
+constructors build on the CUDA card unless `device` names another, with
+`param_dtype` parameters (fp32 by default).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from .api import inpaint_image, ksampler
+from .text import NativeEncoder, encode_prompt
+
+# from_components' families whose models wait for ROADMAP A.14
+_COMPONENTS_WAIT = ("sd35", "qwen", "z-image")
+
+
+def _import_clip_auto(sub: Dict[str, Any], cfg):
+    """Import a CLIP text tower from either layout found in checkpoints."""
+    from .models.load import import_clip, import_clip_openclip
+
+    if any(k.startswith("ln_final.") for k in sub):
+        return import_clip_openclip(sub, cfg)
+    return import_clip(sub, cfg)
+
+
+class LanPaintPipeline:
+    def __init__(self, model, *, vae=None, encoders: Optional[Dict[str, NativeEncoder]] = None,
+                 family: str = "sdxl", height: int = 1024, width: int = 1024):
+        self.model = model
+        self.vae = vae
+        self.encoders = encoders or {}
+        self.family = family
+        self.height = height
+        self.width = width
+
+    # ------------------------------------------------------------------
+    @classmethod
+    def from_single_file(cls, path: str, *, vocab: str, merges: str,
+                         family: Optional[str] = None,
+                         unet_config=None, clip_l_config=None,
+                         clip_g_config=None, vae_config=None,
+                         height: int = 1024, width: int = 1024,
+                         clip_pad_token_id: Optional[int] = None,
+                         state: Optional[Dict[str, Any]] = None,
+                         device=None, param_dtype: torch.dtype = torch.float32
+                         ) -> "LanPaintPipeline":
+        """Build the whole pipeline from one SD1.x/SDXL safetensors file.
+
+        `vocab`/`merges` are the CLIP tokenizer files (shipped with every
+        SD release).  Configs default by detected family: clip_g present
+        in the file => SDXL, else SD1.x; the VAE defaults to SD_VAE_CONFIG
+        for both, as in the JAX package.  Pass `state` to skip file I/O
+        (pre-loaded state dicts)."""
+        from .models import textenc as TE
+        from .models.load import import_unet, import_vae, load_safetensors, split_checkpoint
+        from .models.unet import SD15_CONFIG, SDXL_CONFIG
+        from .models.vae import SD_VAE_CONFIG
+        from .models.zoo import build_unet, build_vae
+        from .tokenizers import ClipBpeTokenizer
+
+        comps = split_checkpoint(state if state is not None else load_safetensors(path))
+        if family is None:
+            family = "sdxl" if "clip_g" in comps else "sd15"
+        unet_config = unet_config or (SDXL_CONFIG if family == "sdxl" else SD15_CONFIG)
+        vae_config = vae_config or SD_VAE_CONFIG
+        built = dict(device=device, param_dtype=param_dtype)
+        model, _ = build_unet(unet_config, import_unet(comps["unet"], unet_config, prefix=""),
+                              name=family, **built)
+        vae = build_vae(vae_config, import_vae(comps["vae"], vae_config, prefix=""), **built)
+
+        tok = ClipBpeTokenizer.from_files(vocab, merges, pad_token_id=clip_pad_token_id)
+        encoders: Dict[str, NativeEncoder] = {}
+        if "clip_l" in comps:
+            cfg_l = clip_l_config or TE.CLIP_L_CONFIG
+            encoders["clip_l"] = NativeEncoder(
+                "clip", _import_clip_auto(comps["clip_l"], cfg_l), cfg_l, tok, **built)
+        if "clip_g" in comps:
+            cfg_g = clip_g_config or TE.CLIP_G_CONFIG
+            encoders["clip_g"] = NativeEncoder(
+                "clip", _import_clip_auto(comps["clip_g"], cfg_g), cfg_g, tok, **built)
+        return cls(model, vae=vae, encoders=encoders, family=family, height=height, width=width)
+
+    # ------------------------------------------------------------------
+    @classmethod
+    def from_components(cls, *, family: str, model, vae,
+                        clip_l=None, t5=None,
+                        clip_vocab: Optional[str] = None,
+                        clip_merges: Optional[str] = None,
+                        t5_tokenizer=None,
+                        model_config=None, vae_config=None,
+                        clip_l_config=None, t5_config=None,
+                        shift: Optional[float] = None,
+                        height: int = 1024, width: int = 1024,
+                        device=None, param_dtype: torch.dtype = torch.float32
+                        ) -> "LanPaintPipeline":
+        """Build a pipeline from the multi-file layout modern releases ship
+        (separate diffusion model / text encoder(s) / VAE safetensors — the
+        reference's UNETLoader + DualCLIPLoader + VAELoader node trio).
+
+        Family "flux" (clip_l + t5 + the 16-channel VAE).  "sd35", "qwen"
+        and "z-image" raise NotImplementedError: their models wait for
+        ROADMAP A.14, and with them the JAX signature's clip_g, llama and
+        vision arguments.  Component args accept file paths or pre-loaded
+        state dicts; tokenizer args accept paths (tokenizer.json /
+        spiece.model / vocab+merges) or constructed tokenizer objects.
+        *_config args override the full-size defaults (used by the
+        tiny-model tests)."""
+        from .models import textenc as TE
+        from .models.load import import_clip, import_dit, import_t5, import_vae, load_safetensors
+
+        if family in _COMPONENTS_WAIT:
+            raise NotImplementedError(
+                f"from_components(family={family!r}): its model and importers are not "
+                "ported yet (ROADMAP A.14)")
+        if family != "flux":
+            raise ValueError(f"from_components: unknown family {family!r} "
+                             "(flux, sd35, qwen, z-image)")
+
+        def _state(x):
+            return load_safetensors(x) if isinstance(x, str) else x
+
+        def _vae_import(x, vae_cfg):
+            st = _state(x)
+            pre = ("first_stage_model."
+                   if any(k.startswith("first_stage_model.") for k in st)
+                   else "")  # combined checkpoints embed the VAE prefixed
+            return import_vae(st, vae_cfg, prefix=pre)
+
+        def _clip_tok():
+            from .tokenizers import ClipBpeTokenizer
+
+            if not isinstance(clip_vocab, str):
+                return clip_vocab  # constructed tokenizer object
+            return ClipBpeTokenizer.from_files(clip_vocab, clip_merges)
+
+        def _t5_tok():
+            from .tokenizers import from_tokenizer_json, unigram_from_sentencepiece
+
+            if not isinstance(t5_tokenizer, str):
+                return t5_tokenizer
+            if t5_tokenizer.endswith(".json"):
+                return from_tokenizer_json(t5_tokenizer)
+            return unigram_from_sentencepiece(t5_tokenizer)
+
+        from .models.dit import FLUX_DEV_CONFIG
+        from .models.vae import FLUX_VAE_CONFIG
+        from .models.zoo import build_dit, build_vae
+
+        built = dict(device=device, param_dtype=param_dtype)
+        cfg = model_config or FLUX_DEV_CONFIG
+        den, _ = build_dit(cfg, import_dit(_state(model), cfg),
+                           shift=1.15 if shift is None else shift, is_flux=True, name="flux",
+                           **built)
+        vae_cfg = vae_config or FLUX_VAE_CONFIG
+        vae_module = build_vae(vae_cfg, _vae_import(vae, vae_cfg), **built)
+        cl = clip_l_config or TE.CLIP_L_CONFIG
+        tc = t5_config or TE.T5_XXL_CONFIG
+        encoders = {
+            "clip_l": NativeEncoder("clip", import_clip(_state(clip_l), cl), cl, _clip_tok(),
+                                    **built),
+            "t5": NativeEncoder("t5", import_t5(_state(t5), tc), tc, _t5_tok(), **built),
+        }
+        return cls(den, vae=vae_module, encoders=encoders, family=family, height=height,
+                   width=width)
+
+    # ------------------------------------------------------------------
+    def encode(self, prompt: str, **kw) -> Dict[str, Any]:
+        if self.family in ("sdxl",):
+            kw.setdefault("height", self.height)
+            kw.setdefault("width", self.width)
+        return encode_prompt(prompt, family=self.family, **self.encoders, **kw)
+
+    def sample(self, *, positive, negative=None, latent, mask, **kw):
+        """Latent-space LanPaint sampling (node-equivalent ksampler)."""
+        return ksampler(self.model, positive=positive, negative=negative, latent=latent,
+                        mask=mask, **kw)
+
+    def __call__(self, prompt: str, *, image, mask,
+                 negative_prompt: str = "", seed: int = 0, steps: int = 30,
+                 cfg: float = 5.0, num_steps: int = 5,
+                 sampler_name: str = "euler", scheduler: str = "karras",
+                 blend_overlap: int = 9,
+                 encode_kw: Optional[Dict[str, Any]] = None, **kw):
+        """Pixel-level inpaint: encode prompt(s) + VAE encode -> LanPaint ->
+        VAE decode -> MaskBlend.  image: (B, 3, H, W) in [-1, 1]; mask:
+        (H, W), 1 = repaint.  `encode_kw` goes to encode_prompt (e.g.
+        t5_length); other kwargs go to the sampler."""
+        ek = dict(encode_kw or {})
+        device = next(self.vae.parameters()).device
+        image = torch.as_tensor(image, dtype=torch.float32, device=device)
+        mask = torch.as_tensor(mask, dtype=torch.float32, device=device)
+        positive = self.encode(prompt, **ek)
+        negative = self.encode(negative_prompt, **ek)
+        return inpaint_image(
+            self.model, self.vae, image=image, mask=mask, positive=positive,
+            negative=negative, seed=seed, steps=steps, cfg=cfg, num_steps=num_steps,
+            sampler_name=sampler_name, scheduler=scheduler, blend_overlap=blend_overlap, **kw)

@@ -159,17 +159,18 @@ def recorded(monkeypatch):
 
 def test_unet_self_attention_layouts(recorded):
     """The UNet's self-attention (CrossAttention with fused qkv) at head dim
-    64 on a 32 x 32 latent: S = 1,024 and 256, strided split views."""
+    64 on a 64 x 64 latent (S = 1,024 and up, where the kernel takes it):
+    S = 4,096 and 1,024 (the middle block's too), strided split views."""
     cfg = unet.UNetConfig(model_channels=64, channel_mult=(1, 2), num_res_blocks=1,
                           transformer_depth=(1, 1), transformer_depth_middle=1,
                           context_dim=64, head_dim=64)
     _, module = zoo.build_unet(cfg, device="cpu", param_dtype=torch.bfloat16, seed=1)
     gen = torch.Generator().manual_seed(0)
     with torch.no_grad():
-        module(torch.randn((1, 4, 32, 32), generator=gen), torch.tensor([500.0]),
+        module(torch.randn((1, 4, 64, 64), generator=gen), torch.tensor([500.0]),
                torch.randn((1, 8, 64), generator=gen))
     seqs = sorted({c[0][0][1] for c in recorded})
-    assert seqs == [256, 1024]
+    assert seqs == [1024, 4096]
     for (shape, stride, _), _, _ in recorded:
         assert shape[-1] == 64 and stride[1] == 3 * shape[2] * 64  # fused qkv rows
 

@@ -1,7 +1,8 @@
 """The port's copies of the host-only modules against the originals.
 
-`lanpaint_tpu_torch/config.py` and `sigmas.py` are copies (importing the
-JAX package's would import jax).  Defaults, validation and the derived
+`lanpaint_tpu_torch/config.py`, `sigmas.py` and `tokenizers.py` are copies
+(importing the JAX package's would import jax), and so is the checkpoint
+reader's C++ (`native/convert.cpp`), byte for byte.  Defaults, validation and the derived
 properties must agree, and every scheduler must give the same ladder,
 bit for bit.  So must the solvers' host tables in `samplers.py`: the deis
 coefficients (`_deis_coeffs`, numpy), heunpp2's full-ladder rows
@@ -9,6 +10,8 @@ coefficients (`_deis_coeffs`, numpy), heunpp2's full-ladder rows
 """
 
 import dataclasses
+import inspect
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -16,9 +19,13 @@ import pytest
 from lanpaint_tpu import config as jconfig
 from lanpaint_tpu import samplers as jsamplers
 from lanpaint_tpu import sigmas as jsigmas
+from lanpaint_tpu import tokenizers as jtokenizers
 from lanpaint_tpu_torch import config as tconfig
 from lanpaint_tpu_torch import samplers as tsamplers
 from lanpaint_tpu_torch import sigmas as tsigmas
+from lanpaint_tpu_torch import tokenizers as ttokenizers
+
+REPO = Path(__file__).resolve().parent.parent
 
 
 def test_config_defaults_match():
@@ -92,3 +99,15 @@ def test_dpm_fast_groups_match_jax():
     for total in range(1, 40):
         assert tsamplers.dpm_fast_groups(total) == jsamplers.dpm_fast_groups(total)
         assert tsamplers._dpm_fast_orders(total) == jsamplers._dpm_fast_orders(total)
+
+
+def test_tokenizers_module_is_the_original():
+    """The same source, so the same classes, functions and constants."""
+    assert inspect.getsource(ttokenizers) == inspect.getsource(jtokenizers)
+    public = lambda m: sorted(n for n in vars(m) if not n.startswith("__"))  # noqa: E731
+    assert public(ttokenizers) == public(jtokenizers)
+
+
+def test_native_convert_source_is_byte_identical():
+    got = (REPO / "lanpaint_tpu_torch" / "native" / "convert.cpp").read_bytes()
+    assert got == (REPO / "lanpaint_tpu" / "native" / "convert.cpp").read_bytes()

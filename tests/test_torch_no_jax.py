@@ -1,9 +1,12 @@
 """The port imports without JAX: the machine with the card has none.
 
-In a fresh interpreter where `import jax` (and flax) fails, the package
-and every module of it (api, engine, masks, quality, utils, the UNet, DiT,
-Wan, VAE, Wan VAE and TAESD models, the kernel wrappers) import, and nothing of the JAX
-package (or triton) gets loaded along the way.
+In a fresh interpreter where `import jax` (and flax, safetensors and
+ml_dtypes, which that machine lacks too) fails, the package and every
+module of it (api, engine, masks, quality, utils, the UNet, DiT, Wan, VAE,
+Wan VAE, TAESD and text-encoder models, the checkpoint loader and its
+native reader, the tokenizers, text conditioning, the pipeline, the kernel
+wrappers) import, and nothing of the JAX package (or triton) gets loaded
+along the way.
 """
 
 import subprocess
@@ -14,8 +17,8 @@ REPO = Path(__file__).resolve().parent.parent
 
 PROBE = r"""
 import sys
-sys.modules["jax"] = None
-sys.modules["flax"] = None
+for name in ("jax", "flax", "safetensors", "ml_dtypes"):
+    sys.modules[name] = None
 import lanpaint_tpu_torch
 import lanpaint_tpu_torch.api
 import lanpaint_tpu_torch.engine
@@ -31,6 +34,13 @@ import lanpaint_tpu_torch.models.video_vae
 import lanpaint_tpu_torch.models.wan
 import lanpaint_tpu_torch.models.zoo
 import lanpaint_tpu_torch.models.bridge
+import lanpaint_tpu_torch.models.load
+import lanpaint_tpu_torch.models.textenc
+import lanpaint_tpu_torch.native
+import lanpaint_tpu_torch.native.loader
+import lanpaint_tpu_torch.tokenizers
+import lanpaint_tpu_torch.text
+import lanpaint_tpu_torch.pipeline
 import lanpaint_tpu_torch.ops.attention
 import lanpaint_tpu_torch.ops.fused
 import lanpaint_tpu_torch.ops.norms
@@ -39,7 +49,8 @@ mods = {m.name for m in pkgutil.walk_packages(lanpaint_tpu_torch.__path__, "lanp
 missing = sorted(m for m in mods if m not in sys.modules)
 assert not missing, f"modules this probe does not import: {missing}"
 loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "flax", "lanpaint_tpu", "triton")
+                if m.split(".")[0] in ("jax", "flax", "lanpaint_tpu", "triton", "safetensors",
+                                       "ml_dtypes")
                 and sys.modules[m] is not None)
 print("LOADED", loaded)
 """
@@ -61,7 +72,9 @@ def test_port_sources_name_no_jax():
             code = line.split("#", 1)[0].strip()
             bad = (code.startswith(("import jax", "from jax", "import flax", "from flax",
                                     "from lanpaint_tpu ", "from lanpaint_tpu.",
-                                    "import lanpaint_tpu "))
+                                    "import lanpaint_tpu ", "import safetensors",
+                                    "from safetensors", "import ml_dtypes",
+                                    "from ml_dtypes"))
                    or code.startswith("import lanpaint_tpu.") and
                    not code.startswith("import lanpaint_tpu_torch"))
             assert not bad, f"{path.relative_to(REPO)}:{no}: {line.strip()}"
