@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py          # from the root of the repository
 
-Seven main paths, each with random bf16 weights made on the card from a
-seed, the euler solver, 20 steps, outer early stop 1 and a centre mask; 5
-think steps but for the video paths' 2:
+Nine main paths, each with random bf16 weights made on the card from a
+seed, the euler solver, 20 steps (Z-Image's 9), outer early stop 1 and a
+centre mask; 5 think steps but for the video paths' 2:
 
 * SDXL-1024: karras, CFG 5 as two sequential passes, the unfused think
   step: (20 - 1) * 6 + 1 = 115 CFG pairs, 230 UNet forwards;
@@ -43,7 +43,20 @@ think steps but for the video paths' 2:
   (the pair's published 480p with 33 of its 81 frames): a (1, 16, 9, 60,
   104) latent, S = 14,040 tokens, 58 CFG pairs, 116 DiT forwards, 54 of
   them the high-noise expert's (the first 9 steps have t >= 0.875) and 62
-  the low-noise one's, and two wide-head launches at D = 384.
+  the low-noise one's, and two wide-head launches at D = 384;
+* Z-Image-1024 (the reference's Z_image_Inpaint workflow) through
+  `LanPaintPipeline.from_components(family="z-image")`: Z_IMAGE_S3_CONFIG,
+  the Qwen3-4B trunk and the Flux VAE handed over as exported state dicts,
+  a synthetic byte-level BPE of Qwen's vocabulary, then the pipeline's
+  call: "simple", 9 steps, cfg 1: (9 - 1) * 6 + 1 = 49 forwards at S =
+  n_txt + 4,096, two wide-head launches (D = 512);
+* Qwen-Image-Edit-1024 (the reference's Qwen_Image_Edit_2509 workflow):
+  the Qwen2.5-VL-7B text trunk and vision tower (fp32) encode the prompt
+  with the source image (`encode_prompt(family="qwen_edit")`) and are
+  released, then `build_qwen_image` and the Wan2.1-graph VAE at one frame
+  run `api.edit_image`: "simple", cfg 1, shift 2.2, 115 forwards at S =
+  n_txt + 8,192 (4,096 reference tokens), three wide-head launches at
+  D = 384 (the reference latents' encode, the latent's, the decode).
 
 Phases, one line of output each or more (any failure raises and the script
 exits non-zero without printing a result):
@@ -124,21 +137,38 @@ exits non-zero without printing a result):
    checks, bit-equal to each other;
 14. the T5 text encoders at full width, fp32: T5-XXL and UMT5-XXL, one at
    a time, one prompt at 512 tokens through `text.NativeEncoder`:
-   (1, 512, 4096), finite, timed.
+   (1, 512, 4096), finite, timed;
+5b. small Z-Image reference (after phase 5): phase 5's check on a small
+   Z-Image (hidden 256, D = 128, GQA 2 -> 1 heads) at 1,024 image tokens;
+15. Z-Image path: the sources' weights bit-equal to the pipeline's, encode
+   timed, one forward under torch.profiler, then the pipeline's call,
+   timed and counted with phase 7's checks;
+16b. `from_components(family="qwen", with_vision=True)` at full width and
+   depth 2 (DiT, text trunk, vision tower): weights bit-equal to the
+   sources, encode with and without the image, a 2-step pipeline call with
+   the edit conditioning and phase 7's checks;
+16. Qwen-Image-Edit path: the encode (first call, then median of 3, the
+   vision tower alone, the encoders' peak memory), the VAE timed, one
+   forward under torch.profiler, then `edit_image`, timed and counted with
+   phase 7's checks.  Phase 3 also holds each kernel at these paths'
+   shapes (their text lengths come from the synthetic tokenizer).
 
 Then, on lines of their own: the nvidia-smi line, one JSON line with the
 per-kernel numbers, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-In the kernels line, `launches` is the seven timed runs' count (phase
-13's `inpaint_image` run is a check and not counted), and `ms` /
+In the kernels line, `launches` is the nine timed runs' count (phase
+13's `inpaint_image` run and phase 16b's call are checks and not
+counted), and `ms` /
 `plain_ms` / `library_ms` / `bound_ms` are the kernel's / plain version's /
 PyTorch call's per-launch times and the bound at each main-path shape times
-that shape's launches in the seven timed runs, summed (`library_ms` null
+that shape's launches in the nine timed runs, summed (`library_ms` null
 where a launched shape has no such call; each shape alone in `per_shape`,
 with its device times in us).
 
 To run some phases alone: python3 -c "import chip_smoke as c; smi =
-c.phase_device(); c.phase_build(); c.phase_pixel(smi)".
+c.phase_device(); c.phase_build(); c.phase_pixel(smi)" (phases 15-16 take
+the tokenizer and text lengths: tok = c.synthetic_qwen_tokenizer(); z, q
+= c.text_lengths(tok); c.phase_zimage(smi, tok, z)).
 
 It needs one CUDA card, the CUDA toolkit (nvcc, cuobjdump) and g++ (the
 checkpoint reader's native conversion, built at first use); no network.
@@ -169,10 +199,11 @@ import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from lanpaint_tpu_torch import (LanPaintConfig, LanPaintPipeline, LanPaintSampler, ModelKind, api,
-                                inpaint_image, inpaint_video)
+                                edit_image, inpaint_image, inpaint_video)
 from lanpaint_tpu_torch.engine import lanpaint_update
-from lanpaint_tpu_torch import samplers, text, tokenizers
-from lanpaint_tpu_torch.models import dit, load, textenc, unet, vae, video_vae, wan, zoo
+from lanpaint_tpu_torch import pipeline, samplers, text, tokenizers
+from lanpaint_tpu_torch.models import (dit, load, textenc, unet, vae, video_vae, vision, wan,
+                                       zimage, zoo)
 from lanpaint_tpu_torch.native import loader as native_loader
 from lanpaint_tpu_torch.ops import attention, cuda_build, fused, norms
 from lanpaint_tpu_torch.schedule import unify_times
@@ -190,9 +221,15 @@ BOUNDARY = 0.875  # the Wan2.2 pair's switch: the high-noise expert serves t >= 
 # steps the first 9 have t >= 0.875: 9 * 3 CFG pairs; the low expert 10 * 3 + 1
 EXPERT_FORWARDS = {"high": 2 * 9 * (VIDEO_THINK + 1),
                    "low": 2 * (10 * (VIDEO_THINK + 1) + EARLY_STOP)}
+# the Z-Image path: the Z_image_Inpaint workflow's 9 steps, cfg 1
+Z_STEPS = 9
+Z_FORWARDS = (Z_STEPS - EARLY_STOP) * (THINK + 1) + EARLY_STOP  # 49
+# the small Qwen-Image pipeline check: 2 steps, cfg 1
+SMALL_QWEN_FORWARDS = (2 - EARLY_STOP) * (THINK + 1) + EARLY_STOP  # 7
 FORWARDS = {"sdxl": 2 * PAIRS, "pixel": 2 * PAIRS, "flux": PAIRS,  # CFG 5 seq. / cfg 1
             "video": 2 * VIDEO_PAIRS, "pair": 2 * VIDEO_PAIRS,     # CFG 5 sequential
-            "pipeline": 2 * PAIRS, "sd15": 2 * PAIRS}
+            "pipeline": 2 * PAIRS, "sd15": 2 * PAIRS,
+            "zimage": Z_FORWARDS, "qwen_edit": PAIRS, "qwen_small": SMALL_QWEN_FORWARDS}
 PER_FORWARD = {  # kernel launches per model forward
     "sdxl": {"flash_attention": 70, "layernorm": 210, "rmsnorm": 0},
     # 19 double + 38 single blocks; adaLN norms 4 + 1 per block + 1 final;
@@ -208,6 +245,15 @@ PER_FORWARD["pixel"] = PER_FORWARD["pipeline"] = PER_FORWARD["sdxl"]
 # (40, 80, 160) are not multiples of 64, so its attention stays plain, as
 # the JAX package leaves it to XLA
 PER_FORWARD["sd15"] = {"flash_attention": 0, "layernorm": 48, "rmsnorm": 0}
+# Z-Image: the 2 noise-refiner blocks (S = 4,096) and the 30 main layers
+# (S = n_txt + 4,096) take the kernel, the 2 context-refiner blocks' few
+# text tokens stay plain; RMS: 6 a block (4 sandwich norms, q and k) in 34
+# blocks, cap_norm and norm_final; the final LayerNorm is plain, as in JAX
+PER_FORWARD["zimage"] = {"flash_attention": 32, "layernorm": 0, "rmsnorm": 206}
+# Qwen-Image: 60 double blocks (S = n_txt + 8,192 with the reference
+# tokens); adaLN norms 4 a block + the final one, QKNorm 4 a block + txt_norm
+PER_FORWARD["qwen_edit"] = {"flash_attention": 60, "layernorm": 241, "rmsnorm": 241}
+PER_FORWARD["qwen_small"] = {"flash_attention": 2, "layernorm": 9, "rmsnorm": 9}  # 2 blocks
 PER_RUN = {  # per run: fused half on warm iterations, finish on every one; the
     # VAE's mid attention once in the encode and once in the decode; the
     # Wan cross norm_k of every block in each of the two conds' precompute
@@ -219,7 +265,10 @@ PER_RUN = {  # per run: fused half on warm iterations, finish on every one; the
     "video": {"fused_half_step": 0, "fused_finish": 0, "wide_attention": 2, "rmsnorm": 60},
     "pair": {"fused_half_step": 0, "fused_finish": 0, "wide_attention": 2, "rmsnorm": 160},
 }
-PER_RUN["pipeline"] = PER_RUN["sd15"] = PER_RUN["pixel"]
+PER_RUN["pipeline"] = PER_RUN["sd15"] = PER_RUN["zimage"] = PER_RUN["qwen_small"] = \
+    PER_RUN["pixel"]
+# edit_image encodes the source twice (the reference tokens and the latent)
+PER_RUN["qwen_edit"] = {"fused_half_step": 0, "fused_finish": 0, "wide_attention": 3}
 BLEND = 9  # MaskBlend overlap of the pixel and video paths
 SPLASH = "lanpaint_tpu/models/layers.py:131 (_splash_kernel)"
 # (shape, calls per forward by path, TPU kernel it replaces)
@@ -240,7 +289,8 @@ ATTN_SHAPES = [
 SPLASH_VAE = SPLASH + " via lanpaint_tpu/models/vae.py:81"
 SPLASH_VIDEO = SPLASH + " via lanpaint_tpu/models/video_vae.py:159"
 WIDE_SHAPES = [
-    ((1, 16384, 1, 512), {"pixel": 2, "pipeline": 2}, SPLASH_VAE),  # 1024^2: encode, decode
+    ((1, 16384, 1, 512), {"pixel": 2, "pipeline": 2, "zimage": 2},
+     SPLASH_VAE),  # 1024^2: encode, decode
     ((1, 4096, 1, 512), {"sd15": 2}, SPLASH_VAE),    # 512^2
     ((1, 4000, 1, 512), {}, SPLASH_VAE),             # a ragged S
     ((9, 3520, 1, 640), {"video": 2}, SPLASH_VIDEO),  # Wan2.2 VAE, 704x1280 x 33 frames
@@ -291,7 +341,7 @@ PEAK_BYTES = 3.35e12  # HBM3 bytes/s
 # fp32 operations per element, counted from each kernel's body: the row
 # norm's LayerNorm (x^2, two sums, centre, scale, affine) and RMS mode; the
 # fused think-step kernels' SHO/OU mix and Box-Muller draws (ops/fused.py)
-NORM_OPS = {"layernorm": 8, "layernorm_na": 6, "rmsnorm": 5}
+NORM_OPS = {"layernorm": 8, "layernorm_na": 6, "rmsnorm": 5, "rmsnorm_fp32": 5}
 FUSED_OPS = 60
 # bytes per element the fused kernels must move: half step 4 fp32 reads and
 # 3 writes, warm finish 6 reads (x_half, v_half, x_half_od, c_old, c_new,
@@ -561,12 +611,15 @@ def _kernel_norms(gen) -> list:
     for shape, mode, calls, *run_calls in NORM_SHAPES:
         c = shape[-1]
         library = None
-        if mode == "rmsnorm":  # 4D: a strided q view, as QKNorm gets it
+        if mode.startswith("rmsnorm"):  # 4D: a strided q view, as QKNorm gets it
             x = (_qkv_views(*shape, gen)[0] if len(shape) == 4 else
-                 torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16))
+                 torch.randn(shape, device="cuda", generator=gen))
+            # fp32 rows (Z-Image's cap_norm on the text states) or bf16
+            x = x if mode == "rmsnorm_fp32" else x.to(torch.bfloat16)
             g = (1.0 + 0.1 * torch.randn(c, device="cuda", generator=gen)).to(torch.bfloat16)
             kernel, plain = (lambda: norms.rmsnorm(x, g)), (lambda: norms.rmsnorm_ref(x, g))
-            library = lambda: F.rms_norm(x, (c,), g, eps=1e-6)  # noqa: E731
+            g_lib = g.to(x.dtype)  # F.rms_norm takes the weight in x's dtype
+            library = lambda: F.rms_norm(x, (c,), g_lib, eps=1e-6)  # noqa: E731
         else:
             x = (torch.randn(shape, device="cuda", generator=gen) * 2.0 + 0.5).to(torch.bfloat16)
             g = beta = None
@@ -588,12 +641,14 @@ def _kernel_norms(gen) -> list:
         ok = out.dtype == want.dtype and torch.allclose(out.float(), want.float(), **NORM_TOL)
         if not ok:
             raise AssertionError(f"{mode} {shape} disagrees with its plain version: {err}")
-        params = [p for p in (g, beta) if p is not None] if mode != "rmsnorm" else [g]
+        params = [p for p in (g, beta) if p is not None] if not mode.startswith("rmsnorm") \
+            else [g]
         n_bytes = sum(t.numel() * t.element_size() for t in (x, out, *params))
         r = timed_row(kernel, plain, err, calls, run_calls=run_calls[0] if run_calls else None,
                       bounds=bound(n_bytes, NORM_OPS[mode] * x.numel(), PEAK_FP32),
                       library=library,
-                      library_name={"layernorm": "F.layer_norm", "rmsnorm": "F.rms_norm"}.get(mode),
+                      library_name={"layernorm": "F.layer_norm", "rmsnorm": "F.rms_norm",
+                                    "rmsnorm_fp32": "F.rms_norm"}.get(mode),
                       shape=shape, mode=mode)
         say(f"phase 3 kernels: {mode} {shape} {out.dtype} max_abs_err {err:.3g} {row_text(r)} ok")
         rows.append(r)
@@ -969,6 +1024,32 @@ def phase_small_dit() -> None:
     if not (ok and ran["attention"] and ran["layernorm"] and ran["rmsnorm"]):
         raise AssertionError("the small DiT on the card is less accurate than the plain path "
                              "or did not go through the kernels")
+
+
+SMALL_ZIMAGE = dataclasses.replace(zimage.Z_IMAGE_S3_CONFIG, hidden=256, num_heads=2,
+                                   num_kv_heads=1, depth=2, refiner_depth=1,
+                                   context_refiner_depth=1, ffn_dim=512, cap_dim=64)
+
+
+def phase_small_zimage() -> None:
+    """A small Z-Image at head dim 128 (hidden 256, 2 query heads over one
+    k/v head, 1 + 1 refiner blocks, 2 main layers) on a 64x64 latent: its
+    noise refiner (1,024 image tokens) and main layers (1,040 tokens) take
+    the kernel, the context refiner's 16 text tokens stay plain; cfg 1 as
+    the Z-Image path."""
+    models = _three_ways(zoo.build_zimage, SMALL_ZIMAGE, seed=3)
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn((1, 16, 64, 64), generator=gen)
+    t = torch.tensor([0.7])
+    cond = {"context": torch.randn((1, 16, 64), generator=gen)}
+    ok, ran = _small_reference(
+        "phase 5b small Z-Image reference", models,
+        lambda mod, dev: mod(x.to(dev), t.to(dev), cond["context"].to(dev)),
+        dict(cfg=1.0), (1, 16, 64, 64), (cond, None),
+        calculate_sigmas(models[0][0].sigma_table, "simple", 4))
+    if not (ok and ran["attention"] and ran["rmsnorm"]):
+        raise AssertionError("the small Z-Image on the card is less accurate than the plain "
+                             "path or did not go through the kernels")
 
 
 COUNTERS = {"flash_attention": attention.flash_attention,
@@ -1668,6 +1749,277 @@ def phase_t5(smi: str) -> None:
         torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------
+# phases 15-16: Z-Image and Qwen-Image-Edit (the Llama / Qwen text stack and
+# the Qwen2.5-VL vision tower)
+
+# Qwen's special tokens (Qwen2.5-VL's and Qwen3's tokenizer.json added_tokens)
+QWEN_REGULAR = 151643
+QWEN_SPECIAL = ("<|endoftext|>", "<|im_start|>", "<|im_end|>", "<|object_ref_start|>",
+                "<|object_ref_end|>", "<|box_start|>", "<|box_end|>", "<|quad_start|>",
+                "<|quad_end|>", "<|vision_start|>", "<|vision_end|>", "<|vision_pad|>",
+                "<|image_pad|>", "<|video_pad|>")
+EDIT_SIDE = 1024  # the source image's side; the vision tower sees it at smart_resize's
+Z_KW = dict(seed=0, steps=Z_STEPS, cfg=1.0, scheduler="simple", num_steps=THINK)
+QWEN_KW = dict(seed=0, steps=STEPS, cfg=1.0, scheduler="simple", num_steps=THINK)
+
+
+def synthetic_qwen_tokenizer() -> tokenizers.BpeTokenizer:
+    """A byte-level BPE of Qwen's vocabulary size: the 256 byte symbols,
+    merges over a-z (two letters, a space-prefixed letter, three letters,
+    space-prefixed pairs, four letters, in rank order) up to 151,643
+    regular entries, and the special tokens at Qwen's ids (<|endoftext|>
+    151643 ... <|image_pad|> 151655)."""
+    byte_enc = tokenizers.bytes_to_unicode()
+    vocab = {ch: i for i, ch in enumerate(sorted(byte_enc.values()))}
+    space = byte_enc[ord(" ")]
+    merges = []
+    pairs = itertools.chain(
+        itertools.product(LETTERS, LETTERS), ((space, a) for a in LETTERS),
+        ((a + b, c) for a, b, c in itertools.product(LETTERS, LETTERS, LETTERS)),
+        ((space + a, b) for a, b in itertools.product(LETTERS, LETTERS)),
+        ((a + b + c, d) for a, b, c, d in itertools.product(*[LETTERS] * 4)))
+    for a, b in pairs:
+        if len(vocab) == QWEN_REGULAR:
+            break
+        merges.append((a, b))
+        vocab[a + b] = len(vocab)
+    added = {t: QWEN_REGULAR + i for i, t in enumerate(QWEN_SPECIAL)}
+    return tokenizers.BpeTokenizer(vocab, merges, added_tokens=added)
+
+
+def _vision_tokens(cfg=vision.QWEN25_VL_VISION_CONFIG, side=EDIT_SIDE) -> int:
+    """Merged vision tokens of a side x side image (smart_resize's grid)."""
+    h, w = vision.smart_resize(side, side, cfg.patch_size * cfg.spatial_merge_size)
+    return (h // cfg.patch_size) * (w // cfg.patch_size) // cfg.merge_unit
+
+
+def text_lengths(tok) -> tuple:
+    """(Z-Image's context tokens: the prompt alone, Qwen-Image-Edit's: the
+    edit template with the image's vision tokens, less the 64 dropped)."""
+    ids = tok.encode(text.QWEN_IMAGE_EDIT_TEMPLATE.format(PROMPT))
+    return len(tok.encode(PROMPT)), len(ids) - 1 + _vision_tokens() - text.QWEN_EDIT_DROP_PREFIX
+
+
+def add_new_path_shapes(z_txt: int, q_txt: int) -> None:
+    """Phase 3's rows at the Z-Image and Qwen-Image-Edit shapes."""
+    zs, qs = z_txt + 4096, q_txt + 8192
+    ATTN_SHAPES.extend([
+        ((1, 4096, 30, 128), {"zimage": 2}, SPLASH),    # the noise refiner
+        ((1, zs, 30, 128), {"zimage": 30}, SPLASH),     # the main layers
+        ((1, qs, 24, 128), {"qwen_edit": 60}, SPLASH),  # with 4,096 reference tokens
+    ])
+    WIDE_SHAPES.append(((1, 16384, 1, 384), {"qwen_edit": 3}, SPLASH_VIDEO))  # Wan2.1 at T = 1
+    NORM_SHAPES.extend([
+        ((1, zs, 3840), "rmsnorm", {"zimage": 120}),
+        ((1, 4096, 3840), "rmsnorm", {"zimage": 9}),  # the noise refiner and norm_final
+        ((1, z_txt, 3840), "rmsnorm", {"zimage": 8}),
+        ((1, z_txt, 2560), "rmsnorm_fp32", {"zimage": 1}),  # cap_norm on the Qwen3 states
+        ((1, zs, 30, 128), "rmsnorm", {"zimage": 60}),
+        ((1, 4096, 30, 128), "rmsnorm", {"zimage": 4}),
+        ((1, z_txt, 30, 128), "rmsnorm", {"zimage": 4}),
+        ((1, q_txt, 3584), "rmsnorm", {"qwen_edit": 1}),  # txt_norm
+        ((1, 8192, 24, 128), "rmsnorm", {"qwen_edit": 120}),
+        ((1, q_txt, 24, 128), "rmsnorm", {"qwen_edit": 120}),
+        ((1, 8192, 3072), "layernorm_na", {"qwen_edit": 120}),
+        ((1, q_txt, 3072), "layernorm_na", {"qwen_edit": 120}),
+        ((1, 4096, 3072), "layernorm_na", {"qwen_edit": 1}),
+    ])
+
+
+def _params(module) -> int:
+    return sum(p.numel() for p in module.parameters())
+
+
+def phase_zimage(smi: str, tok, z_txt: int) -> dict:
+    """Z-Image-1024 (the reference's Z_image_Inpaint workflow) through
+    `LanPaintPipeline.from_components(family="z-image")`: Z_IMAGE_S3_CONFIG,
+    the Qwen3-4B trunk and the Flux VAE, each built on the card with random
+    bf16 weights (seeds 0, 1, 4) and handed over as the state dicts their
+    exporters give (the checkpoint layouts), the synthetic Qwen tokenizer;
+    every loaded tensor bit-equal to its source; `pipe.encode` timed; one
+    forward under torch.profiler; then `pipe(PROMPT, image=..., mask=...)`
+    with the workflow's settings (euler "simple", 9 steps, cfg 1, 5 think
+    steps), timed and counted with phase 7's checks."""
+    t0 = time.perf_counter()
+    _, src = zoo.build_zimage(device="cuda", param_dtype=torch.bfloat16, seed=0)
+    trunk = zoo.build_llama(textenc.QWEN3_4B_CONFIG, device="cuda", param_dtype=torch.bfloat16,
+                            seed=1)
+    ae = zoo.build_vae(vae.FLUX_VAE_CONFIG, device="cuda", param_dtype=torch.bfloat16, seed=4)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n = {"dit": _params(src), "qwen3-4b": _params(trunk), "vae": _params(ae)}
+    states = dict(model=load.export_zimage(src.state_dict(), zimage.Z_IMAGE_S3_CONFIG),
+                  llama=load.export_llama(trunk.state_dict(), textenc.QWEN3_4B_CONFIG),
+                  vae=load.export_vae(ae.state_dict(), vae.FLUX_VAE_CONFIG))
+    t0 = time.perf_counter()
+    pipe = LanPaintPipeline.from_components(family="z-image", llama_tokenizer=tok,
+                                            device="cuda", param_dtype=torch.bfloat16, **states)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    same = {"dit": _same_weights(pipe.model.module, src),
+            "qwen3-4b": _same_weights(pipe.encoders["llama"].module, trunk),
+            "vae": _same_weights(pipe.vae, ae)}
+    del states, src, trunk, ae
+    gc.collect()
+    torch.cuda.empty_cache()
+    cond = pipe.encode(PROMPT)
+    enc_ms = median_ms(lambda: pipe.encode(PROMPT), n=3, warmup=1)
+    ctx = cond["context"]
+    image, _ = _pixel_image(1024)
+    with torch.no_grad():
+        latent = pipe.vae.encode(image)
+    t_mid = torch.tensor([0.7], device="cuda")
+    prof = profile_forward(lambda: pipe.model.apply(latent, t_mid, cond))
+    del latent
+    ok, launches, text_, _ = _pixel_workflow(_pipe_entry(pipe), None, None, image, "zimage",
+                                             **Z_KW)
+    ok = (ok and all(same.values()) and pipe.family == "qwen3"
+          and sorted(pipe.encoders) == ["llama"] and tuple(ctx.shape) == (1, z_txt, 2560)
+          and bool(torch.isfinite(ctx).all()))
+    say(f"phase 15 Z-Image path: from_components(z-image), params bf16 "
+        f"{ {k: round(v / 1e9, 3) for k, v in n.items()} } B, init {t_init:.1f} s, "
+        f"from_components {t_load:.2f} s, bit-equal to the sources {same} | encode (Qwen3-4B, "
+        f"{z_txt} tokens) -> {tuple(ctx.shape)}, {enc_ms:.2f} ms (median of 3) | one forward at "
+        f"t = 0.7 under torch.profiler (S = {z_txt} + 4096): {_profile_text(prof)} | pipeline "
+        f"call, euler simple {Z_STEPS} x think {THINK}, cfg 1, blend {BLEND}: {text_} on {smi}")
+    if not ok:
+        raise AssertionError("phase 15 Z-Image path failed its checks")
+    return launches
+
+
+def _edit_entry(den, model, **kw):
+    return edit_image(den, model, **kw)
+
+
+def _source_pixels(image):
+    """A (1, 3, H, W) image in [-1, 1] as the vision tower's (H, W, 3) in [0, 1]."""
+    return (image[0].permute(1, 2, 0) + 1.0) / 2.0
+
+
+def phase_qwen_edit(smi: str, tok, q_txt: int) -> dict:
+    """Qwen-Image-Edit-1024 (the reference's Qwen_Image_Edit_2509 workflow):
+    the Qwen2.5-VL-7B text trunk (fp32, seed 2) and vision tower (fp32, seed
+    3) encode the prompt with the source image through
+    `encode_prompt(family="qwen_edit")` and are released; then
+    `build_qwen_image` (bf16, seed 4) and the Wan2.1-graph VAE at one frame
+    (bf16, seed 5) run `api.edit_image` (the source's packed latents as
+    4,096 reference tokens) with euler "simple", 20 steps, cfg 1, 5 think
+    steps and shift 2.2, timed and counted with phase 7's checks."""
+    api._SAMPLER_CACHE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    image, _ = _pixel_image(EDIT_SIDE)
+    source = _source_pixels(image)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = textenc.QWEN25_7B_CONFIG
+    llama = text.NativeEncoder("llama", zoo.build_llama(cfg, device="cuda", seed=2), cfg, tok)
+    tower = text.VisionEncoder(zoo.build_vision(device="cuda", seed=3))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_enc = {"qwen2.5-7b": _params(llama.module), "vision": _params(tower.module)}
+    encode = lambda: text.encode_prompt(PROMPT, family="qwen_edit", llama=llama,  # noqa: E731
+                                        vision=tower, image=source)
+    t0 = time.perf_counter()
+    cond = encode()
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    enc_ms = median_ms(encode, n=3, warmup=0)
+    vis_ms = median_ms(lambda: tower(source), n=3, warmup=0)
+    enc_peak = torch.cuda.max_memory_allocated() / 1e9
+    ctx = cond["context"]
+    grid = next(iter(tower._plans))
+    enc_ok = tuple(ctx.shape) == (1, q_txt, cfg.dim) and bool(torch.isfinite(ctx).all())
+    del llama, tower
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    den, module = zoo.build_qwen_image(device="cuda", param_dtype=torch.bfloat16, seed=4)
+    model = pipeline._SingleFrameVAE(zoo.build_wan_vae(
+        video_vae.QWEN_IMAGE_VAE_CONFIG, device="cuda", param_dtype=torch.bfloat16, seed=5))
+    torch.cuda.synchronize()
+    t_dit = time.perf_counter() - t0
+    n_dit, n_vae = _params(module), _params(model)
+    enc_vae_ms, dec_vae_ms, latent = _vae_times(model, image)
+    if tuple(latent.shape) != (1, 16, 128, 128) or not bool(torch.isfinite(latent).all()):
+        raise AssertionError(f"the Qwen-Image VAE encode gave {tuple(latent.shape)}, finite "
+                             f"{bool(torch.isfinite(latent).all())}")
+    t_mid = torch.tensor([0.7], device="cuda")
+    ref_cond = dict(cond, ref_tokens=dit.pack_latent(latent, 2))
+    prof = profile_forward(lambda: den.apply(latent, t_mid, ref_cond))
+    del ref_cond, latent
+    ok, launches, text_, _ = _pixel_workflow(_edit_entry, den, model, image, "qwen_edit",
+                                             positive=cond, **QWEN_KW)
+    ok = ok and enc_ok
+    say(f"phase 16 Qwen-Image-Edit path: encoders fp32 "
+        f"{ {k: round(v / 1e9, 3) for k, v in n_enc.items()} } B params, init {t_init:.1f} s | "
+        f"encode_prompt(qwen_edit): image {EDIT_SIDE}^2 -> grid {grid} -> "
+        f"{_vision_tokens()} vision tokens, context {tuple(ctx.shape)} finite {enc_ok}, first "
+        f"call {t_first:.2f} s, then {enc_ms:.2f} ms (the vision tower alone {vis_ms:.2f} ms; "
+        f"median of 3), encoders' peak {enc_peak:.1f} GB | Qwen-Image {n_dit / 1e9:.3f} B "
+        f"params bf16 + Wan2.1-graph VAE ({n_vae / 1e6:.1f} M) at T = 1, init {t_dit:.1f} s | "
+        f"VAE encode {enc_vae_ms:.2f} ms decode {dec_vae_ms:.2f} ms (median of 3) | one forward "
+        f"at t = 0.7 under torch.profiler (S = {q_txt} + 8192): {_profile_text(prof)} | "
+        f"edit_image, euler simple {STEPS} x think {THINK}, cfg 1, shift 2.2, blend {BLEND}: "
+        f"{text_} on {smi}")
+    if not ok:
+        raise AssertionError("phase 16 Qwen-Image-Edit path failed its checks")
+    del den, module, model
+    return launches
+
+
+SMALL_QWEN_DIT = dataclasses.replace(dit.QWEN_IMAGE_CONFIG, depth_double=2)
+SMALL_QWEN_TEXT = dataclasses.replace(textenc.QWEN25_7B_CONFIG, layers=2)
+SMALL_VL = dataclasses.replace(vision.QWEN25_VL_VISION_CONFIG, depth=2, fullatt_block_indexes=(1,))
+
+
+def phase_qwen_components(smi: str, tok, q_txt: int) -> None:
+    """`from_components(family="qwen", with_vision=True)` on the card at full
+    width and a small depth (2 double blocks, 2 text layers, 2 vision
+    blocks; random bf16 weights, seeds 6-9): the DiT in the diffusers
+    layout (`export_qwen`), the text trunk and the vision tower in one llama
+    state, the Wan2.1-graph VAE; every loaded tensor bit-equal to its
+    source; `pipe.encode` with and without the image; a 2-step pipeline
+    call with the image's edit conditioning, with phase 7's checks."""
+    _, dit_src = zoo.build_dit(SMALL_QWEN_DIT, device="cuda", param_dtype=torch.bfloat16, seed=6)
+    trunk = zoo.build_llama(SMALL_QWEN_TEXT, device="cuda", param_dtype=torch.bfloat16, seed=7)
+    tower = zoo.build_vision(SMALL_VL, device="cuda", param_dtype=torch.bfloat16, seed=8)
+    ae = zoo.build_wan_vae(video_vae.QWEN_IMAGE_VAE_CONFIG, device="cuda",
+                           param_dtype=torch.bfloat16, seed=9)
+    states = dict(model=load.export_qwen(dit_src.state_dict(), SMALL_QWEN_DIT),
+                  llama={**load.export_llama(trunk.state_dict(), SMALL_QWEN_TEXT),
+                         **load.export_qwen_vl_vision(tower.state_dict(), SMALL_VL)},
+                  vae=load.export_wan_vae(ae.state_dict(), video_vae.QWEN_IMAGE_VAE_CONFIG))
+    t0 = time.perf_counter()
+    pipe = LanPaintPipeline.from_components(
+        family="qwen", with_vision=True, model_config=SMALL_QWEN_DIT,
+        llama_config=SMALL_QWEN_TEXT, vision_config=SMALL_VL, llama_tokenizer=tok,
+        device="cuda", param_dtype=torch.bfloat16, **states)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    same = {"dit": _same_weights(pipe.model.module, dit_src),
+            "text": _same_weights(pipe.encoders["llama"].module, trunk),
+            "vision": _same_weights(pipe.encoders["vision"].module, tower),
+            "vae": _same_weights(pipe.vae.module, ae)}
+    del states, dit_src, trunk, tower, ae
+    image, _ = _pixel_image(EDIT_SIDE)
+    source = _source_pixels(image)
+    plain, edit = pipe.encode(PROMPT)["context"], pipe.encode(PROMPT, image=source)["context"]
+    ok, _, text_, _ = _pixel_workflow(_pipe_entry(pipe), None, None, image, "qwen_small",
+                                      encode_kw={"image": source}, **{**QWEN_KW, "steps": 2})
+    ok = (ok and all(same.values()) and pipe.family == "qwen"
+          and sorted(pipe.encoders) == ["llama", "vision"] and tuple(edit.shape) == (1, q_txt, 3584)
+          and plain.shape[1] < edit.shape[1] and bool(torch.isfinite(plain).all()))
+    say(f"phase 16b Qwen-Image from_components(qwen, with_vision) at full width, depth 2 / 2 / 2: "
+        f"load {t_load:.2f} s, bit-equal to the sources {same} | encode: text {tuple(plain.shape)}"
+        f", with the image {tuple(edit.shape)} | pipeline call with the edit conditioning, 2 "
+        f"steps x think {THINK}, cfg 1: {text_} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 16b Qwen-Image from_components failed its checks")
+
+
 def kernels_line(rows: dict, launches: dict) -> list:
     """One entry per kernel: launches in the timed main-path runs, and the
     per-launch times, bounds and library-call times at each main-path shape
@@ -1728,9 +2080,13 @@ def main() -> int:
         return 1
     smi = phase_device()
     phase_build()
+    qwen_tok = synthetic_qwen_tokenizer()
+    z_txt, q_txt = text_lengths(qwen_tok)
+    add_new_path_shapes(z_txt, q_txt)
     rows = phase_kernels()
     phase_small_unet()
     phase_small_dit()
+    phase_small_zimage()
     launches = {}
     launches["sdxl"], den = phase_sdxl(smi)
     pipe, sdxl_vae, conds = phase_single_file(smi, den)
@@ -1757,6 +2113,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_t5(smi)
+    api._SAMPLER_CACHE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["zimage"] = phase_zimage(smi, qwen_tok, z_txt)
+    api._SAMPLER_CACHE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_qwen_components(smi, qwen_tok, q_txt)
+    launches["qwen_edit"] = phase_qwen_edit(smi, qwen_tok, q_txt)
     print(smi)
     print(json.dumps({"kernels": kernels_line(rows, launches)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,13 +6,16 @@ kernels (ops/attention.py with csrc/attention.cu and
 csrc/wide_attention.cu, ops/norms.py with csrc/row_norm.cu, ops/fused.py with
 csrc/fused.cu), built at first use.  `LanPaintPipeline` takes a single-file
 checkpoint and a prompt to an inpainted image (models/load.py, native/,
-tokenizers.py, models/textenc.py, text.py).  The `build_*` functions and
+tokenizers.py, models/textenc.py, models/vision.py, text.py), or separate
+component files (`from_components`: Flux, Z-Image, Qwen-Image and its edit
+path).  The `build_*` functions and
 the entry points run on the CUDA card unless the caller names another
 device.
 """
 
 from .api import (
     LanPaintSampler,
+    edit_image,
     inpaint_image,
     inpaint_video,
     ksampler,
@@ -28,5 +31,6 @@ from .pipeline import LanPaintPipeline
 from .text import encode_prompt
 
 __all__ = ["Denoiser", "LanPaintConfig", "LanPaintPipeline", "LanPaintSampler", "ModelKind",
-           "encode_prompt", "inpaint_image", "inpaint_video", "ksampler", "ksampler_advanced",
-           "mask_blend", "outpaint_image", "sample_custom", "sample_custom_advanced"]
+           "edit_image", "encode_prompt", "inpaint_image", "inpaint_video", "ksampler",
+           "ksampler_advanced", "mask_blend", "outpaint_image", "sample_custom",
+           "sample_custom_advanced"]

@@ -10,7 +10,8 @@ reference's exported nodes (reference src/LanPaint/nodes.py:631-638):
 * `masks.mask_blend`       <-> LanPaint_MaskBlend
 
 and the pixel-space workflows `inpaint_image` (VAEEncode -> LanPaint_KSampler
--> VAEDecode -> LanPaint_MaskBlend), `outpaint_image` and `inpaint_video`
+-> VAEDecode -> LanPaint_MaskBlend), `outpaint_image`, `edit_image` (the
+same graph with Qwen-Image-Edit's reference latents) and `inpaint_video`
 (the same graph for video, through the Wan VAE).
 
 The JAX package compiles a run into one XLA program; here it is an eager
@@ -21,8 +22,6 @@ without a mask, the plain CFG denoise), and the terminal inverse noise
 scaling.
 
 Every solver of the JAX package runs here (`samplers.SAMPLER_NAMES`).
-Not ported yet: `edit_image` (it needs Qwen-Image's reference tokens) and
-the `LanPaintPipeline` of `pipeline.py` (text encoders and loaders).
 """
 
 from __future__ import annotations
@@ -598,6 +597,36 @@ def outpaint_image(model: Denoiser, vae, *, image, padding, positive: Any, **kw)
     mask = torch.ones((hh, ww), dtype=torch.float32, device=canvas.device)
     mask[t:hh - b, lft:ww - r] = 0.0
     return inpaint_image(model, vae, image=canvas, mask=mask, positive=positive, **kw)
+
+
+@torch.no_grad()
+def edit_image(model: Denoiser, vae, *, image, mask, positive: Any, negative: Any = None,
+               blend_overlap: int = 9, **sampler_kwargs):
+    """Qwen-Image-Edit masked edit: the source image conditions the DiT as
+    packed reference latents appended to the image token stream (the
+    reference workflow's ReferenceLatent path, Qwen_Image_Edit_2509.json),
+    on top of `inpaint_image`'s VAE encode -> LanPaint -> decode ->
+    MaskBlend.  The reference tokens go into each cond dict as
+    "ref_tokens" unless it has them already.
+
+    For the full reference conditioning also pass `positive` built by
+    `text.encode_prompt(family="qwen_edit", vision=..., image=...)`, which
+    adds the Qwen2.5-VL vision tokens to the prompt sequence.  `image` is
+    (B, 3, H, W) in [-1, 1]; `mask` (H, W) with 1 = the region to edit."""
+    from .models.dit import pack_latent
+
+    ref = pack_latent(vae.encode(image), 2)
+
+    def with_ref(cond):
+        if not isinstance(cond, dict):
+            return cond
+        out = dict(cond)
+        out.setdefault("ref_tokens", ref)
+        return out
+
+    return inpaint_image(model, vae, image=image, mask=mask, positive=with_ref(positive),
+                         negative=with_ref(negative), blend_overlap=blend_overlap,
+                         **sampler_kwargs)
 
 
 @torch.no_grad()

@@ -1,5 +1,6 @@
-"""Weight bridge: the JAX package's flax UNet, MMDiT, Wan, VAE, Wan VAE,
-TAESD, CLIP and T5 parameter trees -> this package's module state_dicts
+"""Weight bridge: the JAX package's flax UNet, MMDiT, Z-Image, Wan, VAE, Wan
+VAE, TAESD, CLIP, T5, Llama and Qwen2.5-VL vision parameter trees -> this
+package's module state_dicts
 (and a two-model wrapper's pair of trees -> its nn.ModuleDict's,
 `pair_params_from_flax`).
 
@@ -23,7 +24,9 @@ The mapping, the same for every family:
   are every other leaf the rule above does not name (the Wan VAE's RMS
   `gamma`, the Wan DiT's `modulation` and `head_modulation`, CLIP's
   `text_projection` (width, projection_dim), used as `x @ proj`, and its
-  embedding tables, T5's `shared` and `rel_bias`).
+  embedding tables, T5's `shared` and `rel_bias`, Llama's top-level
+  `embed_tokens`, the vision tower's raw RMS scales `norm1`, `norm2` and
+  `ln_q`).
 
 `state_key`, `module_layout` and `flax_layout` are the same rule for one
 leaf, on numpy arrays or torch tensors; `models/load.py` maps checkpoints
@@ -127,13 +130,15 @@ def flax_entries(tree):
 
 
 def params_from_flax(tree) -> dict:
-    """Map a flax UNet, MMDiT, Wan, VAE, Wan VAE, CLIP or T5 parameter tree
-    onto the port module's `state_dict()` keys, as torch tensors."""
+    """Map a flax UNet, MMDiT, Z-Image, Wan, VAE, Wan VAE, CLIP, T5, Llama
+    or vision-tower parameter tree onto the port module's `state_dict()`
+    keys, as torch tensors."""
     return {key: _to_tensor(arr) for key, arr in flax_entries(tree)}
 
 
 unet_params_from_flax = dit_params_from_flax = wan_params_from_flax = params_from_flax
 vae_params_from_flax = wan_vae_params_from_flax = params_from_flax
+zimage_params_from_flax = llama_params_from_flax = vision_params_from_flax = params_from_flax
 
 
 def pair_params_from_flax(trees) -> dict:

@@ -7,7 +7,9 @@ models the port runs: the reader (`load_safetensors`,
 `manifest_coverage`, `key_census`, `split_checkpoint`), and the importers
 and exporters of the SD UNets (with `fuse_unet_qkv` / `unfuse_unet_qkv`),
 the AutoencoderKL VAE, CLIP (HF and OpenCLIP layouts), T5 / UMT5, the
-MMDiT, the Wan DiT and the Wan VAE.
+Llama / Qwen text trunk, the Qwen2.5-VL vision tower, the MMDiT (Flux
+layout, Qwen-Image's diffusers layout, the stand-ins' census guard),
+Z-Image, the Wan DiT and the Wan VAE.
 
 The entry tables are the JAX package's, row for row: (checkpoint key, flax
 path, kind, stack), stack None for a plain tensor or (index, depth) for one
@@ -128,6 +130,10 @@ def _leaves(kind):
         return [("", "")]
     if kind == "raw_linear":
         return [("weight", "")]
+    if kind == "rms_weight":
+        return [("weight", "")]  # HF RMSNorm: 1-D `.weight`, a raw leaf param
+    if kind == "rms_w":
+        return [("weight", "scale")]  # torch RMSNorm `.weight` -> flax scale
     return [("weight", "kernel"), ("bias", "bias")]
 
 
@@ -548,8 +554,226 @@ def import_dit(state, cfg, prefix: str = "") -> dict:
     return _import(state, _dit_entries(cfg), prefix)
 
 
+def import_dit_guarded(state, cfg, family: str, prefix: str = "") -> dict:
+    """import_dit with a key-census guard for the structural stand-in
+    families (Flux.2-dev / Klein, Krea2, Anima, Ideogram4 —
+    docs/family_facts.md): their DiTConfig dims are vendored best-effort, so
+    a checkpoint whose keys differ from the table fails with the census
+    diff (the JAX package's message) instead of a deep shape error."""
+    want = expected_keys(_dit_entries(cfg), prefix)
+    have = {k for k in state if k.startswith(prefix)}
+    if want != have:
+        missing = sorted(want - have)
+        leftover = sorted(have - want)
+        raise ValueError(
+            f"{family}: checkpoint key census does not match the vendored "
+            f"structural stand-in config ({len(want)} expected keys, "
+            f"{len(have)} in file): {len(missing)} expected keys absent "
+            f"(first: {missing[:4]}), {len(leftover)} checkpoint keys the "
+            f"stand-in would drop (first: {leftover[:4]}).  The stand-in "
+            "topology (depths/width/key naming) does not describe this "
+            "release — update the family's DiTConfig dims and/or the "
+            "load.py entry table to the real layout, then re-run.  The "
+            "workflow-pinned facts (encoder widths, VAE pairing, sampler "
+            "settings) are collected in docs/family_facts.md.")
+    return _import(state, _dit_entries(cfg), prefix)
+
+
 def export_dit(state_dict, cfg, prefix: str = "") -> dict:
     return _export(state_dict, _dit_entries(cfg), prefix)
+
+
+# Qwen-Image's diffusers layout (QwenImageTransformer2DModel): per-stream
+# split projections, (scale, shift)-ordered final AdaLN
+_QWEN_STREAMS = (
+    ("img", ("to_q", "to_k", "to_v"), ("norm_q", "norm_k"), "to_out.0"),
+    ("txt", ("add_q_proj", "add_k_proj", "add_v_proj"), ("norm_added_q", "norm_added_k"),
+     "to_add_out"),
+)
+_QWEN_TOP = (("time_text_embed.timestep_embedder.linear_1", ("time_in", "in_layer")),
+             ("time_text_embed.timestep_embedder.linear_2", ("time_in", "out_layer")),
+             ("img_in", ("img_in",)), ("txt_in", ("txt_in",)),
+             ("proj_out", ("final_layer", "linear")))
+
+
+def import_qwen(state, cfg, prefix: str = "") -> dict:
+    """Qwen-Image diffusers layout -> the MMDiT state_dict.
+
+    The public checkpoint stores per-stream split projections
+    (`attn.to_q/to_k/to_v` for the image stream, `attn.add_{q,k,v}_proj`
+    for the text stream), fused here into the qkv weights;
+    `attn.norm_q/...` are the head-dim RMS qk-norms; `norm_out.linear` is
+    diffusers' AdaLayerNormContinuous, whose output halves are ordered
+    (scale, shift), swapped into the flux convention (shift, scale)."""
+    sb = _StateBuilder()
+    g = lambda k: _tensor(state[prefix + k])  # noqa: E731
+    h = cfg.hidden
+    depth = cfg.depth_double
+
+    def lin(ckpt, path, i=None):
+        for leaf, val in (("kernel", t_linear(g(ckpt + ".weight"))), ("bias", g(ckpt + ".bias"))):
+            if i is None:
+                sb.set(path + (leaf,), val)
+            else:
+                sb.set_stacked(path + (leaf,), i, depth, val)
+
+    for ckpt, path in _QWEN_TOP:
+        lin(ckpt, path)
+    sb.set(("txt_norm", "scale"), g("txt_norm.weight"))
+    w, b = g("norm_out.linear.weight"), g("norm_out.linear.bias")
+    sb.set(("final_layer", "adaLN_modulation", "kernel"), t_linear(torch.cat([w[h:], w[:h]])))
+    sb.set(("final_layer", "adaLN_modulation", "bias"), torch.cat([b[h:], b[:h]]))
+
+    p = ("double", "block")
+    for i in range(depth):
+        blk = f"transformer_blocks.{i}"
+        lin(f"{blk}.img_mod.1", p + ("img_mod", "lin"), i)
+        lin(f"{blk}.txt_mod.1", p + ("txt_mod", "lin"), i)
+        for stream, src_q, src_norm, src_out in _QWEN_STREAMS:
+            kw = torch.cat([t_linear(g(f"{blk}.attn.{s}.weight")) for s in src_q], dim=1)
+            kb = torch.cat([g(f"{blk}.attn.{s}.bias") for s in src_q])
+            sb.set_stacked(p + (f"{stream}_attn_qkv", "kernel"), i, depth, kw)
+            sb.set_stacked(p + (f"{stream}_attn_qkv", "bias"), i, depth, kb)
+            for nm, src in zip(("query_norm", "key_norm"), src_norm):
+                sb.set_stacked(p + (f"{stream}_attn_qknorm", nm, "scale"), i, depth,
+                               g(f"{blk}.attn.{src}.weight"))
+            lin(f"{blk}.attn.{src_out}", p + (f"{stream}_attn_proj",), i)
+            lin(f"{blk}.{stream}_mlp.net.0.proj", p + (f"{stream}_mlp_0",), i)
+            lin(f"{blk}.{stream}_mlp.net.2", p + (f"{stream}_mlp_2",), i)
+    return sb.build()
+
+
+def import_mmdit_auto(state, cfg, prefix: str = "") -> dict:
+    """MMDiT importer with layout auto-detection: public Qwen-Image
+    checkpoints ship the diffusers layout (transformer_blocks.*), Flux-style
+    files and this package's exports the double_blocks / single_blocks
+    layout."""
+    if any(k.startswith(prefix + "transformer_blocks.") for k in state):
+        return import_qwen(state, cfg, prefix)
+    return import_dit(state, cfg, prefix)
+
+
+def qwen_expected_keys(cfg, prefix: str = ""):
+    """The checkpoint keys import_qwen consumes (manifest-coverage hook)."""
+    keys = set()
+    for k in ("time_text_embed.timestep_embedder.linear_1",
+              "time_text_embed.timestep_embedder.linear_2",
+              "img_in", "txt_in", "norm_out.linear", "proj_out"):
+        keys.add(prefix + k + ".weight")
+        keys.add(prefix + k + ".bias")
+    keys.add(prefix + "txt_norm.weight")
+    for i in range(cfg.depth_double):
+        blk = f"transformer_blocks.{i}"
+        for k in ("img_mod.1", "txt_mod.1", "attn.to_q", "attn.to_k",
+                  "attn.to_v", "attn.add_q_proj", "attn.add_k_proj",
+                  "attn.add_v_proj", "attn.to_out.0", "attn.to_add_out",
+                  "img_mlp.net.0.proj", "img_mlp.net.2",
+                  "txt_mlp.net.0.proj", "txt_mlp.net.2"):
+            keys.add(f"{prefix}{blk}.{k}.weight")
+            keys.add(f"{prefix}{blk}.{k}.bias")
+        for k in ("attn.norm_q", "attn.norm_k", "attn.norm_added_q",
+                  "attn.norm_added_k"):
+            keys.add(f"{prefix}{blk}.{k}.weight")
+    return keys
+
+
+def export_qwen(state_dict, cfg, prefix: str = "") -> dict:
+    """Inverse of import_qwen: an MMDiT state_dict in the diffusers layout."""
+    out = {}
+    h = cfg.hidden
+
+    def flat(path, i=None):
+        p = path if i is None else bridge.unstack(path, i)
+        return bridge.flax_layout(p, state_dict[bridge.state_key(p)])
+
+    def lin(ckpt, path, i=None):
+        out[prefix + ckpt + ".weight"] = flat(path + ("kernel",), i).permute(1, 0)
+        out[prefix + ckpt + ".bias"] = flat(path + ("bias",), i)
+
+    for ckpt, path in _QWEN_TOP:
+        lin(ckpt, path)
+    out[prefix + "txt_norm.weight"] = flat(("txt_norm", "scale"))
+    w = flat(("final_layer", "adaLN_modulation", "kernel")).permute(1, 0)
+    b = flat(("final_layer", "adaLN_modulation", "bias"))
+    out[prefix + "norm_out.linear.weight"] = torch.cat([w[h:], w[:h]])
+    out[prefix + "norm_out.linear.bias"] = torch.cat([b[h:], b[:h]])
+
+    p = ("double", "block")
+    for i in range(cfg.depth_double):
+        blk = f"transformer_blocks.{i}"
+        lin(f"{blk}.img_mod.1", p + ("img_mod", "lin"), i)
+        lin(f"{blk}.txt_mod.1", p + ("txt_mod", "lin"), i)
+        for stream, dst_q, dst_norm, dst_out in _QWEN_STREAMS:
+            kw = flat(p + (f"{stream}_attn_qkv", "kernel"), i)
+            kb = flat(p + (f"{stream}_attn_qkv", "bias"), i)
+            for j, s in enumerate(dst_q):
+                out[f"{prefix}{blk}.attn.{s}.weight"] = kw[:, j * h:(j + 1) * h].permute(1, 0)
+                out[f"{prefix}{blk}.attn.{s}.bias"] = kb[j * h:(j + 1) * h]
+            for nm, dst in zip(("query_norm", "key_norm"), dst_norm):
+                out[f"{prefix}{blk}.attn.{dst}.weight"] = flat(
+                    p + (f"{stream}_attn_qknorm", nm, "scale"), i)
+            lin(f"{blk}.attn.{dst_out}", p + (f"{stream}_attn_proj",), i)
+            lin(f"{blk}.{stream}_mlp.net.0.proj", p + (f"{stream}_mlp_0",), i)
+            lin(f"{blk}.{stream}_mlp.net.2", p + (f"{stream}_mlp_2",), i)
+    return out
+
+
+def _zimage_entries(cfg):
+    """Z-Image (Tongyi S3-DiT) <-> the Lumina2 / NextDiT layout of
+    z_image_*_bf16.safetensors (the reference's Z_image workflows load it
+    through UNETLoader with CLIPLoader type 'lumina2'): x_embedder,
+    cap_embedder RMSNorm + Linear, context_refiner / noise_refiner / layers
+    JointTransformerBlocks (fused GQA attention.qkv, per-head q/k RMS norms,
+    SwiGLU feed_forward.w{1,2,3}, sandwich attention_norm1/2 + ffn_norm1/2,
+    tanh-gated adaLN on the modulated blocks), norm_final, the
+    scale-modulated final_layer."""
+    e = [
+        ("x_embedder", ("x_embedder",), "linear", None),
+        ("cap_embedder.0", ("cap_norm",), "rms_w", None),
+        ("cap_embedder.1", ("cap_proj",), "linear", None),
+        ("t_embedder.mlp.0", ("t_mlp_0",), "linear", None),
+        ("t_embedder.mlp.2", ("t_mlp_2",), "linear", None),
+        ("norm_final", ("norm_final",), "rms_w", None),
+        ("final_layer.linear", ("final_linear",), "linear", None),
+        ("final_layer.adaLN_modulation.1", ("final_adaLN_1",), "linear", None),
+    ]
+
+    def block(ckpt, flax, st, modulated):
+        out = [
+            (f"{ckpt}.attention.qkv", flax + ("attention", "qkv"), "linear_nb", st),
+            (f"{ckpt}.attention.out", flax + ("attention", "out"), "linear_nb", st),
+            (f"{ckpt}.attention.q_norm", flax + ("attention", "q_norm"), "rms_w", st),
+            (f"{ckpt}.attention.k_norm", flax + ("attention", "k_norm"), "rms_w", st),
+            (f"{ckpt}.feed_forward.w1", flax + ("feed_forward", "w1"), "linear_nb", st),
+            (f"{ckpt}.feed_forward.w2", flax + ("feed_forward", "w2"), "linear_nb", st),
+            (f"{ckpt}.feed_forward.w3", flax + ("feed_forward", "w3"), "linear_nb", st),
+            (f"{ckpt}.attention_norm1", flax + ("attention_norm1",), "rms_w", st),
+            (f"{ckpt}.attention_norm2", flax + ("attention_norm2",), "rms_w", st),
+            (f"{ckpt}.ffn_norm1", flax + ("ffn_norm1",), "rms_w", st),
+            (f"{ckpt}.ffn_norm2", flax + ("ffn_norm2",), "rms_w", st),
+        ]
+        if modulated:
+            out.append((f"{ckpt}.adaLN_modulation.1", flax + ("adaLN_modulation_1",),
+                        "linear", st))
+        return out
+
+    for i in range(cfg.context_refiner_depth):
+        e += block(f"context_refiner.{i}", ("context_refiner", "block"),
+                   (i, cfg.context_refiner_depth), modulated=False)
+    for i in range(cfg.refiner_depth):
+        e += block(f"noise_refiner.{i}", ("noise_refiner", "block"), (i, cfg.refiner_depth),
+                   modulated=True)
+    for i in range(cfg.depth):
+        e += block(f"layers.{i}", ("layers", "block"), (i, cfg.depth), modulated=True)
+    return e
+
+
+def import_zimage(state, cfg, prefix: str = "") -> dict:
+    return _import(state, _zimage_entries(cfg), prefix)
+
+
+def export_zimage(state_dict, cfg, prefix: str = "") -> dict:
+    return _export(state_dict, _zimage_entries(cfg), prefix)
 
 
 def import_wan(state, cfg, prefix: str = "") -> dict:
@@ -669,6 +893,42 @@ def export_wan_vae(state_dict, cfg, prefix: str = "") -> dict:
     return _export(state_dict, _wan_vae_entries(cfg), prefix)
 
 
+def _qwen_vl_vision_entries(cfg):
+    """The Qwen2.5-VL vision tower, HF layout under the `visual.` prefix
+    (the qwen_2.5_vl_7b.safetensors the reference's Qwen workflows load;
+    the text keys of the same file go through _llama_entries).  The Conv3d
+    patch embed maps onto the patchify Linear; the RMS scales are raw
+    parameters."""
+    e = [
+        ("patch_embed.proj", ("patch_embed",),
+         ("conv3d_as_linear", (cfg.in_channels, cfg.temporal_patch_size,
+                               cfg.patch_size, cfg.patch_size)), None),
+        ("merger.ln_q", ("ln_q",), "rms_weight", None),
+        ("merger.mlp.0", ("merger_0",), "linear", None),
+        ("merger.mlp.2", ("merger_2",), "linear", None),
+    ]
+    for i in range(cfg.depth):
+        b, p, st = f"blocks.{i}", ("blocks", "block"), (i, cfg.depth)
+        e += [
+            (f"{b}.norm1", p + ("norm1",), "rms_weight", st),
+            (f"{b}.norm2", p + ("norm2",), "rms_weight", st),
+            (f"{b}.attn.qkv", p + ("qkv",), "linear", st),
+            (f"{b}.attn.proj", p + ("proj",), "linear", st),
+            (f"{b}.mlp.gate_proj", p + ("gate",), "linear", st),
+            (f"{b}.mlp.up_proj", p + ("up",), "linear", st),
+            (f"{b}.mlp.down_proj", p + ("down",), "linear", st),
+        ]
+    return e
+
+
+def import_qwen_vl_vision(state, cfg, prefix: str = "visual.") -> dict:
+    return _import(state, _qwen_vl_vision_entries(cfg), prefix)
+
+
+def export_qwen_vl_vision(state_dict, cfg, prefix: str = "visual.") -> dict:
+    return _export(state_dict, _qwen_vl_vision_entries(cfg), prefix)
+
+
 # --------------------------------------------------------------------------
 # text encoders (models/textenc.py): CLIP and T5 / UMT5 in the HF
 # transformers state-dict layouts (CLIPTextModel(.WithProjection),
@@ -762,6 +1022,48 @@ def import_t5(state, cfg, prefix: str = "") -> dict:
 
 def export_t5(state_dict, cfg, prefix: str = "") -> dict:
     return _export(state_dict, _t5_entries(cfg), prefix)
+
+
+def _llama_entries(cfg):
+    e = [
+        ("embed_tokens.weight", ("embed_tokens",), "raw", None),
+        ("norm", ("final_ln",), "ln", None),
+    ]
+    for i in range(cfg.layers):
+        b = f"layers.{i}"
+        st = (i, cfg.layers)
+        e += [
+            (f"{b}.self_attn.q_proj", ("layers", "q"), "linear", st),
+            (f"{b}.self_attn.k_proj", ("layers", "k"), "linear", st),
+            (f"{b}.self_attn.v_proj", ("layers", "v"), "linear", st),
+            (f"{b}.self_attn.o_proj", ("layers", "o"), "linear", st),
+            (f"{b}.input_layernorm", ("layers", "ln1"), "ln", st),
+            (f"{b}.post_attention_layernorm", ("layers", "ln2"), "ln", st),
+            (f"{b}.mlp.gate_proj", ("layers", "gate"), "linear", st),
+            (f"{b}.mlp.up_proj", ("layers", "up"), "linear", st),
+            (f"{b}.mlp.down_proj", ("layers", "down"), "linear", st),
+        ]
+        if getattr(cfg, "qk_norm", False):  # Qwen3 per-head q/k RMSNorm
+            e += [(f"{b}.self_attn.q_norm", ("layers", "q_norm"), "ln", st),
+                  (f"{b}.self_attn.k_norm", ("layers", "k_norm"), "ln", st)]
+    return e
+
+
+def import_llama(state, cfg, prefix: str = "model.") -> dict:
+    """HF LlamaModel / Qwen2Model / Qwen3Model (or their CausalLM) -> the
+    LlamaEncoder state_dict.  prefix "" for a bare *Model state dict,
+    "model." for *ForCausalLM; where the embedding is not under `prefix`,
+    the bare and the Qwen2.5-VL multimodal layouts are tried."""
+    if prefix + "embed_tokens.weight" not in state:
+        for alt in ("", "language_model.", "model.language_model."):
+            if alt + "embed_tokens.weight" in state:
+                prefix = alt
+                break
+    return _import(state, _llama_entries(cfg), prefix)
+
+
+def export_llama(state_dict, cfg, prefix: str = "model.") -> dict:
+    return _export(state_dict, _llama_entries(cfg), prefix)
 
 
 def import_clip_openclip(state, cfg, prefix: str = "") -> dict:

@@ -1,10 +1,11 @@
-"""Text encoders: CLIP and T5 / UMT5, as torch `nn.Module`s.
+"""Text encoders: CLIP, T5 / UMT5 and the Llama / Qwen trunk, as torch
+`nn.Module`s.
 
-PyTorch counterpart of the CLIP and T5 parts of
-`lanpaint_tpu/models/textenc.py`: the encoders every prompt of the image
-families and of Wan goes through (CLIP-L and CLIP-G for SD1.x and SDXL,
-CLIP-L + T5-XXL for Flux and SD3, UMT5-XXL for Wan2.2).  The Llama / Qwen
-stacks wait for the families that need them (ROADMAP A.14).
+PyTorch counterpart of `lanpaint_tpu/models/textenc.py`: the encoders every
+prompt goes through (CLIP-L and CLIP-G for SD1.x and SDXL, CLIP-L + T5-XXL
+for Flux and SD3, UMT5-XXL for Wan2.2, the Qwen2.5-7B text stack for
+Qwen-Image, Qwen3-4B for Z-Image and the Qwen3 stand-in families,
+Llama-3.1-8B for HiDream).
 
 fp32 by default, as the JAX configs are.  A config's `dtype` is the compute
 dtype of the dense layers, which cast inputs and weights to it (flax
@@ -13,9 +14,10 @@ the norms compute in fp32.  The JAX package runs no TPU kernel here
 (`jax.nn.dot_product_attention` and flax's LayerNorm), so neither does
 the port: attention is `F.scaled_dot_product_attention`, the norms
 `F.layer_norm` and a plain RMS.  The per-layer weights are a ModuleList
-(`layers.<i>` for CLIP, `blocks.<i>` for T5), so models/bridge.py maps the
-JAX package's scanned trees onto them.  `zoo.build_clip` and
-`zoo.build_t5` make one on the CUDA card unless `device` names another.
+(`layers.<i>` for CLIP and Llama, `blocks.<i>` for T5), so models/bridge.py
+maps the JAX package's scanned trees onto them.  `zoo.build_clip`,
+`zoo.build_t5` and `zoo.build_llama` make one on the CUDA card unless
+`device` names another.
 """
 
 from __future__ import annotations
@@ -264,6 +266,214 @@ class T5Encoder(nn.Module):
 
 
 # --------------------------------------------------------------------------
+# Llama / Qwen2 decoder used as a hidden-state encoder
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 128256
+    dim: int = 4096
+    layers: int = 32
+    heads: int = 32
+    kv_heads: int = 8
+    intermediate: int = 14336
+    rope_theta: float = 500000.0
+    # llama3-style rope scaling (factor, low_freq_factor, high_freq_factor,
+    # original_max_position_embeddings) or None
+    rope_scaling: Optional[Tuple[float, float, float, int]] = None
+    qkv_bias: bool = False            # True = Qwen2/Qwen2.5
+    rms_eps: float = 1e-5
+    # Qwen3 family: explicit head width (decoupled from dim//heads) and
+    # per-head RMS q/k-norm before RoPE
+    head_dim: Optional[int] = None
+    qk_norm: bool = False
+    # Qwen2.5-VL multimodal rope: channel sections of head_dim//2 assigned
+    # to the (temporal, height, width) position streams, engaged when
+    # pos_ids are passed; for pure text the three streams are equal, which
+    # is standard RoPE
+    mrope_section: Optional[Tuple[int, int, int]] = None
+    dtype: torch.dtype = torch.float32
+
+    @property
+    def head_width(self) -> int:
+        return self.head_dim if self.head_dim is not None else self.dim // self.heads
+
+
+# The configurations of lanpaint_tpu/models/textenc.py, which documents each
+# one's source: Llama-3.1-8B (HiDream), the Qwen2.5-(VL-)7B text stack
+# (Qwen-Image), Qwen3 0.6B / 4B / 8B (Anima; Z-Image, Flux.2-Klein-4b,
+# Krea2; Flux.2-Klein-9b, Ideogram4).
+LLAMA31_8B_CONFIG = LlamaConfig(rope_scaling=(8.0, 1.0, 4.0, 8192))
+QWEN25_7B_CONFIG = LlamaConfig(vocab_size=152064, dim=3584, layers=28, heads=28, kv_heads=4,
+                               intermediate=18944, rope_theta=1000000.0, qkv_bias=True,
+                               rms_eps=1e-6, mrope_section=(16, 24, 24))
+QWEN3_06B_CONFIG = LlamaConfig(vocab_size=151936, dim=1024, layers=28, heads=16, kv_heads=8,
+                               intermediate=3072, rope_theta=1000000.0, rms_eps=1e-6,
+                               head_dim=128, qk_norm=True)
+QWEN3_4B_CONFIG = LlamaConfig(vocab_size=151936, dim=2560, layers=36, heads=32, kv_heads=8,
+                              intermediate=9728, rope_theta=1000000.0, rms_eps=1e-6,
+                              head_dim=128, qk_norm=True)
+QWEN3_8B_CONFIG = LlamaConfig(vocab_size=151936, dim=4096, layers=36, heads=32, kv_heads=8,
+                              intermediate=12288, rope_theta=1000000.0, rms_eps=1e-6,
+                              head_dim=128, qk_norm=True)
+
+
+def _llama3_scale_inv_freq(inv: np.ndarray, factor: float, low: float,
+                           high: float, orig: int) -> np.ndarray:
+    """Llama-3.1 frequency rescaling (HF ROPE_INIT_FUNCTIONS['llama3'])."""
+    low_wl = orig / low
+    high_wl = orig / high
+    wavelen = 2.0 * np.pi / inv
+    smooth = (orig / wavelen - low) / (high - low)
+    mid = (1.0 - smooth) * inv / factor + smooth * inv
+    return np.where(wavelen > low_wl, inv / factor,
+                    np.where(wavelen < high_wl, inv, mid)).astype(np.float32)
+
+
+def _inv_freq(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, np.float32) / head_dim))
+
+
+def _llama_rope(s: int, head_dim: int, theta: float,
+                scaling: Optional[Tuple[float, float, float, int]] = None, device=None):
+    """(cos, sin), each (S, head_dim) fp32: the rotation of position p on
+    channel pair (c, c + head_dim/2)."""
+    inv = _inv_freq(head_dim, theta)
+    if scaling is not None:
+        inv = _llama3_scale_inv_freq(inv, *scaling)
+    t = np.arange(s, dtype=np.float32)[:, None] * inv[None]
+    freqs = torch.from_numpy(np.concatenate([t, t], axis=-1)).to(device)
+    return torch.cos(freqs), torch.sin(freqs)
+
+
+def _rotate_half(x):
+    a, b = x.chunk(2, dim=-1)
+    return torch.cat([-b, a], dim=-1)
+
+
+def _mrope_tables(pos_ids: torch.Tensor, head_dim: int, theta: float,
+                  section: Tuple[int, int, int]):
+    """Qwen2.5-VL multimodal rope tables from 3-stream position ids.
+
+    pos_ids (3, S): temporal / height / width positions (text tokens carry
+    the same value in all three).  Channel c of head_dim // 2 takes stream k
+    where c falls in section k (HF apply_multimodal_rotary_pos_emb's i % 3
+    chunk pattern, collapsed to one select because the tables are (freqs,
+    freqs) duplicated)."""
+    inv = torch.from_numpy(_inv_freq(head_dim, theta)).to(pos_ids.device)
+    freqs = pos_ids[:, :, None].float() * inv[None, None]   # (3, S, hd/2)
+    bounds = np.cumsum((0,) + tuple(section))
+    sel = torch.cat([freqs[k, :, bounds[k]:bounds[k + 1]] for k in range(3)], dim=-1)
+    emb = torch.cat([sel, sel], dim=-1)                     # (S, head_dim)
+    return torch.cos(emb), torch.sin(emb)
+
+
+def _large_negative(dtype: torch.dtype) -> float:
+    """jax.nn.dot_product_attention's fill for masked logits."""
+    return -0.7 * torch.finfo(dtype).max
+
+
+def masked_attention(q, k, v, mask):
+    """`jax.nn.dot_product_attention(q, k, v, mask=mask)` on (B, S, H, D)
+    tensors through `F.scaled_dot_product_attention`: keys where the
+    boolean `mask` (broadcast to (B, H, Sq, Sk)) is False take JAX's fill,
+    -0.7 * the dtype's largest value, added to the logits (in fp32 the sum
+    is the fill itself), so a query with no valid key averages every value
+    uniformly, as JAX's does.  An empty sequence returns at once."""
+    if q.shape[1] == 0:
+        return q
+    bias = torch.zeros(mask.shape, dtype=q.dtype, device=q.device).masked_fill(
+        ~mask, _large_negative(q.dtype))
+    out = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                         v.transpose(1, 2), attn_mask=bias)
+    return out.transpose(1, 2)
+
+
+class _LlamaLayer(nn.Module):
+    """Pre-norm decoder layer: RMS -> GQA attention (optional qkv bias,
+    Qwen3's per-head q/k RMS before RoPE, RoPE in fp32, k/v repeated to the
+    query heads) -> RMS -> SwiGLU."""
+
+    def __init__(self, c: LlamaConfig):
+        super().__init__()
+        self.cfg = c
+        dt, hd = c.dtype, c.head_width
+        self.ln1 = RMSNorm(c.dim, c.rms_eps)
+        self.q = Linear(c.dim, c.heads * hd, bias=c.qkv_bias, compute_dtype=dt)
+        self.k = Linear(c.dim, c.kv_heads * hd, bias=c.qkv_bias, compute_dtype=dt)
+        self.v = Linear(c.dim, c.kv_heads * hd, bias=c.qkv_bias, compute_dtype=dt)
+        if c.qk_norm:
+            self.q_norm = RMSNorm(hd, c.rms_eps)
+            self.k_norm = RMSNorm(hd, c.rms_eps)
+        self.o = Linear(c.heads * hd, c.dim, bias=False, compute_dtype=dt)
+        self.ln2 = RMSNorm(c.dim, c.rms_eps)
+        self.gate = Linear(c.dim, c.intermediate, bias=False, compute_dtype=dt)
+        self.up = Linear(c.dim, c.intermediate, bias=False, compute_dtype=dt)
+        self.down = Linear(c.intermediate, c.dim, bias=False, compute_dtype=dt)
+
+    def forward(self, x, cos, sin, mask):
+        c = self.cfg
+        dt = c.dtype
+        h = self.ln1(x)
+        b, s, _ = h.shape
+        hd = c.head_width
+        q = self.q(h).view(b, s, c.heads, hd)
+        k = self.k(h).view(b, s, c.kv_heads, hd)
+        v = self.v(h).view(b, s, c.kv_heads, hd)
+        if c.qk_norm:  # Qwen3: per-head RMS over head_dim, before RoPE
+            q, k = self.q_norm(q), self.k_norm(k)
+        cs, sn = cos[None, :, None], sin[None, :, None]
+        q = (q.float() * cs + _rotate_half(q.float()) * sn).to(dt)
+        k = (k.float() * cs + _rotate_half(k.float()) * sn).to(dt)
+        rep = c.heads // c.kv_heads
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+        att = masked_attention(q, k, v, mask)
+        x = x + self.o(att.reshape(b, s, c.heads * hd))
+        h = self.ln2(x)
+        return x + self.down(F.silu(self.gate(h)) * self.up(h))
+
+
+class LlamaEncoder(nn.Module):
+    """Causal LM trunk used as an encoder.
+
+    forward(ids, attn_mask=None, embeds=None, pos_ids=None) ->
+    (hidden_states (L+1, B, S, D), HF-indexed, final_norm(last)).  HiDream
+    consumes a selection of the per-layer states; Qwen-Image and the Qwen3
+    families take the final-normed last state.  `attn_mask` (B, S) 1/0 marks
+    the valid keys (with the causal mask); `embeds` (B, S, dim) overrides
+    the token-embedding lookup (the Qwen2.5-VL vision tokens spliced in at
+    the <|image_pad|> positions; `ids` still gives the shape); `pos_ids`
+    (3, S) engages the multimodal rope (cfg.mrope_section)."""
+
+    def __init__(self, cfg: LlamaConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.embed_tokens = nn.Parameter(torch.empty(cfg.vocab_size, cfg.dim))
+        self.layers = nn.ModuleList(_LlamaLayer(cfg) for _ in range(cfg.layers))
+        self.final_ln = RMSNorm(cfg.dim, cfg.rms_eps)
+
+    def forward(self, ids: torch.Tensor, attn_mask: Optional[torch.Tensor] = None,
+                embeds: Optional[torch.Tensor] = None, pos_ids: Optional[torch.Tensor] = None):
+        c = self.cfg
+        b, s = ids.shape
+        x = (self.embed_tokens[ids] if embeds is None else embeds).to(c.dtype)
+        if pos_ids is not None:
+            cos, sin = _mrope_tables(torch.as_tensor(pos_ids, device=ids.device), c.head_width,
+                                     c.rope_theta, c.mrope_section)
+        else:
+            cos, sin = _llama_rope(s, c.head_width, c.rope_theta, c.rope_scaling, ids.device)
+        mask = torch.ones((s, s), dtype=torch.bool, device=ids.device).tril()[None, None]
+        if attn_mask is not None:
+            mask = mask & attn_mask[:, None, None, :].bool()
+        hs = [x]
+        for layer in self.layers:
+            x = layer(x, cos, sin, mask)
+            hs.append(x)
+        return torch.stack(hs), self.final_ln(x)
+
+
+# --------------------------------------------------------------------------
 # convenience wrappers (the builders are zoo.build_clip and zoo.build_t5)
 
 
@@ -278,4 +488,9 @@ def clip_encode(model: CLIPTextEncoder, ids, clip_skip: int = 2
 
 @torch.no_grad()
 def t5_encode(model: T5Encoder, ids, attn_mask=None) -> torch.Tensor:
+    return model(ids, attn_mask)
+
+
+@torch.no_grad()
+def llama_encode(model: LlamaEncoder, ids, attn_mask=None):
     return model(ids, attn_mask)

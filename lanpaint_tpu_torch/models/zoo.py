@@ -1,15 +1,16 @@
 """Model zoo: packaged Denoisers (the eps- and v-prediction UNets, the
-flow-matching MMDiTs and the Wan video DiTs for now), the image and video
-VAEs and the CLIP and T5 text encoders.
+flow-matching MMDiTs with Qwen-Image and the stand-in families, Z-Image and
+the Wan video DiTs for now), the image and video VAEs, the CLIP, T5 and
+Llama / Qwen text encoders and the Qwen2.5-VL vision tower.
 
-PyTorch counterpart of the UNet, MMDiT and Wan parts of
+PyTorch counterpart of the UNet, MMDiT, Z-Image and Wan parts of
 `lanpaint_tpu/models/zoo.py`, with its two-model wrappers
 (`switching_denoiser`, the Wan2.2 high/low-noise expert pair, and
 `dual_model_denoiser`) and the checkpoint key census
 (`family_expected_keys`, `family_census`) of the families the port runs.
-`build_unet`, `build_dit` and `build_wan` return (Denoiser, module);
-`build_vae`, `build_wan_vae`, `build_clip` and `build_t5` return the
-module.
+`build_unet`, `build_dit`, `build_zimage` and `build_wan` return
+(Denoiser, module); `build_vae`, `build_wan_vae`, `build_clip`, `build_t5`,
+`build_llama` and `build_vision` return the module.
 Every `build_*` function builds on the CUDA card unless `device` names
 another (`utils.resolve_device`).
 Without a state_dict the weights are random, drawn on the target device
@@ -32,11 +33,13 @@ from ..schedule import bcast_to
 from ..sigmas import EpsSigmaTable, FlowSigmaTable
 from ..utils import resolve_device
 from .base import Denoiser
-from .dit import FLUX_DEV_CONFIG, FLUX_SCHNELL_CONFIG, TINY_DIT_CONFIG, DiTConfig, MMDiT
+from .dit import (ANIMA_CONFIG, FLUX2_DEV_CONFIG, FLUX2_KLEIN_CONFIG, FLUX_DEV_CONFIG,
+                  FLUX_SCHNELL_CONFIG, KREA2_CONFIG, QWEN_IMAGE_CONFIG, TINY_DIT_CONFIG, DiTConfig,
+                  MMDiT)
 from .layers import GroupNorm32, LayerNormF32, RMSNorm
 from . import textenc
-from .textenc import (CLIP_L_CONFIG, T5_XXL_CONFIG, CLIPTextConfig, CLIPTextEncoder, T5Config,
-                      T5Encoder)
+from .textenc import (CLIP_L_CONFIG, QWEN3_4B_CONFIG, T5_XXL_CONFIG, CLIPTextConfig,
+                      CLIPTextEncoder, LlamaConfig, LlamaEncoder, T5Config, T5Encoder)
 from .unet import SD15_CONFIG, SD21_CONFIG, SDXL_CONFIG, TINY_UNET_CONFIG, UNetConfig, UNetModel
 from .vae import SDXL_VAE_CONFIG, VAE, VAEConfig
 from .video_vae import WAN22_VAE_CONFIG, RMSNorm3d, WanVAE, WanVAEConfig
@@ -64,10 +67,12 @@ def init_params_(module: torch.nn.Module, seed: int = 0, scale: float = 0.02):
     for mod in module.modules():
         is_norm = isinstance(mod, (GroupNorm32, LayerNormF32, RMSNorm, RMSNorm3d, _WanQKNorm,
                                    textenc.LayerNorm, textenc.RMSNorm))
+        # raw RMS-scale parameters of a module (the vision tower's)
+        norm_params = getattr(mod, "_NORM_PARAMS", ())
         for pname, p in mod.named_parameters(recurse=False):
             if pname == "bias":
                 p.zero_()
-            elif is_norm:
+            elif is_norm or pname in norm_params:
                 p.fill_(1.0)
             else:
                 p.normal_(0.0, scale, generator=gen)
@@ -211,8 +216,82 @@ def build_flux_schnell(state_dict=None, **kw):
                      name="flux-schnell", **kw)
 
 
+def build_qwen_image(state_dict=None, **kw):
+    return build_dit(QWEN_IMAGE_CONFIG, state_dict, shift=2.2, is_flux=False, name="qwen-image",
+                     **kw)
+
+
+def build_flux2_dev(state_dict=None, **kw):
+    return build_dit(FLUX2_DEV_CONFIG, state_dict, shift=1.15, is_flux=True, name="flux2-dev",
+                     **kw)
+
+
+def build_flux2_klein(state_dict=None, **kw):
+    return build_dit(FLUX2_KLEIN_CONFIG, state_dict, shift=1.15, is_flux=False,
+                     name="flux2-klein", **kw)
+
+
+def build_krea2(state_dict=None, **kw):
+    """Krea 2 turbo (reference Krea2_LanPaint_Inpaint.json): stand-in
+    topology; encoder / VAE pairing per the workflow (docs/family_facts.md)."""
+    return build_dit(KREA2_CONFIG, state_dict, shift=3.0, is_flux=False, name="krea2", **kw)
+
+
+def build_anima(state_dict=None, **kw):
+    """Anima preview3 (reference README.md:272-286): stand-in topology;
+    Qwen3-0.6B text features + the Qwen-Image VAE per the embedded workflow."""
+    return build_dit(ANIMA_CONFIG, state_dict, shift=3.0, is_flux=False, name="anima", **kw)
+
+
 def build_tiny_dit(state_dict=None, **kw):
     return build_dit(TINY_DIT_CONFIG, state_dict, is_flux=False, name="tiny-dit", **kw)
+
+
+# --------------------------------------------------------------------------
+# Z-Image S3-DiT
+
+
+def build_zimage(
+    config=None,
+    state_dict: Optional[dict] = None,
+    *,
+    shift: float = 3.0,
+    device=None,
+    param_dtype: torch.dtype = torch.float32,
+    seed: int = 0,
+    name: str = "z-image",
+):
+    """Build the Z-Image S3-DiT Denoiser (models/zimage.py, the Lumina2 /
+    NextDiT graph the reference's Z_image workflows load; shift 3.0 is the
+    workflow's ModelSamplingAuraFlow value) on `device` (the CUDA card when
+    None) with `param_dtype` parameters.  `config` defaults to
+    Z_IMAGE_S3_CONFIG; the model predicts the flow velocity, x0 = x - t * v;
+    `cond` is {"context"} (Qwen3-4B hidden states)."""
+    from .zimage import Z_IMAGE_S3_CONFIG, ZImageModel
+
+    config = Z_IMAGE_S3_CONFIG if config is None else config
+    module = _materialize(ZImageModel, config, state_dict, resolve_device(device), param_dtype,
+                          seed)
+
+    @torch.no_grad()
+    def apply(x, t, cond):
+        ctx = cond["context"] if isinstance(cond, dict) else cond
+        return x - bcast_to(t, x.ndim) * module(x, t, ctx)
+
+    den = Denoiser(apply=apply, kind=ModelKind.FLOW, sigma_table=FlowSigmaTable(shift=shift),
+                   is_flux=False, name=name, latent_channels=config.in_channels, module=module)
+    return den, module
+
+
+def build_tiny_zimage(state_dict=None, **kw):
+    from .zimage import TINY_ZIMAGE_CONFIG
+
+    return build_zimage(TINY_ZIMAGE_CONFIG, state_dict, name="tiny-z-image", **kw)
+
+
+def build_z_image(state_dict=None, **kw):
+    """The full-size Z-Image S3-DiT (the JAX package's back-compat alias)."""
+    return build_zimage(state_dict=state_dict, **kw)
 
 
 # --------------------------------------------------------------------------
@@ -247,6 +326,28 @@ def build_t5(config: T5Config = T5_XXL_CONFIG, state_dict: Optional[dict] = None
     None) with `param_dtype` parameters (random from `seed` without a
     state_dict), in eval mode."""
     return _materialize(T5Encoder, config, state_dict, resolve_device(device), param_dtype, seed)
+
+
+def build_llama(config: LlamaConfig = QWEN3_4B_CONFIG, state_dict: Optional[dict] = None, *,
+                device=None, param_dtype: torch.dtype = torch.float32,
+                seed: int = 0) -> LlamaEncoder:
+    """The Llama / Qwen text trunk of `config` on `device` (the CUDA card
+    when None) with `param_dtype` parameters (random from `seed` without a
+    state_dict), in eval mode."""
+    return _materialize(LlamaEncoder, config, state_dict, resolve_device(device), param_dtype,
+                        seed)
+
+
+def build_vision(config=None, state_dict: Optional[dict] = None, *, device=None,
+                 param_dtype: torch.dtype = torch.float32, seed: int = 0):
+    """The Qwen2.5-VL vision tower of `config` (QWEN25_VL_VISION_CONFIG when
+    None) on `device` (the CUDA card when None) with `param_dtype`
+    parameters (random from `seed` without a state_dict), in eval mode."""
+    from .vision import QWEN25_VL_VISION_CONFIG, QwenVLVision
+
+    config = QWEN25_VL_VISION_CONFIG if config is None else config
+    return _materialize(QwenVLVision, config, state_dict, resolve_device(device), param_dtype,
+                        seed)
 
 
 # --------------------------------------------------------------------------
@@ -407,9 +508,8 @@ def dual_model_denoiser(positive: Denoiser, negative: Denoiser,
 # the JAX package's census families whose models the port does not run yet,
 # by the ROADMAP item that ports them
 _CENSUS_WAITS = {
-    "flux2-dev": "A.14", "flux2-klein": "A.14", "krea2": "A.14", "anima": "A.14",
-    "qwen": "A.14", "hidream": "A.14", "sd35-large": "A.14", "sd35-medium": "A.14",
-    "sd3-medium": "A.14", "zimage": "A.14", "hyvideo": "A.14",
+    "hidream": "A.14", "sd35-large": "A.14", "sd35-medium": "A.14", "sd3-medium": "A.14",
+    "hyvideo": "A.14",
 }
 
 
@@ -428,6 +528,16 @@ def family_expected_keys(family: str):
     if family in ("flux-dev", "flux-schnell"):
         cfg = FLUX_DEV_CONFIG if family == "flux-dev" else FLUX_SCHNELL_CONFIG
         return L.expected_keys(L._dit_entries(cfg), "")
+    if family in ("flux2-dev", "flux2-klein", "krea2", "anima"):
+        cfg = {"flux2-dev": FLUX2_DEV_CONFIG, "flux2-klein": FLUX2_KLEIN_CONFIG,
+               "krea2": KREA2_CONFIG, "anima": ANIMA_CONFIG}[family]
+        return L.expected_keys(L._dit_entries(cfg), "")
+    if family == "qwen":
+        return L.qwen_expected_keys(QWEN_IMAGE_CONFIG)
+    if family == "zimage":
+        from .zimage import Z_IMAGE_S3_CONFIG
+
+        return L.expected_keys(L._zimage_entries(Z_IMAGE_S3_CONFIG), "")
     if family in ("wan-14b", "wan-5b"):
         from .wan import WAN22_T2V_14B_CONFIG, WAN22_TI2V_5B_CONFIG
 

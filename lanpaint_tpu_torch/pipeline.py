@@ -22,12 +22,13 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch import nn
 
 from .api import inpaint_image, ksampler
 from .text import NativeEncoder, encode_prompt
 
 # from_components' families whose models wait for ROADMAP A.14
-_COMPONENTS_WAIT = ("sd35", "qwen", "z-image")
+_COMPONENTS_WAIT = ("sd35",)
 
 
 def _import_clip_auto(sub: Dict[str, Any], cfg):
@@ -37,6 +38,24 @@ def _import_clip_auto(sub: Dict[str, Any], cfg):
     if any(k.startswith("ln_final.") for k in sub):
         return import_clip_openclip(sub, cfg)
     return import_clip(sub, cfg)
+
+
+class _SingleFrameVAE(nn.Module):
+    """A 3D (video) VAE used as a 2D image VAE (T = 1 frame).
+
+    Qwen-Image pairs the Wan2.1-graph causal video VAE with a 2D image DiT
+    (the reference workflow's qwen_image_vae); the 1+4k frame law maps one
+    pixel frame to one latent frame, so squeezing the frame axis is exact."""
+
+    def __init__(self, module):
+        super().__init__()
+        self.module = module
+
+    def encode(self, x, generator=None):
+        return self.module.encode(x[:, :, None], generator)[:, :, 0]
+
+    def decode(self, latent):
+        return self.module.decode(latent[:, :, None])[:, :, 0]
 
 
 class LanPaintPipeline:
@@ -99,13 +118,14 @@ class LanPaintPipeline:
     # ------------------------------------------------------------------
     @classmethod
     def from_components(cls, *, family: str, model, vae,
-                        clip_l=None, t5=None,
+                        clip_l=None, t5=None, llama=None,
                         clip_vocab: Optional[str] = None,
                         clip_merges: Optional[str] = None,
-                        t5_tokenizer=None,
+                        t5_tokenizer=None, llama_tokenizer=None,
+                        with_vision: bool = False,
                         model_config=None, vae_config=None,
-                        clip_l_config=None, t5_config=None,
-                        shift: Optional[float] = None,
+                        clip_l_config=None, t5_config=None, llama_config=None,
+                        vision_config=None, shift: Optional[float] = None,
                         height: int = 1024, width: int = 1024,
                         device=None, param_dtype: torch.dtype = torch.float32
                         ) -> "LanPaintPipeline":
@@ -113,22 +133,27 @@ class LanPaintPipeline:
         (separate diffusion model / text encoder(s) / VAE safetensors — the
         reference's UNETLoader + DualCLIPLoader + VAELoader node trio).
 
-        Family "flux" (clip_l + t5 + the 16-channel VAE).  "sd35", "qwen"
-        and "z-image" raise NotImplementedError: their models wait for
-        ROADMAP A.14, and with them the JAX signature's clip_g, llama and
-        vision arguments.  Component args accept file paths or pre-loaded
-        state dicts; tokenizer args accept paths (tokenizer.json /
-        spiece.model / vocab+merges) or constructed tokenizer objects.
-        *_config args override the full-size defaults (used by the
-        tiny-model tests)."""
+        Families: "flux" (clip_l + t5 + the 16-channel VAE), "qwen" (the
+        Qwen2.5-VL llama stack + the Wan2.1-graph VAE at one frame;
+        with_vision=True also loads the vision tower, from the same llama
+        state, for Qwen-Image-Edit's image conditioning) and "z-image" (the
+        Qwen3-4B stack + the 16-channel VAE).  "sd35" raises
+        NotImplementedError: its model waits for ROADMAP A.14, and with it
+        the JAX signature's clip_g and clip_g_config arguments.  Component
+        args accept file paths or pre-loaded state dicts; tokenizer args
+        accept paths (tokenizer.json / spiece.model / vocab+merges) or
+        constructed tokenizer objects.  *_config args override the
+        full-size defaults (used by the tiny-model tests)."""
         from .models import textenc as TE
-        from .models.load import import_clip, import_dit, import_t5, import_vae, load_safetensors
+        from .models import zoo
+        from .models.load import (import_clip, import_dit, import_llama, import_t5, import_vae,
+                                  load_safetensors)
 
         if family in _COMPONENTS_WAIT:
             raise NotImplementedError(
                 f"from_components(family={family!r}): its model and importers are not "
                 "ported yet (ROADMAP A.14)")
-        if family != "flux":
+        if family not in ("flux", "qwen", "z-image"):
             raise ValueError(f"from_components: unknown family {family!r} "
                              "(flux, sd35, qwen, z-image)")
 
@@ -158,33 +183,89 @@ class LanPaintPipeline:
                 return from_tokenizer_json(t5_tokenizer)
             return unigram_from_sentencepiece(t5_tokenizer)
 
-        from .models.dit import FLUX_DEV_CONFIG
+        def _llama_tok():
+            from .tokenizers import from_tokenizer_json
+
+            if not isinstance(llama_tokenizer, str):
+                return llama_tokenizer
+            return from_tokenizer_json(llama_tokenizer)
+
         from .models.vae import FLUX_VAE_CONFIG
-        from .models.zoo import build_dit, build_vae
 
         built = dict(device=device, param_dtype=param_dtype)
-        cfg = model_config or FLUX_DEV_CONFIG
-        den, _ = build_dit(cfg, import_dit(_state(model), cfg),
-                           shift=1.15 if shift is None else shift, is_flux=True, name="flux",
-                           **built)
-        vae_cfg = vae_config or FLUX_VAE_CONFIG
-        vae_module = build_vae(vae_cfg, _vae_import(vae, vae_cfg), **built)
-        cl = clip_l_config or TE.CLIP_L_CONFIG
-        tc = t5_config or TE.T5_XXL_CONFIG
-        encoders = {
-            "clip_l": NativeEncoder("clip", import_clip(_state(clip_l), cl), cl, _clip_tok(),
-                                    **built),
-            "t5": NativeEncoder("t5", import_t5(_state(t5), tc), tc, _t5_tok(), **built),
-        }
+        encoders: Dict[str, Any] = {}
+        if family == "flux":
+            from .models.dit import FLUX_DEV_CONFIG
+
+            cfg = model_config or FLUX_DEV_CONFIG
+            den, _ = zoo.build_dit(cfg, import_dit(_state(model), cfg),
+                                   shift=1.15 if shift is None else shift, is_flux=True,
+                                   name="flux", **built)
+            vae_cfg = vae_config or FLUX_VAE_CONFIG
+            vae_module = zoo.build_vae(vae_cfg, _vae_import(vae, vae_cfg), **built)
+            cl = clip_l_config or TE.CLIP_L_CONFIG
+            tc = t5_config or TE.T5_XXL_CONFIG
+            encoders["clip_l"] = NativeEncoder("clip", import_clip(_state(clip_l), cl), cl,
+                                               _clip_tok(), **built)
+            encoders["t5"] = NativeEncoder("t5", import_t5(_state(t5), tc), tc, _t5_tok(),
+                                           **built)
+        elif family == "z-image":
+            from .models.load import import_zimage
+            from .models.zimage import Z_IMAGE_S3_CONFIG
+
+            cfg = model_config or Z_IMAGE_S3_CONFIG
+            den, _ = zoo.build_zimage(cfg, import_zimage(_state(model), cfg),
+                                      shift=3.0 if shift is None else shift, name="z-image",
+                                      **built)
+            vae_cfg = vae_config or FLUX_VAE_CONFIG
+            vae_module = zoo.build_vae(vae_cfg, _vae_import(vae, vae_cfg), **built)
+            lc = llama_config or TE.QWEN3_4B_CONFIG
+            encoders["llama"] = NativeEncoder("llama", import_llama(_state(llama), lc), lc,
+                                              _llama_tok(), **built)
+            family = "qwen3"
+        else:  # qwen
+            from .models.dit import QWEN_IMAGE_CONFIG
+            from .models.load import import_mmdit_auto, import_qwen_vl_vision, import_wan_vae
+            from .models.video_vae import QWEN_IMAGE_VAE_CONFIG
+            from .text import VisionEncoder
+
+            cfg = model_config or QWEN_IMAGE_CONFIG
+            den, _ = zoo.build_dit(cfg, import_mmdit_auto(_state(model), cfg),
+                                   shift=2.2 if shift is None else shift, is_flux=False,
+                                   name="qwen-image", **built)
+            vae_cfg = vae_config or QWEN_IMAGE_VAE_CONFIG
+            vae_module = _SingleFrameVAE(
+                zoo.build_wan_vae(vae_cfg, import_wan_vae(_state(vae), vae_cfg), **built))
+            lst = _state(llama)
+            lc = llama_config or TE.QWEN25_7B_CONFIG
+            encoders["llama"] = NativeEncoder("llama", import_llama(lst, lc), lc, _llama_tok(),
+                                              **built)
+            if with_vision:
+                from .models.vision import QWEN25_VL_VISION_CONFIG
+
+                vc = vision_config or QWEN25_VL_VISION_CONFIG
+                encoders["vision"] = VisionEncoder(import_qwen_vl_vision(lst, vc), vc, **built)
         return cls(den, vae=vae_module, encoders=encoders, family=family, height=height,
                    width=width)
 
     # ------------------------------------------------------------------
     def encode(self, prompt: str, **kw) -> Dict[str, Any]:
+        """The prompt's cond dict; for family "qwen", an `image` keyword
+        switches to the edit conditioning ("qwen_edit", which needs the
+        vision tower: from_components(with_vision=True)), and without one
+        the vision tower is left out."""
         if self.family in ("sdxl",):
             kw.setdefault("height", self.height)
             kw.setdefault("width", self.width)
-        return encode_prompt(prompt, family=self.family, **self.encoders, **kw)
+        family = self.family
+        encoders = self.encoders
+        if family == "qwen" and kw.get("image") is not None:
+            if "vision" not in encoders:
+                raise ValueError("image conditioning needs from_components(with_vision=True)")
+            family = "qwen_edit"
+        elif "vision" in encoders:
+            encoders = {k: v for k, v in encoders.items() if k != "vision"}
+        return encode_prompt(prompt, family=family, **encoders, **kw)
 
     def sample(self, *, positive, negative=None, latent, mask, **kw):
         """Latent-space LanPaint sampling (node-equivalent ksampler)."""

@@ -6,7 +6,9 @@ reader's C++ (`native/convert.cpp`), byte for byte.  Defaults, validation and th
 properties must agree, and every scheduler must give the same ladder,
 bit for bit.  So must the solvers' host tables in `samplers.py`: the deis
 coefficients (`_deis_coeffs`, numpy), heunpp2's full-ladder rows
-(`prepare_tables`) and dpm_fast's step grouping.
+(`prepare_tables`) and dpm_fast's step grouping, and the Qwen2.5-VL host
+helpers: the vision tower's window plan (`models/vision.vision_plan`),
+`smart_resize` and the multimodal rope ids (`text.qwen_vl_pos_ids`).
 """
 
 import dataclasses
@@ -111,3 +113,58 @@ def test_tokenizers_module_is_the_original():
 def test_native_convert_source_is_byte_identical():
     got = (REPO / "lanpaint_tpu_torch" / "native" / "convert.cpp").read_bytes()
     assert got == (REPO / "lanpaint_tpu" / "native" / "convert.cpp").read_bytes()
+
+
+VISION_GRIDS = [(1, 6, 10), (1, 8, 12), (2, 10, 6), (1, 70, 70), (1, 74, 52)]
+
+
+@pytest.mark.parametrize("grid", VISION_GRIDS)
+def test_vision_plan_matches(grid):
+    from lanpaint_tpu.models import vision as jvision
+    from lanpaint_tpu_torch.models import vision as tvision
+
+    for jcfg, tcfg in ((jvision.TINY_VL_VISION_CONFIG, tvision.TINY_VL_VISION_CONFIG),
+                       (jvision.QWEN25_VL_VISION_CONFIG, tvision.QWEN25_VL_VISION_CONFIG)):
+        want, got = jvision.vision_plan(jcfg, grid), tvision.vision_plan(tcfg, grid)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]), err_msg=k)
+            assert np.asarray(got[k]).dtype == np.asarray(want[k]).dtype, k
+
+
+def test_vision_plan_refuses_what_jax_refuses():
+    from lanpaint_tpu.models import vision as jvision
+    from lanpaint_tpu_torch.models import vision as tvision
+
+    with pytest.raises(ValueError) as want:
+        jvision.vision_plan(jvision.TINY_VL_VISION_CONFIG, (1, 5, 8))
+    with pytest.raises(ValueError) as got:
+        tvision.vision_plan(tvision.TINY_VL_VISION_CONFIG, (1, 5, 8))
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("size", [(1024, 1024), (1050, 980), (30, 44), (3000, 200), (28, 28),
+                                  (768, 1360)])
+def test_smart_resize_matches(size):
+    from lanpaint_tpu.models import vision as jvision
+    from lanpaint_tpu_torch.models import vision as tvision
+
+    for factor in (28, 4):
+        assert tvision.smart_resize(*size, factor) == jvision.smart_resize(*size, factor)
+    with pytest.raises(ValueError) as want:
+        jvision.smart_resize(1, 300)
+    with pytest.raises(ValueError) as got:
+        tvision.smart_resize(1, 300)
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("n_before, grid, n_after", [(3, (1, 4, 6), 4), (0, (1, 70, 70), 0),
+                                                    (64, (1, 70, 70), 17), (5, (2, 8, 4), 1)])
+def test_qwen_vl_pos_ids_match(n_before, grid, n_after):
+    from lanpaint_tpu import text as jtext
+    from lanpaint_tpu_torch import text as ttext
+
+    want = jtext.qwen_vl_pos_ids(n_before, grid, n_after)
+    got = ttext.qwen_vl_pos_ids(n_before, grid, n_after)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)

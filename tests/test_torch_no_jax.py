@@ -2,8 +2,9 @@
 
 In a fresh interpreter where `import jax` (and flax, safetensors and
 ml_dtypes, which that machine lacks too) fails, the package and every
-module of it (api, engine, masks, quality, utils, the UNet, DiT, Wan, VAE,
-Wan VAE, TAESD and text-encoder models, the checkpoint loader and its
+module of it (api, engine, masks, quality, utils, the UNet, DiT, Z-Image,
+Wan, VAE, Wan VAE, TAESD, text-encoder and vision-tower models, the
+checkpoint loader and its
 native reader, the tokenizers, text conditioning, the pipeline, the kernel
 wrappers) import, and nothing of the JAX package (or triton) gets loaded
 along the way.
@@ -32,6 +33,8 @@ import lanpaint_tpu_torch.models.unet
 import lanpaint_tpu_torch.models.vae
 import lanpaint_tpu_torch.models.video_vae
 import lanpaint_tpu_torch.models.wan
+import lanpaint_tpu_torch.models.vision
+import lanpaint_tpu_torch.models.zimage
 import lanpaint_tpu_torch.models.zoo
 import lanpaint_tpu_torch.models.bridge
 import lanpaint_tpu_torch.models.load

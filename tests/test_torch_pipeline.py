@@ -11,9 +11,15 @@ trees bit for bit, and `pipe.encode` must match JAX's within relative L2
 1e-5 (fp32 encoders, JAX at "highest" matmul precision).  `pipe(...)` must
 equal the port's own `inpaint_image` fed `pipe.encode(prompt)` /
 `pipe.encode("")` and the same seed, bit for bit (`inpaint_image` is held
-to JAX by tests/test_torch_pixel.py).  `from_components(family="flux")`
-gets the same checks; the families whose models wait raise.
+to JAX by tests/test_torch_pixel.py).  `from_components` gets the same
+checks for "flux", "z-image" (a tiny Z-Image, a Qwen3 trunk, the tiny VAE)
+and "qwen" (a tiny Qwen-Image MMDiT in the diffusers layout, a Qwen2.5
+trunk and the tiny vision tower in one llama state, the tiny Wan2.1-graph
+VAE at one frame), the latter's encode with and without an image; "sd35",
+whose model waits, raises.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +34,9 @@ from lanpaint_tpu.models import load as JL
 from lanpaint_tpu.models import textenc as jte
 from lanpaint_tpu.models import unet as junet
 from lanpaint_tpu.models import vae as jvae
+from lanpaint_tpu.models import video_vae as jvv
+from lanpaint_tpu.models import vision as jvision
+from lanpaint_tpu.models import zimage as jzimage
 from lanpaint_tpu_torch import api
 from lanpaint_tpu_torch import pipeline as tpipeline
 from lanpaint_tpu_torch.models import bridge
@@ -35,8 +44,11 @@ from lanpaint_tpu_torch.models import dit as tdit
 from lanpaint_tpu_torch.models import textenc as tte
 from lanpaint_tpu_torch.models import unet as tunet
 from lanpaint_tpu_torch.models import vae as tvae
+from lanpaint_tpu_torch.models import video_vae as tvv
+from lanpaint_tpu_torch.models import vision as tvision
+from lanpaint_tpu_torch.models import zimage as tzimage
 from test_torch_load import _hf_to_openclip
-from test_torch_text import _clip_files, _spiece_bytes
+from test_torch_text import QWEN_PAD_ID, _clip_files, _spiece_bytes, qwen_llamas
 from test_torch_textenc import random_tree
 
 REL_L2 = 1e-5
@@ -75,7 +87,7 @@ def _np(state):
 def _write(path, state, bf16):
     """A safetensors file of `state` (numpy), in BF16 with `bf16`."""
     safetensors_torch = pytest.importorskip("safetensors.torch")
-    tensors = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in state.items()}
+    tensors = {k: torch.from_numpy(np.array(v, order="C")) for k, v in state.items()}
     if bf16:
         tensors = {k: v.to(torch.bfloat16) for k, v in tensors.items()}
     safetensors_torch.save_file(tensors, str(path))
@@ -255,8 +267,71 @@ def test_from_components_flux(tmp_path):
     assert torch.equal(out, want) and bool(torch.isfinite(out).all())
 
 
+def _llama_state(enc):
+    """A tiny NativeEncoder's trunk as the HF *ForCausalLM layout ("model.")."""
+    return _np(JL.export_llama(enc.params, enc.cfg))
+
+
+def _components(family, tmp_path):
+    """(JAX pipeline, port pipeline) of tiny components written as files."""
+    llamas = qwen_llamas()
+    (jt, tt) = (enc.tokenizer for enc in llamas["qwen25"])
+    if family == "z-image":
+        jz, tz = jzimage.TINY_ZIMAGE_CONFIG, tzimage.TINY_ZIMAGE_CONFIG
+        ztree = random_tree(jzimage.ZImageModel(jz), jnp.zeros((1, 4, 8, 8)), jnp.full((1,), 0.5),
+                            jnp.zeros((1, 4, jz.cap_dim)), seed=5)
+        vtree = random_tree(jvae.VAE(jvae.TINY_VAE_CONFIG), jnp.zeros((1, 3, 16, 16)),
+                            jax.random.PRNGKey(0), seed=6)
+        files = dict(model=_np(JL.export_zimage(ztree, jz)),
+                     vae=_np(JL.export_vae(vtree, jvae.TINY_VAE_CONFIG)),
+                     llama=_llama_state(llamas["qwen3"][0]))
+        jkw = dict(model_config=jz, vae_config=jvae.TINY_VAE_CONFIG,
+                   llama_config=llamas["qwen3"][0].cfg)
+        tkw = dict(model_config=tz, vae_config=tvae.TINY_VAE_CONFIG,
+                   llama_config=llamas["qwen3"][1].cfg)
+    else:
+        qwen = dict(depth_single=0, txt_norm=True, vec_dim=0, context_dim=24)
+        jd = dataclasses.replace(jdit.TINY_DIT_CONFIG, **qwen)
+        td = dataclasses.replace(tdit.TINY_DIT_CONFIG, **qwen)
+        dtree = random_tree(jdit.MMDiT(jd), jnp.zeros((1, 4, 8, 8)), jnp.full((1,), 0.5),
+                            jnp.zeros((1, 4, 24)), seed=5)
+        vtree = random_tree(jvv.WanVAE(jvv.TINY_WAN_VAE_CONFIG), jnp.zeros((1, 3, 1, 16, 16)),
+                            seed=6, scale=0.1)
+        llama = _llama_state(llamas["qwen25"][0])
+        llama.update(_np(JL.export_qwen_vl_vision(llamas["vision"][0].params,
+                                                  jvision.TINY_VL_VISION_CONFIG)))
+        files = dict(model=_np(JL.export_qwen(dtree, jd)),
+                     vae=_np(JL.export_wan_vae(vtree, jvv.TINY_WAN_VAE_CONFIG)), llama=llama)
+        jkw = dict(model_config=jd, vae_config=jvv.TINY_WAN_VAE_CONFIG,
+                   llama_config=llamas["qwen25"][0].cfg, with_vision=True,
+                   vision_config=jvision.TINY_VL_VISION_CONFIG)
+        tkw = dict(model_config=td, vae_config=tvv.TINY_WAN_VAE_CONFIG,
+                   llama_config=llamas["qwen25"][1].cfg, with_vision=True,
+                   vision_config=tvision.TINY_VL_VISION_CONFIG)
+    files = {k: _write(tmp_path / f"{k}.safetensors", v, bf16=False) for k, v in files.items()}
+    common = dict(family=family, height=16, width=24, **files)
+    jpipe = jpipeline.LanPaintPipeline.from_components(llama_tokenizer=jt, **jkw, **common)
+    tpipe = tpipeline.LanPaintPipeline.from_components(llama_tokenizer=tt, device="cpu", **tkw,
+                                                       **common)
+    return jpipe, tpipe
+
+
+def _same_conds(got, want):
+    assert sorted(got) == sorted(want)
+    for k in want:
+        w, g = np.asarray(want[k], np.float64), got[k].double().numpy()
+        assert g.shape == w.shape
+        assert np.linalg.norm(g - w) / np.linalg.norm(w) <= REL_L2, k
+
+
 @pytest.mark.parametrize("family", ["sd35", "qwen", "z-image", "nope"])
-def test_from_components_of_unported_families_raises(family):
+def test_from_components_of_unported_families_raises(family, tmp_path):
+    """"sd35" waits for its model (ROADMAP A.14) and raises; an unknown
+    family raises JAX's ValueError.  "z-image" and "qwen", once waiting,
+    load what the JAX package loads (bit-equal to the bridge of its trees),
+    encode as it does (qwen with an image: the edit conditioning through
+    the vision tower), and the call equals `inpaint_image` on the loaded
+    modules bit for bit."""
     kw = dict(family=family, model={}, vae={})
     if family == "nope":
         with pytest.raises(ValueError) as want:
@@ -264,19 +339,66 @@ def test_from_components_of_unported_families_raises(family):
         with pytest.raises(ValueError) as got:
             tpipeline.LanPaintPipeline.from_components(**kw)
         assert str(got.value) == str(want.value)
-    else:
+        return
+    if family == "sd35":
         with pytest.raises(NotImplementedError, match="A.14"):
             tpipeline.LanPaintPipeline.from_components(**kw)
+        return
+    jpipe, tpipe = _components(family, tmp_path)
+    want_family, want_encoders = {"z-image": ("qwen3", ["llama"]),
+                                  "qwen": ("qwen", ["llama", "vision"])}[family]
+    assert tpipe.family == jpipe.family == want_family
+    assert sorted(tpipe.encoders) == sorted(jpipe.encoders) == want_encoders
+    _assert_bridged(tpipe.model.module, jpipe.model.params)
+    vae = tpipe.vae.module if family == "qwen" else tpipe.vae
+    _assert_bridged(vae, jpipe.vae_params)
+    for name, enc in tpipe.encoders.items():
+        _assert_bridged(enc.module, jpipe.encoders[name].params)
+        assert enc.device == torch.device("cpu")
+    encodes = [dict()]
+    if family == "qwen":
+        source = np.random.default_rng(4).uniform(0, 1, (16, 24, 3)).astype(np.float32)
+        encodes.append(dict(image=source, image_pad_id=QWEN_PAD_ID))
+    for ek in encodes:
+        with jax.default_matmul_precision("highest"):
+            want = jpipe.encode("a corgi", **ek)
+        _same_conds(tpipe.encode("a corgi", **ek), want)
+    if family == "qwen":
+        with pytest.raises(ValueError, match="with_vision"):
+            tpipeline.LanPaintPipeline(tpipe.model, vae=tpipe.vae, family="qwen",
+                                       encoders={"llama": tpipe.encoders["llama"]}).encode(
+                "a corgi", image=source)
+
+    img = torch.from_numpy(np.random.default_rng(1).uniform(-1, 1, (1, 3, 16, 24))
+                           .astype(np.float32))
+    mask = torch.zeros((16, 24))
+    mask[4:12, 6:18] = 1.0
+    kw = dict(seed=2, steps=3, num_steps=2, cfg=1.0, scheduler="simple", blend_overlap=3)
+    out = tpipe("a corgi", image=img, mask=mask, **kw)
+    want = api.inpaint_image(tpipe.model, tpipe.vae, image=img, mask=mask,
+                             positive=tpipe.encode("a corgi"), negative=tpipe.encode(""), **kw)
+    assert out.shape == img.shape and bool(torch.isfinite(out).all())
+    assert torch.equal(out, want)
 
 
 @pytest.mark.parametrize("arg", ["clip_g", "llama", "llama_tokenizer", "with_vision",
                                  "clip_g_config", "llama_config", "vision_config"])
 def test_from_components_refuses_the_arguments_of_unported_families(arg):
-    """The JAX signature's arguments for the sd35 / qwen / z-image families
-    wait with those families: the port's from_components does not take them."""
-    with pytest.raises(TypeError, match=arg):
-        tpipeline.LanPaintPipeline.from_components(family="flux", model={}, vae={},
-                                                   **{arg: True})
+    """The JAX signature's clip_g and clip_g_config wait with sd35: the
+    port's from_components does not take them.  The llama, llama_tokenizer,
+    with_vision, llama_config and vision_config arguments (of the qwen and
+    z-image families, waiting once) are taken, with the JAX defaults."""
+    import inspect
+
+    if arg.startswith("clip_g"):
+        with pytest.raises(TypeError, match=arg):
+            tpipeline.LanPaintPipeline.from_components(family="flux", model={}, vae={},
+                                                       **{arg: True})
+        return
+    got = inspect.signature(tpipeline.LanPaintPipeline.from_components).parameters[arg]
+    want = inspect.signature(jpipeline.LanPaintPipeline.from_components).parameters[arg]
+    assert got.kind == want.kind == inspect.Parameter.KEYWORD_ONLY
+    assert got.default == want.default
 
 
 @pytest.mark.parametrize("head_dim, want", [(None, []), (64, [(1, 1024, 1, 64)] * 3)])

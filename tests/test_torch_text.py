@@ -8,9 +8,12 @@ tokenizers.py`, `text.py`) against the JAX package's.
   built in memory (protobuf bytes) with padding and truncation.
 * `sdxl_pooled_y` and every cond builder give JAX's numbers.
 * `encode_prompt` for sd15, sdxl, sd3, flux and wan, with tiny CLIP and T5
-  encoders fed the same weights (models/bridge.py), matches JAX's
-  `encode_prompt` within relative L2 1e-5 on every cond entry (fp32, JAX at
-  "highest" matmul precision); the Llama-stack families raise.
+  encoders fed the same weights (models/bridge.py), and for qwen, qwen3
+  and qwen_edit, with tiny Qwen2.5 / Qwen3 trunks and the tiny Qwen2.5-VL
+  vision tower behind a byte-level BPE with the chat templates' special
+  tokens, matches JAX's `encode_prompt` within relative L2 1e-5 on every
+  cond entry (fp32, JAX at "highest" matmul precision); hidream and
+  hyvideo raise.
 * `encode_prompt_hf`, fed a module with HuggingFace CLIP's call contract,
   gives JAX's conds.
 """
@@ -29,6 +32,7 @@ from lanpaint_tpu import text as jtext
 from lanpaint_tpu import tokenizers as jtok
 from lanpaint_tpu.models import textenc as jte
 from lanpaint_tpu.models import unet as junet
+from lanpaint_tpu.models import vision as jvision
 from lanpaint_tpu_torch import text as ttext
 from lanpaint_tpu_torch import tokenizers as ttok
 from lanpaint_tpu_torch.models import bridge
@@ -268,26 +272,117 @@ def test_encode_prompt_matches_jax(encoders, family):
         _same_cond(got, want)
 
 
+# the special tokens of the Qwen chat templates, after the 256 byte symbols
+QWEN_SPECIAL = ("<|im_start|>", "<|im_end|>", "<|vision_start|>", "<|image_pad|>",
+                "<|vision_end|>")
+QWEN_PAD_ID = 256 + QWEN_SPECIAL.index("<|image_pad|>")
+
+
+def qwen_tokenizers():
+    """(JAX, port) byte-level BPE tokenizers with the Qwen templates'
+    special tokens: 256 byte symbols, two merges, ids 256-260 added."""
+    vocab = {ch: i for i, ch in enumerate(sorted(jtok.bytes_to_unicode().values()))}
+    merges = [("Ġ", "c"), ("Ġc", "a")]
+    for a, b in merges:
+        vocab[a + b] = len(vocab)
+    added = {t: 256 + i for i, t in enumerate(QWEN_SPECIAL)}
+    vocab = {k: (v if v < 256 else v + len(added)) for k, v in vocab.items()}
+    return tuple(lib.BpeTokenizer(vocab, merges, added_tokens=added) for lib in (jtok, ttok))
+
+
+def qwen_llamas(dim=24, seed=10):
+    """{"qwen25" / "qwen3": (JAX NativeEncoder, port NativeEncoder)} of tiny
+    trunks over the tokenizers' 263 ids, and "vision": (JAX, port)
+    VisionEncoder of the tiny tower (out_hidden 24, the Qwen2.5 width)."""
+    jt, tt = qwen_tokenizers()
+    out = {}
+    for name, kw in (("qwen25", dict(heads=2, kv_heads=1, qkv_bias=True, rms_eps=1e-6,
+                                     rope_theta=1e6, mrope_section=(2, 2, 2))),
+                     ("qwen3", dict(heads=4, kv_heads=2, head_dim=8, qk_norm=True,
+                                    rms_eps=1e-6, rope_theta=1e6))):
+        kw = dict(vocab_size=263, dim=dim, layers=2, intermediate=40, **kw)
+        jcfg, tcfg = jte.LlamaConfig(**kw), tte.LlamaConfig(**kw)
+        tree = random_tree(jte.LlamaEncoder(jcfg), jnp.zeros((1, 8), jnp.int32), seed=seed)
+        out[name] = (jtext.NativeEncoder("llama", tree, jcfg, jt),
+                     ttext.NativeEncoder("llama", bridge.params_from_flax(tree), tcfg, tt,
+                                         device="cpu"))
+        seed += 1
+    vcfg = jvision.TINY_VL_VISION_CONFIG
+    tree = random_tree(jvision.QwenVLVision(vcfg, (1, 4, 4)), jnp.zeros((16, 24)), seed=seed)
+    from lanpaint_tpu_torch.models import vision as tvision
+
+    out["vision"] = (jtext.VisionEncoder(tree, vcfg),
+                     ttext.VisionEncoder(bridge.params_from_flax(tree),
+                                         tvision.TINY_VL_VISION_CONFIG, device="cpu"))
+    return out
+
+
+@pytest.fixture(scope="module")
+def llamas():
+    return qwen_llamas()
+
+
+def _edit_image():
+    return np.random.default_rng(12).uniform(0, 1, (22, 30, 3)).astype(np.float32)
+
+
 @pytest.mark.parametrize("family", ["qwen", "qwen_edit", "qwen3", "hidream", "hyvideo", "nope"])
-def test_encode_prompt_of_unported_families_raises(family):
+def test_encode_prompt_of_unported_families_raises(llamas, family):
+    """qwen (the Qwen-Image template, its 34 prefix states dropped),
+    qwen_edit (the source image's vision tokens spliced at <|image_pad|>,
+    64 prefix states dropped) and qwen3 (the bare final states), once
+    waiting, match JAX; hidream and hyvideo wait for their models (ROADMAP
+    A.14) and raise; an unknown family raises JAX's ValueError."""
     if family == "nope":
         with pytest.raises(ValueError) as want:
             jtext.encode_prompt("a cat", family=family)
         with pytest.raises(ValueError) as got:
             ttext.encode_prompt("a cat", family=family)
         assert str(got.value) == str(want.value)
-    else:
+        return
+    if family in ("hidream", "hyvideo"):
         with pytest.raises(NotImplementedError, match="A.14"):
             ttext.encode_prompt("a cat", family=family)
+        return
+    stack = "qwen3" if family == "qwen3" else "qwen25"
+    kw = {}
+    if family == "qwen_edit":
+        kw = dict(image_pad_id=QWEN_PAD_ID, image=_edit_image())
+    for prompt in ("a photo of the cat", "unicode café über ½"):
+        libs = [dict(llama=enc) for enc in llamas[stack]]
+        if family == "qwen_edit":
+            for lib, vis in zip(libs, llamas["vision"]):
+                lib["vision"] = vis
+        with jax.default_matmul_precision("highest"):
+            want = jtext.encode_prompt(prompt, family=family, **kw, **libs[0])
+        got = ttext.encode_prompt(prompt, family=family, **kw, **libs[1])
+        _same_cond(got, want)
+        assert got["context"].shape[-1] == 24
 
 
 @pytest.mark.parametrize("arg", ["llama", "vision", "image"])
 @pytest.mark.parametrize("family", ["sd15", "wan"])
-def test_encode_prompt_refuses_the_llama_stack_arguments(family, arg):
-    """The JAX signature's llama / vision / image arguments wait for the
-    Llama stack: passing one raises, even to a family that would drop it."""
-    with pytest.raises(NotImplementedError, match="A.14"):
-        ttext.encode_prompt("a cat", family=family, **{arg: object()})
+def test_encode_prompt_refuses_the_llama_stack_arguments(encoders, llamas, family, arg):
+    """The JAX signature's llama / vision / image arguments, once waiting,
+    are taken: a family that does not use one gives JAX's cond with it."""
+    values = {"llama": llamas["qwen25"], "vision": llamas["vision"],
+              "image": (_edit_image(),) * 2}[arg]
+    kw = dict(t5=encoders["t5"], t5_length=(24, 24)) if family == "wan" else dict(
+        clip_l=encoders["clip_l"])
+    with jax.default_matmul_precision("highest"):
+        want = jtext.encode_prompt("a cat", family=family, **{k: v[0] for k, v in kw.items()},
+                                   **{arg: values[0]})
+    got = ttext.encode_prompt("a cat", family=family, **{k: v[1] for k, v in kw.items()},
+                              **{arg: values[1]})
+    _same_cond(got, want)
+
+
+@pytest.mark.parametrize("name", ["QWEN_IMAGE_TEMPLATE", "QWEN_IMAGE_EDIT_TEMPLATE",
+                                  "HYVIDEO_IMAGE_TEMPLATE", "HYVIDEO_VIDEO_TEMPLATE",
+                                  "QWEN_EDIT_DROP_PREFIX", "QWEN_VL_IMAGE_PAD_ID",
+                                  "HYVIDEO_IMAGE_CROP", "HYVIDEO_VIDEO_CROP"])
+def test_templates_and_constants_match_jax(name):
+    assert getattr(ttext, name) == getattr(jtext, name)
 
 
 class _FakeHFClip(torch.nn.Module):

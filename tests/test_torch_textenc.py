@@ -176,7 +176,23 @@ def test_builders_default_to_the_card(monkeypatch):
 
 
 def test_unported_encoder_kinds_raise():
-    with pytest.raises(NotImplementedError, match="A.14"):
-        ttext.NativeEncoder("llama", None, None, None)
+    """"llama" (waiting once) builds the Llama trunk from its state_dict and
+    encodes as the JAX package's NativeEncoder; an unknown kind raises."""
+    from lanpaint_tpu import text as jtext
+
+    class Tok:
+        def encode(self, text):
+            return [ord(c) % 40 for c in text]
+
+    kw = dict(vocab_size=40, dim=16, layers=2, heads=4, kv_heads=2, intermediate=24,
+              head_dim=8, qk_norm=True, rms_eps=1e-6)
+    jcfg, tcfg = jte.LlamaConfig(**kw), tte.LlamaConfig(**kw)
+    tree = random_tree(jte.LlamaEncoder(jcfg), jnp.zeros((1, 6), jnp.int32))
+    enc = ttext.NativeEncoder("llama", bridge.params_from_flax(tree), tcfg, Tok(), device="cpu")
+    assert isinstance(enc.module, tte.LlamaEncoder) and enc.device == torch.device("cpu")
+    with jax.default_matmul_precision("highest"):
+        want = jtext.NativeEncoder("llama", tree, jcfg, Tok())("a cat")
+    for g, w in zip(enc("a cat"), want):
+        _close(g, w)
     with pytest.raises(ValueError):
         ttext.NativeEncoder("bert", None, None, None)
