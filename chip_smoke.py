@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the root of the repository
 
-Nine main paths, each with random bf16 weights made on the card from a
+Twelve main paths, each with random bf16 weights made on the card from a
 seed, the euler solver, 20 steps (Z-Image's 9), outer early stop 1 and a
 centre mask; 5 think steps but for the video paths' 2:
 
@@ -56,7 +56,24 @@ centre mask; 5 think steps but for the video paths' 2:
   released, then `build_qwen_image` and the Wan2.1-graph VAE at one frame
   run `api.edit_image`: "simple", cfg 1, shift 2.2, 115 forwards at S =
   n_txt + 8,192 (4,096 reference tokens), three wide-head launches at
-  D = 384 (the reference latents' encode, the latent's, the decode).
+  D = 384 (the reference latents' encode, the latent's, the decode);
+* SD3.5-Large-1024 from pixels (examples/sd35_inpaint.py) through
+  `LanPaintPipeline.from_components(family="sd35")`: the SD35_LARGE_CONFIG
+  MMDiT and the SD3 VAE (bf16), CLIP-L, CLIP-G and T5-XXL (fp32,
+  `encoder_dtype`) handed over as exported states, then the pipeline's
+  call: "simple", CFG 4.5 as two sequential passes: 230 forwards at S =
+  231 + 4,096 (H = 38, D = 64), two wide-head launches (D = 512);
+* HiDream-I1-1024 (examples/hidream_inpaint.py): T5-XXL (128 tokens),
+  CLIP-L, CLIP-G and the Llama-3.1-8B trunk (fp32) encode through
+  `encode_prompt(family="hidream")` and are released, then
+  `build_hidream` runs `api.ksampler`: "simple", cfg 1, 115 forwards on a
+  (1, 16, 128, 128) latent;
+* HunyuanVideo-720p as a single-frame 1024^2 T2I (the reference's Hunyuan
+  workflow, examples/hunyuan_inpaint.py): the Llama-3.1-8B trunk and
+  CLIP-L (fp32) encode through `encode_prompt(family="hyvideo")` (the
+  image template, 36 states cropped) and are released, then
+  `build_hyvideo` runs `api.ksampler` with guidance 6.0: "simple", cfg 1,
+  115 forwards on a 4D latent run as one frame.
 
 Phases, one line of output each or more (any failure raises and the script
 exits non-zero without printing a result):
@@ -151,17 +168,32 @@ exits non-zero without printing a result):
    vision tower alone, the encoders' peak memory), the VAE timed, one
    forward under torch.profiler, then `edit_image`, timed and counted with
    phase 7's checks.  Phase 3 also holds each kernel at these paths'
-   shapes (their text lengths come from the synthetic tokenizer).
+   shapes (their text lengths come from the synthetic tokenizer);
+5c. small SD3, HiDream and HunyuanVideo references (after phase 5b):
+   phase 5's check on small models (hidden 256; D = 64 with one
+   dual-attention layer, D = 128 with the 4-expert MoE, D = 128 with one
+   refiner block) at 2,304 image tokens;
+17. SD3.5-Large path: the sources built one at a time, exported to the
+   host and released, loaded by `from_components`, every tensor bit-equal
+   to its source (rebuilt from its seed), encode timed, one forward under
+   torch.profiler, then the pipeline's call, timed and counted with phase
+   7's checks;
+18. HiDream-I1 path and 19. HunyuanVideo path: the encode (first call,
+   then median of 3, the encoders' peak memory), the encoders released,
+   the DiT built, one forward under torch.profiler, a 2-step warm-up, then
+   `api.ksampler`, timed and counted with phase 6's checks.  Phase 3 holds
+   each kernel at these paths' shapes too (the synthetic Llama-3.1
+   tokenizer, 128,256 ids, gives the text lengths).
 
 Then, on lines of their own: the nvidia-smi line, one JSON line with the
 per-kernel numbers, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-In the kernels line, `launches` is the nine timed runs' count (phase
+In the kernels line, `launches` is the twelve timed runs' count (phase
 13's `inpaint_image` run and phase 16b's call are checks and not
 counted), and `ms` /
 `plain_ms` / `library_ms` / `bound_ms` are the kernel's / plain version's /
 PyTorch call's per-launch times and the bound at each main-path shape times
-that shape's launches in the nine timed runs, summed (`library_ms` null
+that shape's launches in the twelve timed runs, summed (`library_ms` null
 where a launched shape has no such call; each shape alone in `per_shape`,
 with its device times in us).
 
@@ -173,7 +205,8 @@ the tokenizer and text lengths: tok = c.synthetic_qwen_tokenizer(); z, q
 It needs one CUDA card, the CUDA toolkit (nvcc, cuobjdump) and g++ (the
 checkpoint reader's native conversion, built at first use); no network.
 Phases 12 and 13 write their files into a temporary directory (~7 GB and
-~2 GB) and remove it.
+~2 GB) and remove it; phase 17 holds ~39 GB of exported states on the
+host while it loads them.
 """
 
 import contextlib
@@ -202,8 +235,8 @@ from lanpaint_tpu_torch import (LanPaintConfig, LanPaintPipeline, LanPaintSample
                                 edit_image, inpaint_image, inpaint_video)
 from lanpaint_tpu_torch.engine import lanpaint_update
 from lanpaint_tpu_torch import pipeline, samplers, text, tokenizers
-from lanpaint_tpu_torch.models import (dit, load, textenc, unet, vae, video_vae, vision, wan,
-                                       zimage, zoo)
+from lanpaint_tpu_torch.models import (dit, hidream, hyvideo, load, sd3, textenc, unet, vae,
+                                       video_vae, vision, wan, zimage, zoo)
 from lanpaint_tpu_torch.native import loader as native_loader
 from lanpaint_tpu_torch.ops import attention, cuda_build, fused, norms
 from lanpaint_tpu_torch.schedule import unify_times
@@ -229,7 +262,8 @@ SMALL_QWEN_FORWARDS = (2 - EARLY_STOP) * (THINK + 1) + EARLY_STOP  # 7
 FORWARDS = {"sdxl": 2 * PAIRS, "pixel": 2 * PAIRS, "flux": PAIRS,  # CFG 5 seq. / cfg 1
             "video": 2 * VIDEO_PAIRS, "pair": 2 * VIDEO_PAIRS,     # CFG 5 sequential
             "pipeline": 2 * PAIRS, "sd15": 2 * PAIRS,
-            "zimage": Z_FORWARDS, "qwen_edit": PAIRS, "qwen_small": SMALL_QWEN_FORWARDS}
+            "zimage": Z_FORWARDS, "qwen_edit": PAIRS, "qwen_small": SMALL_QWEN_FORWARDS,
+            "sd35": 2 * PAIRS, "hidream": PAIRS, "hyvideo": PAIRS}  # CFG 4.5 seq. / cfg 1
 PER_FORWARD = {  # kernel launches per model forward
     "sdxl": {"flash_attention": 70, "layernorm": 210, "rmsnorm": 0},
     # 19 double + 38 single blocks; adaLN norms 4 + 1 per block + 1 final;
@@ -254,6 +288,16 @@ PER_FORWARD["zimage"] = {"flash_attention": 32, "layernorm": 0, "rmsnorm": 206}
 # tokens); adaLN norms 4 a block + the final one, QKNorm 4 a block + txt_norm
 PER_FORWARD["qwen_edit"] = {"flash_attention": 60, "layernorm": 241, "rmsnorm": 241}
 PER_FORWARD["qwen_small"] = {"flash_attention": 2, "layernorm": 9, "rmsnorm": 9}  # 2 blocks
+# SD3.5-Large: 38 joint blocks (S = 231 + 4,096); ln_q and ln_k of both
+# streams, 4 a block; its affine-free LayerNorms are plain torch, as in JAX
+PER_FORWARD["sd35"] = {"flash_attention": 38, "layernorm": 0, "rmsnorm": 152}
+# HiDream-I1: 16 double + 32 single blocks; the full-width q and k RMS norms
+# of each stream, 4 a double block and 2 a single one; LayerNorms plain
+PER_FORWARD["hidream"] = {"flash_attention": 48, "layernorm": 0, "rmsnorm": 128}
+# HunyuanVideo: 20 double + 40 single blocks; adaLN LN -> fp32 4 a double
+# block, 1 a single one and the final one, the token refiner's affine norm1
+# and norm2 in its 2 blocks; per-head q and k RMS 4 a double block, 2 a single
+PER_FORWARD["hyvideo"] = {"flash_attention": 60, "layernorm": 125, "rmsnorm": 160}
 PER_RUN = {  # per run: fused half on warm iterations, finish on every one; the
     # VAE's mid attention once in the encode and once in the decode; the
     # Wan cross norm_k of every block in each of the two conds' precompute
@@ -269,6 +313,8 @@ PER_RUN["pipeline"] = PER_RUN["sd15"] = PER_RUN["zimage"] = PER_RUN["qwen_small"
     PER_RUN["pixel"]
 # edit_image encodes the source twice (the reference tokens and the latent)
 PER_RUN["qwen_edit"] = {"fused_half_step": 0, "fused_finish": 0, "wide_attention": 3}
+PER_RUN["sd35"] = PER_RUN["pixel"]  # the SD3 VAE's encode and decode
+PER_RUN["hidream"] = PER_RUN["hyvideo"] = PER_RUN["sdxl"]  # latent paths
 BLEND = 9  # MaskBlend overlap of the pixel and video paths
 SPLASH = "lanpaint_tpu/models/layers.py:131 (_splash_kernel)"
 # (shape, calls per forward by path, TPU kernel it replaces)
@@ -1082,9 +1128,10 @@ def _main_path(label, path, smi, den, module, t_init, run, warmup, latent) -> di
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    samples, den_hist = run()
+    out = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    samples, den_hist = out if isinstance(out, tuple) else (out, out)  # ksampler: samples
     launches = {k: f.launches for k, f in COUNTERS.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -1765,11 +1812,17 @@ QWEN_KW = dict(seed=0, steps=STEPS, cfg=1.0, scheduler="simple", num_steps=THINK
 
 
 def synthetic_qwen_tokenizer() -> tokenizers.BpeTokenizer:
-    """A byte-level BPE of Qwen's vocabulary size: the 256 byte symbols,
-    merges over a-z (two letters, a space-prefixed letter, three letters,
-    space-prefixed pairs, four letters, in rank order) up to 151,643
-    regular entries, and the special tokens at Qwen's ids (<|endoftext|>
+    """A byte-level BPE of Qwen's vocabulary size (`synthetic_bpe`): 151,643
+    regular entries and the special tokens at Qwen's ids (<|endoftext|>
     151643 ... <|image_pad|> 151655)."""
+    return synthetic_bpe(QWEN_REGULAR, QWEN_SPECIAL)
+
+
+def synthetic_bpe(n_regular: int, special) -> tokenizers.BpeTokenizer:
+    """A byte-level BPE of `n_regular` regular entries, the 256 byte symbols
+    and merges over a-z (two letters, a space-prefixed letter, three letters,
+    space-prefixed pairs, four letters, in rank order), then the `special`
+    tokens from id `n_regular` on."""
     byte_enc = tokenizers.bytes_to_unicode()
     vocab = {ch: i for i, ch in enumerate(sorted(byte_enc.values()))}
     space = byte_enc[ord(" ")]
@@ -1780,11 +1833,11 @@ def synthetic_qwen_tokenizer() -> tokenizers.BpeTokenizer:
         ((space + a, b) for a, b in itertools.product(LETTERS, LETTERS)),
         ((a + b + c, d) for a, b, c, d in itertools.product(*[LETTERS] * 4)))
     for a, b in pairs:
-        if len(vocab) == QWEN_REGULAR:
+        if len(vocab) == n_regular:
             break
         merges.append((a, b))
         vocab[a + b] = len(vocab)
-    added = {t: QWEN_REGULAR + i for i, t in enumerate(QWEN_SPECIAL)}
+    added = {t: n_regular + i for i, t in enumerate(special)}
     return tokenizers.BpeTokenizer(vocab, merges, added_tokens=added)
 
 
@@ -2020,6 +2073,328 @@ def phase_qwen_components(smi: str, tok, q_txt: int) -> None:
         raise AssertionError("phase 16b Qwen-Image from_components failed its checks")
 
 
+# --------------------------------------------------------------------------
+# phases 5c and 17-19: SD3.5-Large, HiDream-I1 and HunyuanVideo
+
+# Llama-3's special tokens (Llama-3.1's tokenizer.json added_tokens, ids
+# 128000-128255)
+LLAMA_REGULAR = 128000
+LLAMA_SPECIAL = (("<|begin_of_text|>", "<|end_of_text|>", "<|reserved_special_token_0|>",
+                  "<|reserved_special_token_1|>", "<|finetune_right_pad_id|>",
+                  "<|reserved_special_token_2|>", "<|start_header_id|>", "<|end_header_id|>",
+                  "<|eom_id|>", "<|eot_id|>", "<|python_tag|>")
+                 + tuple(f"<|reserved_special_token_{i}|>" for i in range(3, 248)))
+SD3_CONTEXT = 77 + 154  # CLIP-L|G's 77 tokens, then T5's 154 (encode_prompt's sd3 length)
+HIDREAM_T5 = 128        # examples/hidream_inpaint.py's context length
+# examples/sd35_inpaint.py: euler "simple", CFG 4.5 as two sequential passes
+SD35_KW = dict(seed=0, steps=STEPS, cfg=4.5, scheduler="simple", num_steps=THINK,
+               sequential_cfg=True)
+# examples/hidream_inpaint.py and hunyuan_inpaint.py: euler "simple", cfg 1
+FLOW_KW = dict(seed=0, cfg=1.0, sampler_name="euler", scheduler="simple", num_steps=THINK)
+
+
+def synthetic_llama_tokenizer() -> tokenizers.BpeTokenizer:
+    """A byte-level BPE of Llama-3.1's vocabulary size (`synthetic_bpe`):
+    128,000 regular entries and the 256 special tokens at Llama-3's ids
+    (<|begin_of_text|> 128000 ... <|eot_id|> 128009 ...)."""
+    return synthetic_bpe(LLAMA_REGULAR, LLAMA_SPECIAL)
+
+
+def a14_text_lengths(llama_tok) -> tuple:
+    """(HiDream's Llama tokens: the prompt alone, HunyuanVideo's: the image
+    template with the prompt, less the 36 cropped)."""
+    hy = llama_tok.encode(text.HYVIDEO_IMAGE_TEMPLATE.format(PROMPT))
+    return len(llama_tok.encode(PROMPT)), len(hy) - text.HYVIDEO_IMAGE_CROP
+
+
+def add_a14_shapes(n_ll: int, n_hy: int) -> None:
+    """Phase 3's rows at the SD3.5-Large, HiDream-I1 and HunyuanVideo shapes
+    (a 4D row-norm input is the strided q / k view of a fused projection)."""
+    s3, sh, sy = SD3_CONTEXT + 4096, HIDREAM_T5 + n_ll + 4096, 4096 + n_hy
+    ATTN_SHAPES.extend([
+        ((1, s3, 38, 64), {"sd35": 38}, SPLASH),     # the joint attention
+        ((1, sh, 20, 128), {"hidream": 48}, SPLASH),  # double and single blocks
+        ((1, sy, 24, 128), {"hyvideo": 60}, SPLASH),
+    ])
+    for shape, calls, _ in WIDE_SHAPES:
+        if shape == (1, 16384, 1, 512):
+            calls["sd35"] = 2  # the SD3 VAE's encode and decode
+    NORM_SHAPES.extend([
+        ((1, 4096, 38, 64), "rmsnorm", {"sd35": 76}),  # ln_q / ln_k of the x stream
+        ((1, SD3_CONTEXT, 38, 64), "rmsnorm", {"sd35": 76}),  # and of the context
+        ((1, 4096, 2560), "rmsnorm", {"hidream": 32}),  # double blocks, image q / k
+        ((1, HIDREAM_T5 + n_ll, 2560), "rmsnorm", {"hidream": 32}),  # and text q / k
+        ((1, sh, 2560), "rmsnorm", {"hidream": 64}),    # single blocks
+        ((1, 4096, 3072), "layernorm_na", {"hyvideo": 41}),
+        ((1, n_hy, 3072), "layernorm_na", {"hyvideo": 40}),
+        ((1, sy, 3072), "layernorm_na", {"hyvideo": 40}),
+        ((1, n_hy, 3072), "layernorm", {"hyvideo": 4}),  # the token refiner
+        ((1, 4096, 24, 128), "rmsnorm", {"hyvideo": 40}),
+        ((1, n_hy, 24, 128), "rmsnorm", {"hyvideo": 40}),
+        ((1, sy, 24, 128), "rmsnorm", {"hyvideo": 80}),  # linear1's q / k
+    ])
+
+
+SMALL_SD3 = dataclasses.replace(sd3.SD35_LARGE_CONFIG, hidden=256, num_heads=4, depth=3,
+                                dual_attn_layers=(0,), context_dim=64, vec_dim=32,
+                                pos_embed_max=64)
+SMALL_HIDREAM = dataclasses.replace(hidream.HIDREAM_I1_CONFIG, hidden=256, num_heads=2,
+                                    depth_double=2, depth_single=2, ffn_dim=512, context_dim=64,
+                                    llama_dim=64, vec_dim=32)
+SMALL_HYVIDEO = dataclasses.replace(hyvideo.HUNYUAN_VIDEO_720P_CONFIG, hidden=256, num_heads=2,
+                                    depth_double=2, depth_single=2, refiner_depth=1,
+                                    context_dim=64, vec_dim=32)
+SMALL_A14_LATENT = (1, 16, 96, 96)  # 48 x 48 = 2,304 image tokens
+
+
+def phase_small_a14() -> None:
+    """Phase 5's check on a small SD3 (hidden 256, D = 64, one
+    dual-attention layer, CFG 4.5 sequential), a small HiDream (D = 128,
+    the 4-expert MoE, a 3-layer Llama stack) and a small HunyuanVideo (D =
+    128, one refiner block, a 4D latent as one frame), each on a 96 x 96
+    latent: 2,304 image tokens, so every joint and dual self-attention takes
+    the kernel, and every q / k RMS norm (and HunyuanVideo's LayerNorms) the
+    row norm."""
+    gen = torch.Generator().manual_seed(8)
+    x = torch.randn(SMALL_A14_LATENT, generator=gen)
+    t = torch.tensor([0.7])
+    r = lambda *shape: torch.randn(shape, generator=gen)  # noqa: E731
+    cases = [
+        ("SD3", zoo.build_sd3, SMALL_SD3, tuple({"context": r(1, 16, 64), "vec": r(1, 32)}
+                                                for _ in range(2)),
+         dict(cfg=4.5, sequential_cfg=True), ("attention", "rmsnorm")),
+        ("HiDream", zoo.build_hidream, SMALL_HIDREAM,
+         ({"context": r(1, 16, 64), "vec": r(1, 32), "llama": r(3, 1, 8, 64)}, None),
+         dict(cfg=1.0), ("attention", "rmsnorm")),
+        ("HunyuanVideo", zoo.build_hyvideo, SMALL_HYVIDEO,
+         ({"context": r(1, 16, 64), "vec": r(1, 32), "guidance": torch.tensor([6.0])}, None),
+         dict(cfg=1.0), ("attention", "layernorm", "rmsnorm")),
+    ]
+    for name, build, cfg, cond, sampler_kw, kernels in cases:
+        models = _three_ways(build, cfg, seed=3)
+        c0 = cond[0]
+
+        def forward(mod, dev, _c=c0, _video=name == "HunyuanVideo"):
+            xin = (x[:, :, None] if _video else x).to(dev)
+            return mod(xin, t.to(dev), *(v.to(dev) for v in _c.values()))
+
+        ok, ran = _small_reference(f"phase 5c small {name} reference", models, forward,
+                                   sampler_kw, SMALL_A14_LATENT, cond,
+                                   calculate_sigmas(models[0][0].sigma_table, "simple", 4))
+        if not (ok and all(ran[k] for k in kernels)):
+            raise AssertionError(f"the small {name} on the card is less accurate than the plain "
+                                 "path or did not go through the kernels")
+
+
+def _host_state(state: dict) -> dict:
+    """A checkpoint state (views of a module's tensors on the card) copied
+    to the host, so the module can go before the pipeline loads it."""
+    return {k: v.detach().cpu() for k, v in state.items()}
+
+
+def phase_sd35(smi: str, clip_files) -> dict:
+    """SD3.5-Large-1024 from pixels through `LanPaintPipeline.from_
+    components(family="sd35")` (examples/sd35_inpaint.py's settings): the
+    SD35_LARGE_CONFIG MMDiT (bf16, seed 0), the SD3 VAE (bf16, seed 1) and
+    CLIP-L, CLIP-G and T5-XXL (fp32, seeds 2-4) are built on the card one at
+    a time, exported to checkpoint states on the host (the MMDiT under
+    `model.diffusion_model.`, CLIP-G in the OpenCLIP layout) and released,
+    then loaded with `encoder_dtype=torch.float32`; every loaded tensor
+    bit-equal to its source (rebuilt from its seed); `pipe.encode` timed;
+    one forward under torch.profiler; then the pipeline's call: euler
+    "simple", 20 steps x 5 think, CFG 4.5 as two sequential passes, a
+    centre mask, timed and counted with phase 7's checks (the SD3 VAE's mid
+    attention, D = 512, exactly twice)."""
+    sources = {  # component: (builder, seed, exporter)
+        "model": (lambda: zoo.build_sd35_large(device="cuda", param_dtype=torch.bfloat16,
+                                               seed=0)[1],
+                  lambda m: load.export_sd3(m.state_dict(), sd3.SD35_LARGE_CONFIG)),
+        "vae": (lambda: zoo.build_vae(vae.SD3_VAE_CONFIG, device="cuda",
+                                      param_dtype=torch.bfloat16, seed=1),
+                lambda m: load.export_vae(m.state_dict(), vae.SD3_VAE_CONFIG)),
+        "clip_l": (lambda: zoo.build_clip(textenc.CLIP_L_CONFIG, device="cuda", seed=2),
+                   lambda m: load.export_clip(m.state_dict(), textenc.CLIP_L_CONFIG)),
+        "clip_g": (lambda: zoo.build_clip(textenc.CLIP_G_CONFIG, device="cuda", seed=3),
+                   lambda m: _hf_to_openclip(load.export_clip(m.state_dict(),
+                                                              textenc.CLIP_G_CONFIG),
+                                             textenc.CLIP_G_CONFIG.layers)),
+        "t5": (lambda: zoo.build_t5(textenc.T5_XXL_CONFIG, device="cuda", seed=4),
+               lambda m: load.export_t5(m.state_dict(), textenc.T5_XXL_CONFIG)),
+    }
+    t0 = time.perf_counter()
+    states, n = {}, {}
+    for name, (build, export) in sources.items():
+        module = build()
+        n[name] = _params(module)
+        states[name] = _host_state(export(module))
+        del module
+    torch.cuda.empty_cache()
+    t_export = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = LanPaintPipeline.from_components(
+        family="sd35", clip_vocab=clip_files[0], clip_merges=clip_files[1],
+        t5_tokenizer=_synthetic_unigram(textenc.T5_XXL_CONFIG.vocab_size), device="cuda",
+        param_dtype=torch.bfloat16, encoder_dtype=torch.float32, **states)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    del states
+    gc.collect()
+    loaded = {"model": pipe.model.module, "vae": pipe.vae,
+              **{k: pipe.encoders[k].module for k in ("clip_l", "clip_g", "t5")}}
+    same = {}
+    for name, (build, _) in sources.items():
+        source = build()
+        same[name] = _same_weights(loaded[name], source)
+        del source
+        torch.cuda.empty_cache()
+    cond = pipe.encode(PROMPT)
+    enc_ms = median_ms(lambda: pipe.encode(PROMPT), n=3, warmup=1)
+    ctx, vec = cond["context"], cond["vec"]
+    enc_ok = (tuple(ctx.shape) == (1, SD3_CONTEXT, 4096) and tuple(vec.shape) == (1, 2048)
+              and bool(torch.isfinite(ctx).all()) and bool(torch.isfinite(vec).all()))
+    image, _ = _pixel_image(1024)
+    with torch.no_grad():
+        latent = pipe.vae.encode(image)
+    t_mid = torch.tensor([0.7], device="cuda")
+    prof = profile_forward(lambda: pipe.model.apply(latent, t_mid, cond))
+    lat_shape = tuple(latent.shape)
+    del latent
+    ok, launches, text_, _ = _pixel_workflow(_pipe_entry(pipe), None, None, image, "sd35",
+                                             **SD35_KW)
+    ok = (ok and enc_ok and all(same.values()) and pipe.family == "sd3"
+          and sorted(pipe.encoders) == ["clip_g", "clip_l", "t5"]
+          and lat_shape == (1, 16, 128, 128))
+    say(f"phase 17 SD3.5-Large path: from_components(sd35), params "
+        f"{ {k: round(v / 1e9, 3) for k, v in n.items()} } B (the MMDiT and the VAE bf16, the "
+        f"encoders fp32), built and exported to the host {t_export:.1f} s, from_components "
+        f"{t_load:.2f} s, bit-equal to the sources {same} | encode (CLIP-L, CLIP-G, T5-XXL) -> "
+        f"context {tuple(ctx.shape)} vec {tuple(vec.shape)} finite {enc_ok}, {enc_ms:.2f} ms "
+        f"(median of 3) | latent {lat_shape} | one forward at t = 0.7 under torch.profiler (S = "
+        f"{SD3_CONTEXT} + 4096): {_profile_text(prof)} | pipeline call, euler simple {STEPS} x "
+        f"think {THINK}, cfg 4.5 sequential, blend {BLEND}: {text_} on {smi}")
+    if not ok:
+        raise AssertionError("phase 17 SD3.5-Large path failed its checks")
+    del pipe, loaded
+    return launches
+
+
+def _encoders(clip_files, llama_tok, names) -> dict:
+    """fp32 NativeEncoders on the card with seeded random weights: `names`
+    of t5 (T5-XXL), clip_l, clip_g and llama (Llama-3.1-8B)."""
+    clip_tok = tokenizers.ClipBpeTokenizer.from_files(*clip_files)
+    specs = {"t5": ("t5", zoo.build_t5, textenc.T5_XXL_CONFIG, 10,
+                    _synthetic_unigram(textenc.T5_XXL_CONFIG.vocab_size)),
+             "clip_l": ("clip", zoo.build_clip, textenc.CLIP_L_CONFIG, 11, clip_tok),
+             "clip_g": ("clip", zoo.build_clip, textenc.CLIP_G_CONFIG, 12, clip_tok),
+             "llama": ("llama", zoo.build_llama, textenc.LLAMA31_8B_CONFIG, 13, llama_tok)}
+    out = {}
+    for name in names:
+        kind, build, cfg, seed, tok = specs[name]
+        out[name] = text.NativeEncoder(kind, build(cfg, device="cuda", seed=seed), cfg, tok)
+    return out
+
+
+def _encode_phase(clip_files, llama_tok, names, encode) -> tuple:
+    """Build the fp32 encoders `names`, encode with `encode(encoders)`
+    (first call, then the median of 3), release them: (cond, params by
+    encoder, init s, first call s, ms, the encoders' peak GB)."""
+    api._SAMPLER_CACHE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    encs = _encoders(clip_files, llama_tok, names)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n = {k: _params(e.module) for k, e in encs.items()}
+    t0 = time.perf_counter()
+    cond = encode(encs)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    ms = median_ms(lambda: encode(encs), n=3, warmup=0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del encs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cond, n, t_init, t_first, ms, peak
+
+
+def _latent_phase(label, path, smi, build, cond, enc_text) -> dict:
+    """Build the DiT (bf16, seed 5), one forward at t = 0.7 under
+    torch.profiler, then `api.ksampler` (euler "simple", cfg 1, 20 steps x
+    5 think, a centre mask) on a random (1, 16, 128, 128) latent after a
+    2-step warm-up: `_main_path`'s checks."""
+    t0 = time.perf_counter()
+    den, module = build(device="cuda", param_dtype=torch.bfloat16, seed=5)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    latent = torch.randn((1, 16, 128, 128), device="cuda", generator=gen)
+    t_mid = torch.tensor([0.7], device="cuda")
+    prof = profile_forward(lambda: den.apply(latent, t_mid, cond))
+    say(f"{label}: {enc_text} | one forward at t = 0.7 under torch.profiler: "
+        f"{_profile_text(prof)} on {smi}")
+
+    def run(steps=STEPS):
+        return api.ksampler(den, positive=cond, latent=latent, mask=_centre_mask(1024, 1024),
+                            steps=steps, **FLOW_KW)
+
+    launches = _main_path(f"{label}: ksampler, euler simple {STEPS} x think {THINK}, cfg 1 "
+                          "(warm-up: 2 steps)", path, smi, den, module, t_init, run,
+                          lambda: run(2), latent)
+    api._SAMPLER_CACHE.clear()
+    del den, module
+    return launches
+
+
+def phase_hidream(smi: str, clip_files, llama_tok, n_ll: int) -> dict:
+    """HiDream-I1-1024 latent path: `encode_prompt(family="hidream")` with
+    fp32 T5-XXL (128 tokens), CLIP-L, CLIP-G (the pooled vec's second
+    half) and the LLAMA31_8B_CONFIG trunk, released; then
+    `build_hidream` at HIDREAM_I1_CONFIG through `_latent_phase`."""
+    def encode(encs):
+        return text.encode_prompt(PROMPT, family="hidream", t5_length=HIDREAM_T5, **encs)
+
+    cond, n, t_init, t_first, ms, peak = _encode_phase(
+        clip_files, llama_tok, ("t5", "clip_l", "clip_g", "llama"), encode)
+    shapes = {k: tuple(v.shape) for k, v in cond.items()}
+    want = {"context": (1, HIDREAM_T5, 4096), "vec": (1, 2048), "llama": (32, 1, n_ll, 4096)}
+    if shapes != want or not all(bool(torch.isfinite(v).all()) for v in cond.values()):
+        raise AssertionError(f"phase 18 HiDream encode gave {shapes} (want {want})")
+    enc_text = (f"encode_prompt(hidream): encoders fp32 "
+                f"{ {k: round(v / 1e9, 3) for k, v in n.items()} } B params, init {t_init:.1f} s, "
+                f"cond {shapes} finite, first call {t_first:.2f} s, then {ms:.2f} ms (median of "
+                f"3), encoders' peak {peak:.1f} GB, released")
+    return _latent_phase("phase 18 HiDream-I1 path", "hidream", smi, zoo.build_hidream, cond,
+                         enc_text)
+
+
+def phase_hyvideo(smi: str, clip_files, llama_tok, n_hy: int) -> dict:
+    """HunyuanVideo-720p as a single-frame 1024^2 T2I (the reference's
+    Hunyuan workflow, examples/hunyuan_inpaint.py): `encode_prompt(family=
+    "hyvideo")` with the image template (36 states cropped), the fp32
+    LLAMA31_8B_CONFIG trunk and CLIP-L, released; guidance 6.0; then
+    `build_hyvideo` at HUNYUAN_VIDEO_720P_CONFIG through `_latent_phase`
+    (the 4D latent runs as one frame)."""
+    def encode(encs):
+        return text.encode_prompt(PROMPT, family="hyvideo", **encs)
+
+    cond, n, t_init, t_first, ms, peak = _encode_phase(clip_files, llama_tok,
+                                                       ("clip_l", "llama"), encode)
+    shapes = {k: tuple(v.shape) for k, v in cond.items()}
+    want = {"context": (1, n_hy, 4096), "vec": (1, 768)}
+    if shapes != want or not all(bool(torch.isfinite(v).all()) for v in cond.values()):
+        raise AssertionError(f"phase 19 HunyuanVideo encode gave {shapes} (want {want})")
+    cond["guidance"] = torch.tensor([6.0], device="cuda")
+    enc_text = (f"encode_prompt(hyvideo): encoders fp32 "
+                f"{ {k: round(v / 1e9, 3) for k, v in n.items()} } B params, init {t_init:.1f} s, "
+                f"cond {shapes} finite, first call {t_first:.2f} s, then {ms:.2f} ms (median of "
+                f"3), encoders' peak {peak:.1f} GB, released; guidance 6.0")
+    return _latent_phase("phase 19 HunyuanVideo path", "hyvideo", smi, zoo.build_hyvideo, cond,
+                         enc_text)
+
+
 def kernels_line(rows: dict, launches: dict) -> list:
     """One entry per kernel: launches in the timed main-path runs, and the
     per-launch times, bounds and library-call times at each main-path shape
@@ -2083,10 +2458,14 @@ def main() -> int:
     qwen_tok = synthetic_qwen_tokenizer()
     z_txt, q_txt = text_lengths(qwen_tok)
     add_new_path_shapes(z_txt, q_txt)
+    llama_tok = synthetic_llama_tokenizer()
+    n_ll, n_hy = a14_text_lengths(llama_tok)
+    add_a14_shapes(n_ll, n_hy)
     rows = phase_kernels()
     phase_small_unet()
     phase_small_dit()
     phase_small_zimage()
+    phase_small_a14()
     launches = {}
     launches["sdxl"], den = phase_sdxl(smi)
     pipe, sdxl_vae, conds = phase_single_file(smi, den)
@@ -2122,6 +2501,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_qwen_components(smi, qwen_tok, q_txt)
     launches["qwen_edit"] = phase_qwen_edit(smi, qwen_tok, q_txt)
+    api._SAMPLER_CACHE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    directory = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        clip_files = _synthetic_clip_files(directory)
+        launches["sd35"] = phase_sd35(smi, clip_files)
+        api._SAMPLER_CACHE.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches["hidream"] = phase_hidream(smi, clip_files, llama_tok, n_ll)
+        launches["hyvideo"] = phase_hyvideo(smi, clip_files, llama_tok, n_hy)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
     print(smi)
     print(json.dumps({"kernels": kernels_line(rows, launches)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,6 @@
-"""Weight bridge: the JAX package's flax UNet, MMDiT, Z-Image, Wan, VAE, Wan
-VAE, TAESD, CLIP, T5, Llama and Qwen2.5-VL vision parameter trees -> this
-package's module state_dicts
+"""Weight bridge: the JAX package's flax UNet, MMDiT, SD3, HiDream,
+HunyuanVideo, Z-Image, Wan, VAE, Wan VAE, TAESD, CLIP, T5, Llama and
+Qwen2.5-VL vision parameter trees -> this package's module state_dicts
 (and a two-model wrapper's pair of trees -> its nn.ModuleDict's,
 `pair_params_from_flax`).
 
@@ -12,8 +12,10 @@ The mapping, the same for every family:
 * conv kernels are HWIO (2D) or DHWIO (3D); torch wants OIHW / OIDHW;
 * `nn.scan` stacks every scanned block's parameters along a leading depth
   axis under `<stack>/block/...` (the UNet's `<transformer>/blocks/block`,
-  the MMDiT's `double/block` and `single/block`, the Wan DiT's
-  `blocks/block`, its per-block `modulation` included), or, in the text
+  the MMDiT's, HiDream's and HunyuanVideo's `double/block` and
+  `single/block`, SD3's `joint_dual/block` and `joint/block`,
+  HunyuanVideo's `txt_in/refiner/block`, the Wan DiT's `blocks/block`,
+  its per-block `modulation` included), or, in the text
   encoders, directly under a top-level `layers/...` (CLIP) or `blocks/...`
   (T5, its per-layer relative-bias tables included); they are unstacked
   into `<stack>.<i>....`;
@@ -26,7 +28,10 @@ The mapping, the same for every family:
   `text_projection` (width, projection_dim), used as `x @ proj`, and its
   embedding tables, T5's `shared` and `rel_bias`, Llama's top-level
   `embed_tokens`, the vision tower's raw RMS scales `norm1`, `norm2` and
-  `ln_q`).
+  `ln_q`, SD3's learned `pos_embed`, HiDream's stacked caption
+  projections `cap_proj_double` / `cap_proj_single` (depth, llama_dim,
+  hidden) and MoE experts `experts_w1/w2/w3` (E, in, out), all used as
+  `x @ w`).
 
 `state_key`, `module_layout` and `flax_layout` are the same rule for one
 leaf, on numpy arrays or torch tensors; `models/load.py` maps checkpoints
@@ -130,15 +135,16 @@ def flax_entries(tree):
 
 
 def params_from_flax(tree) -> dict:
-    """Map a flax UNet, MMDiT, Z-Image, Wan, VAE, Wan VAE, CLIP, T5, Llama
-    or vision-tower parameter tree onto the port module's `state_dict()`
-    keys, as torch tensors."""
+    """Map a flax UNet, MMDiT, SD3, HiDream, HunyuanVideo, Z-Image, Wan, VAE,
+    Wan VAE, CLIP, T5, Llama or vision-tower parameter tree onto the port
+    module's `state_dict()` keys, as torch tensors."""
     return {key: _to_tensor(arr) for key, arr in flax_entries(tree)}
 
 
 unet_params_from_flax = dit_params_from_flax = wan_params_from_flax = params_from_flax
 vae_params_from_flax = wan_vae_params_from_flax = params_from_flax
 zimage_params_from_flax = llama_params_from_flax = vision_params_from_flax = params_from_flax
+sd3_params_from_flax = hidream_params_from_flax = hyvideo_params_from_flax = params_from_flax
 
 
 def pair_params_from_flax(trees) -> dict:

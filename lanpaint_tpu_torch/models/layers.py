@@ -51,6 +51,17 @@ def layernorm_na(x, eps: float = 1e-6):
     return layernorm(x, eps=eps, out_dtype=torch.float32)
 
 
+def layernorm_centred(x, eps: float = 1e-6):
+    """Affine-free LayerNorm in fp32 with the centred two-pass variance:
+    the SD3 and HiDream blocks' norms, plain jnp in the JAX package (not
+    its row-norm kernel, whose E[x^2] - E[x]^2 is another function), so
+    plain torch here."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    return (xf - mu) * torch.rsqrt(var + eps)
+
+
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0,
                        time_factor: float = 1.0) -> torch.Tensor:
     """Sinusoidal timestep embedding, [cos | sin] halves (DDPM convention)."""

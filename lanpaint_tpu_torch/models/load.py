@@ -8,8 +8,8 @@ models the port runs: the reader (`load_safetensors`,
 and exporters of the SD UNets (with `fuse_unet_qkv` / `unfuse_unet_qkv`),
 the AutoencoderKL VAE, CLIP (HF and OpenCLIP layouts), T5 / UMT5, the
 Llama / Qwen text trunk, the Qwen2.5-VL vision tower, the MMDiT (Flux
-layout, Qwen-Image's diffusers layout, the stand-ins' census guard),
-Z-Image, the Wan DiT and the Wan VAE.
+layout, Qwen-Image's diffusers layout, the stand-ins' census guard), SD3 /
+SD3.5, HiDream-I1, HunyuanVideo, Z-Image, the Wan DiT and the Wan VAE.
 
 The entry tables are the JAX package's, row for row: (checkpoint key, flax
 path, kind, stack), stack None for a plain tensor or (index, depth) for one
@@ -406,6 +406,238 @@ def _wan_entries(cfg):
     return e
 
 
+def _sd3_entries(cfg):
+    """SD3 / SD3.5 MMDiT public checkpoint layout (`model.diffusion_model.`):
+    x_embedder / pos_embed / t_embedder / y_embedder / context_embedder and
+    joint_blocks.{i}.{context_block,x_block}.*, the last context_block
+    pre-only, and (MMDiT-X) attn2 on the dual-attention prefix."""
+    e = [
+        ("x_embedder.proj", ("x_embedder",), "conv", None),
+        ("pos_embed", ("pos_embed",), "raw", None),
+        ("t_embedder.mlp.0", ("t_embedder", "in_layer"), "linear", None),
+        ("t_embedder.mlp.2", ("t_embedder", "out_layer"), "linear", None),
+        ("context_embedder", ("context_embedder",), "linear", None),
+        ("final_layer.adaLN_modulation.1", ("final_layer", "adaLN_modulation"), "linear", None),
+        ("final_layer.linear", ("final_layer", "linear"), "linear", None),
+    ]
+    if cfg.vec_dim > 0:
+        e += [("y_embedder.mlp.0", ("y_embedder", "in_layer"), "linear", None),
+              ("y_embedder.mlp.2", ("y_embedder", "out_layer"), "linear", None)]
+
+    def attn(ckpt, flax, proj_name, st, with_proj=True):
+        out = [(f"{ckpt}.qkv", flax + ("qkv",), "linear", st)]
+        if cfg.qk_norm:
+            out += [(f"{ckpt}.ln_q", flax + ("ln_q",), "rms", st),
+                    (f"{ckpt}.ln_k", flax + ("ln_k",), "rms", st)]
+        if with_proj:
+            out.append((f"{ckpt}.proj", flax[:-1] + (proj_name,), "linear", st))
+        return out
+
+    def block(i, base, st, dual):
+        b = f"joint_blocks.{i}"
+        out = []
+        for stream in ("context_block", "x_block"):
+            s = base + (stream,)
+            pre_only = st is None and stream == "context_block"
+            out.append((f"{b}.{stream}.adaLN_modulation.1", s + ("adaLN_modulation",), "linear",
+                        st))
+            out += attn(f"{b}.{stream}.attn", s + ("attn",), "attn_proj", st,
+                        with_proj=not pre_only)
+            if not pre_only:
+                out += [(f"{b}.{stream}.mlp.fc1", s + ("mlp_fc1",), "linear", st),
+                        (f"{b}.{stream}.mlp.fc2", s + ("mlp_fc2",), "linear", st)]
+            if dual and stream == "x_block":
+                out += attn(f"{b}.{stream}.attn2", s + ("attn2",), "attn2_proj", st)
+        return out
+
+    n_dual = len(cfg.dual_attn_layers)
+    n_plain = cfg.depth - 1 - n_dual
+    for i in range(n_dual):
+        e += block(i, ("joint_dual", "block"), (i, n_dual), dual=True)
+    for i in range(n_plain):
+        e += block(n_dual + i, ("joint", "block"), (i, n_plain), dual=False)
+    e += block(cfg.depth - 1, ("joint_last",), None, dual=False)
+    return e
+
+
+def _hidream_lin_keys(cfg, prefix: str = ""):
+    """(key, has_bias) pairs of the public HiDream-I1 state-dict layout
+    (x_embedder / t_embedder / p_embedder, the per-block caption_projection
+    list, `.block.`-wrapped double / single streams with attn1.to_q[_t] and
+    full-width q_rms_norm[_t], the ff_i MoE (shared_experts, experts.{j},
+    gate), the ff_t SwiGLU): `hidream_expected_keys`' Linears."""
+    p = prefix
+    keys = [
+        (p + "x_embedder.proj", True),
+        (p + "t_embedder.timestep_embedder.linear_1", True),
+        (p + "t_embedder.timestep_embedder.linear_2", True),
+        (p + "final_layer.adaLN_modulation.1", True),
+        (p + "final_layer.linear", True),
+    ]
+    if cfg.vec_dim > 0:
+        keys += [(p + "p_embedder.pooled_embedder.linear_1", True),
+                 (p + "p_embedder.pooled_embedder.linear_2", True)]
+    n_cap = cfg.depth_double + cfg.depth_single + 1
+    keys += [(f"{p}caption_projection.{i}.linear", False) for i in range(n_cap)]
+
+    def attn(b, with_t):
+        out = []
+        for s in ("", "_t") if with_t else ("",):
+            out += [(f"{b}.attn1.to_q{s}", True), (f"{b}.attn1.to_k{s}", True),
+                    (f"{b}.attn1.to_v{s}", True), (f"{b}.attn1.to_out{s}", True)]
+        return out
+
+    def swiglu(b):
+        return [(f"{b}.w1", False), (f"{b}.w2", False), (f"{b}.w3", False)]
+
+    for i in range(cfg.depth_double):
+        b = f"{p}double_stream_blocks.{i}.block"
+        keys.append((f"{b}.adaLN_modulation.1", True))
+        keys += attn(b, with_t=True)
+        keys += swiglu(f"{b}.ff_i.shared_experts")
+        for j in range(cfg.num_experts):
+            keys += swiglu(f"{b}.ff_i.experts.{j}")
+        keys += swiglu(f"{b}.ff_t")
+    for i in range(cfg.depth_single):
+        b = f"{p}single_stream_blocks.{i}.block"
+        keys.append((f"{b}.adaLN_modulation.1", True))
+        keys += attn(b, with_t=False)
+        keys += swiglu(f"{b}.ff_i.shared_experts")
+        for j in range(cfg.num_experts):
+            keys += swiglu(f"{b}.ff_i.experts.{j}")
+    return keys
+
+
+def hidream_expected_keys(cfg, prefix: str = ""):
+    """The checkpoint keys import_hidream consumes (manifest-coverage hook)."""
+    keys = set()
+    for k, bias in _hidream_lin_keys(cfg, prefix):
+        keys.add(k + ".weight")
+        if bias:
+            keys.add(k + ".bias")
+    for i in range(cfg.depth_double):
+        b = f"{prefix}double_stream_blocks.{i}.block"
+        for s in ("", "_t"):
+            keys.add(f"{b}.attn1.q_rms_norm{s}.weight")
+            keys.add(f"{b}.attn1.k_rms_norm{s}.weight")
+        keys.add(f"{b}.ff_i.gate.weight")
+    for i in range(cfg.depth_single):
+        b = f"{prefix}single_stream_blocks.{i}.block"
+        keys.add(f"{b}.attn1.q_rms_norm.weight")
+        keys.add(f"{b}.attn1.k_rms_norm.weight")
+        keys.add(f"{b}.ff_i.gate.weight")
+    return keys
+
+
+# HiDream's checkpoint Linears by flax path: (checkpoint key, flax path)
+_HIDREAM_TOP = (("x_embedder.proj", ("x_embedder",)),
+                ("t_embedder.timestep_embedder.linear_1", ("time_in", "in_layer")),
+                ("t_embedder.timestep_embedder.linear_2", ("time_in", "out_layer")),
+                ("final_layer.adaLN_modulation.1", ("final_mod",)),
+                ("final_layer.linear", ("final_linear",)))
+_HIDREAM_VEC = (("p_embedder.pooled_embedder.linear_1", ("vector_in", "in_layer")),
+                ("p_embedder.pooled_embedder.linear_2", ("vector_in", "out_layer")))
+
+
+def _hidream_blocks(cfg):
+    """(checkpoint block, flax path, depth index, depth, double) of every
+    HiDream block."""
+    d, s = cfg.depth_double, cfg.depth_single
+    return ([(f"double_stream_blocks.{i}.block", ("double", "block"), i, d, True)
+             for i in range(d)]
+            + [(f"single_stream_blocks.{i}.block", ("single", "block"), i, s, False)
+               for i in range(s)])
+
+
+def import_hidream(state, cfg, prefix: str = "") -> dict:
+    """Public HiDream-I1 layout -> the HiDreamModel state_dict.
+
+    Beyond the Linear transposes: the per-block caption_projection Linears
+    stack into `cap_proj_double` / `cap_proj_single` (the last projection
+    is the T5 `txt_in`), and the per-expert ff_i.experts.{j}.w{1,2,3} stack
+    into the (E, in, out) MoE weights, as the JAX importer stacks them."""
+    sb = _StateBuilder()
+    g = lambda k: _tensor(state[prefix + k])  # noqa: E731
+
+    def lin(ckpt, path, st=None, bias=True):
+        leaves = [("kernel", t_linear(g(ckpt + ".weight")))]
+        if bias:
+            leaves.append(("bias", g(ckpt + ".bias")))
+        for leaf, val in leaves:
+            if st is None:
+                sb.set(path + (leaf,), val)
+            else:
+                sb.set_stacked(path + (leaf,), st[0], st[1], val)
+
+    for ckpt, path in _HIDREAM_TOP + (_HIDREAM_VEC if cfg.vec_dim > 0 else ()):
+        lin(ckpt, path)
+    d, s_ = cfg.depth_double, cfg.depth_single
+    cap = [t_linear(g(f"caption_projection.{i}.linear.weight")) for i in range(d + s_ + 1)]
+    sb.set(("cap_proj_double",), torch.stack(cap[:d]))
+    sb.set(("cap_proj_single",), torch.stack(cap[d:d + s_]))
+    sb.set(("txt_in", "kernel"), cap[d + s_])
+
+    for ckpt, p, i, depth, double in _hidream_blocks(cfg):
+        st = (i, depth)
+        lin(f"{ckpt}.adaLN_modulation.1", p + ("adaLN_modulation", "lin"), st)
+        for suf in ("", "_t") if double else ("",):
+            for w in ("to_q", "to_k", "to_v", "to_out"):
+                lin(f"{ckpt}.attn1.{w}{suf}", p + (f"{w}{suf}",), st)
+            for nw in ("q_rms_norm", "k_rms_norm"):
+                sb.set_stacked(p + (f"{nw}{suf}", "scale"), i, depth,
+                               g(f"{ckpt}.attn1.{nw}{suf}.weight"))
+        moe = p + ("ff_i",)
+        for j in (1, 2, 3):
+            lin(f"{ckpt}.ff_i.shared_experts.w{j}", moe + ("shared", f"w{j}"), st, bias=False)
+            sb.set_stacked(moe + (f"experts_w{j}",), i, depth, torch.stack(
+                [t_linear(g(f"{ckpt}.ff_i.experts.{e}.w{j}.weight"))
+                 for e in range(cfg.num_experts)]))
+            if double:
+                lin(f"{ckpt}.ff_t.w{j}", p + ("ff_t", f"w{j}"), st, bias=False)
+        lin(f"{ckpt}.ff_i.gate", moe + ("gate",), st, bias=False)
+    return sb.build()
+
+
+def export_hidream(state_dict, cfg, prefix: str = "") -> dict:
+    """Inverse of import_hidream: a HiDreamModel state_dict in the public
+    layout."""
+    out = {}
+
+    def flat(path, i=None):
+        p = path if i is None else bridge.unstack(path, i)
+        return bridge.flax_layout(p, state_dict[bridge.state_key(p)])
+
+    def lin(ckpt, path, i=None, bias=True):
+        out[prefix + ckpt + ".weight"] = flat(path + ("kernel",), i).permute(1, 0)
+        if bias:
+            out[prefix + ckpt + ".bias"] = flat(path + ("bias",), i)
+
+    for ckpt, path in _HIDREAM_TOP + (_HIDREAM_VEC if cfg.vec_dim > 0 else ()):
+        lin(ckpt, path)
+    d, s_ = cfg.depth_double, cfg.depth_single
+    for j, w in enumerate([*flat(("cap_proj_double",)), *flat(("cap_proj_single",)),
+                           flat(("txt_in", "kernel"))]):
+        out[f"{prefix}caption_projection.{j}.linear.weight"] = w.permute(1, 0)
+
+    for ckpt, p, i, _depth, double in _hidream_blocks(cfg):
+        lin(f"{ckpt}.adaLN_modulation.1", p + ("adaLN_modulation", "lin"), i)
+        for suf in ("", "_t") if double else ("",):
+            for w in ("to_q", "to_k", "to_v", "to_out"):
+                lin(f"{ckpt}.attn1.{w}{suf}", p + (f"{w}{suf}",), i)
+            for nw in ("q_rms_norm", "k_rms_norm"):
+                out[f"{prefix}{ckpt}.attn1.{nw}{suf}.weight"] = flat(p + (f"{nw}{suf}", "scale"),
+                                                                    i)
+        moe = p + ("ff_i",)
+        for j in (1, 2, 3):
+            lin(f"{ckpt}.ff_i.shared_experts.w{j}", moe + ("shared", f"w{j}"), i, bias=False)
+            for e, w in enumerate(flat(moe + (f"experts_w{j}",), i)):
+                out[f"{prefix}{ckpt}.ff_i.experts.{e}.w{j}.weight"] = w.permute(1, 0)
+            if double:
+                lin(f"{ckpt}.ff_t.w{j}", p + ("ff_t", f"w{j}"), i, bias=False)
+        lin(f"{ckpt}.ff_i.gate", moe + ("gate",), i, bias=False)
+    return out
+
+
 # --------------------------------------------------------------------------
 # generic import / export over an entry table
 
@@ -776,6 +1008,21 @@ def export_zimage(state_dict, cfg, prefix: str = "") -> dict:
     return _export(state_dict, _zimage_entries(cfg), prefix)
 
 
+def import_sd3(state, cfg, prefix: str = "model.diffusion_model.") -> dict:
+    # SD3.5 stores the per-head RMS qk-norm scales as '.ln_q/.ln_k.weight'
+    state = {k.replace(".ln_q.weight", ".ln_q.scale")
+              .replace(".ln_k.weight", ".ln_k.scale"): v
+             for k, v in state.items()}
+    return _import(state, _sd3_entries(cfg), prefix)
+
+
+def export_sd3(state_dict, cfg, prefix: str = "model.diffusion_model.") -> dict:
+    out = _export(state_dict, _sd3_entries(cfg), prefix)
+    return {k.replace(".ln_q.scale", ".ln_q.weight")
+             .replace(".ln_k.scale", ".ln_k.weight"): v
+            for k, v in out.items()}
+
+
 def import_wan(state, cfg, prefix: str = "") -> dict:
     # Wan RMSNorm tensors are stored as '.weight'
     state = {k.replace(".norm_q.weight", ".norm_q.scale")
@@ -789,6 +1036,82 @@ def export_wan(state_dict, cfg, prefix: str = "") -> dict:
     return {k.replace(".norm_q.scale", ".norm_q.weight")
              .replace(".norm_k.scale", ".norm_k.weight"): v
             for k, v in out.items()}
+
+
+def _hyvideo_entries(cfg):
+    """HunyuanVideo DiT (models/hyvideo.py) <-> the ComfyUI-native layout of
+    `hunyuan_video_t2v_720p_bf16.safetensors`: Flux-style keys for the
+    double / single streams (`double_blocks.{i}.img_attn.qkv`,
+    `...norm.query_norm.scale`, `single_blocks.{i}.linear1`), the Conv3D
+    patch embed `img_in.proj`, and the tencent-named token refiner
+    `txt_in.individual_token_refiner.blocks.{i}.*` / `txt_in.t_embedder.
+    mlp.{0,2}` / `txt_in.c_embedder.linear_{1,2}`."""
+    e = [
+        ("img_in.proj", ("img_in",), ("conv3d_as_linear", (cfg.in_channels,) + tuple(cfg.patch)),
+         None),
+        ("time_in.in_layer", ("time_in", "in_layer"), "linear", None),
+        ("time_in.out_layer", ("time_in", "out_layer"), "linear", None),
+        ("txt_in.input_embedder", ("txt_in", "input_embedder"), "linear", None),
+        ("txt_in.t_embedder.mlp.0", ("txt_in", "t_embedder", "in_layer"), "linear", None),
+        ("txt_in.t_embedder.mlp.2", ("txt_in", "t_embedder", "out_layer"), "linear", None),
+        ("txt_in.c_embedder.linear_1", ("txt_in", "c_embedder", "in_layer"), "linear", None),
+        ("txt_in.c_embedder.linear_2", ("txt_in", "c_embedder", "out_layer"), "linear", None),
+        ("final_layer.adaLN_modulation.1", ("final_layer", "adaLN_modulation"), "linear", None),
+        ("final_layer.linear", ("final_layer", "linear"), "linear", None),
+    ]
+    if cfg.vec_dim > 0:
+        e += [("vector_in.in_layer", ("vector_in", "in_layer"), "linear", None),
+              ("vector_in.out_layer", ("vector_in", "out_layer"), "linear", None)]
+    if cfg.guidance_embed:
+        e += [("guidance_in.in_layer", ("guidance_in", "in_layer"), "linear", None),
+              ("guidance_in.out_layer", ("guidance_in", "out_layer"), "linear", None)]
+    for i in range(cfg.refiner_depth):
+        b = f"txt_in.individual_token_refiner.blocks.{i}"
+        p = ("txt_in", "refiner", "block")
+        st = (i, cfg.refiner_depth)
+        e += [
+            (f"{b}.norm1", p + ("norm1",), "ln", st),
+            (f"{b}.norm2", p + ("norm2",), "ln", st),
+            (f"{b}.self_attn_qkv", p + ("self_attn_qkv",), "linear", st),
+            (f"{b}.self_attn_proj", p + ("self_attn_proj",), "linear", st),
+            (f"{b}.mlp.fc1", p + ("mlp_fc1",), "linear", st),
+            (f"{b}.mlp.fc2", p + ("mlp_fc2",), "linear", st),
+            (f"{b}.adaLN_modulation.1", p + ("adaLN_modulation",), "linear", st),
+        ]
+    for i in range(cfg.depth_double):
+        b = f"double_blocks.{i}"
+        p = ("double", "block")
+        st = (i, cfg.depth_double)
+        for s in ("img", "txt"):
+            e += [
+                (f"{b}.{s}_mod.lin", p + (f"{s}_mod",), "linear", st),
+                (f"{b}.{s}_attn.qkv", p + (f"{s}_attn_qkv",), "linear", st),
+                (f"{b}.{s}_attn.norm.query_norm", p + (f"{s}_q_norm",), "rms", st),
+                (f"{b}.{s}_attn.norm.key_norm", p + (f"{s}_k_norm",), "rms", st),
+                (f"{b}.{s}_attn.proj", p + (f"{s}_attn_proj",), "linear", st),
+                (f"{b}.{s}_mlp.0", p + (f"{s}_mlp_fc1",), "linear", st),
+                (f"{b}.{s}_mlp.2", p + (f"{s}_mlp_fc2",), "linear", st),
+            ]
+    for i in range(cfg.depth_single):
+        b = f"single_blocks.{i}"
+        p = ("single", "block")
+        st = (i, cfg.depth_single)
+        e += [
+            (f"{b}.modulation.lin", p + ("modulation",), "linear", st),
+            (f"{b}.linear1", p + ("linear1",), "linear", st),
+            (f"{b}.linear2", p + ("linear2",), "linear", st),
+            (f"{b}.norm.query_norm", p + ("q_norm",), "rms", st),
+            (f"{b}.norm.key_norm", p + ("k_norm",), "rms", st),
+        ]
+    return e
+
+
+def import_hyvideo(state, cfg, prefix: str = "") -> dict:
+    return _import(state, _hyvideo_entries(cfg), prefix)
+
+
+def export_hyvideo(state_dict, cfg, prefix: str = "") -> dict:
+    return _export(state_dict, _hyvideo_entries(cfg), prefix)
 
 
 def _wan_vae_entries(cfg):

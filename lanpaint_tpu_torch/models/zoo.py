@@ -1,16 +1,18 @@
 """Model zoo: packaged Denoisers (the eps- and v-prediction UNets, the
-flow-matching MMDiTs with Qwen-Image and the stand-in families, Z-Image and
-the Wan video DiTs for now), the image and video VAEs, the CLIP, T5 and
-Llama / Qwen text encoders and the Qwen2.5-VL vision tower.
+flow-matching MMDiTs with Qwen-Image and the stand-in families, SD3 /
+SD3.5, HiDream-I1, HunyuanVideo, Z-Image and the Wan video DiTs), the
+image and video VAEs, the CLIP, T5 and Llama / Qwen text encoders and the
+Qwen2.5-VL vision tower.
 
-PyTorch counterpart of the UNet, MMDiT, Z-Image and Wan parts of
-`lanpaint_tpu/models/zoo.py`, with its two-model wrappers
+PyTorch counterpart of `lanpaint_tpu/models/zoo.py` but for its ControlNet
+and sequence-parallel Wan builders, with its two-model wrappers
 (`switching_denoiser`, the Wan2.2 high/low-noise expert pair, and
 `dual_model_denoiser`) and the checkpoint key census
-(`family_expected_keys`, `family_census`) of the families the port runs.
-`build_unet`, `build_dit`, `build_zimage` and `build_wan` return
-(Denoiser, module); `build_vae`, `build_wan_vae`, `build_clip`, `build_t5`,
-`build_llama` and `build_vision` return the module.
+(`family_expected_keys`, `family_census`).
+`build_unet`, `build_dit`, `build_sd3`, `build_hidream`, `build_hyvideo`,
+`build_zimage` and `build_wan` return (Denoiser, module); `build_vae`,
+`build_wan_vae`, `build_clip`, `build_t5`, `build_llama` and
+`build_vision` return the module.
 Every `build_*` function builds on the CUDA card unless `device` names
 another (`utils.resolve_device`).
 Without a state_dict the weights are random, drawn on the target device
@@ -295,6 +297,161 @@ def build_z_image(state_dict=None, **kw):
 
 
 # --------------------------------------------------------------------------
+# HunyuanVideo DiT
+
+
+def build_hyvideo(
+    config=None,
+    state_dict: Optional[dict] = None,
+    *,
+    shift: float = 7.0,
+    device=None,
+    param_dtype: torch.dtype = torch.float32,
+    seed: int = 0,
+    name: str = "hunyuan-video",
+):
+    """Build the HunyuanVideo DiT Denoiser (models/hyvideo.py, the backbone
+    the reference's Hunyuan workflow samples as a single-frame T2I model) on
+    `device` (the CUDA card when None) with `param_dtype` parameters.
+    `config` defaults to HUNYUAN_VIDEO_720P_CONFIG; shift 7.0 is
+    HunyuanVideo's flow-schedule default.  A 4D (B, C, H, W) image latent
+    runs as one frame (unsqueezed to T = 1 and squeezed back), a 5D one as
+    a video; x0 = x - t * v; `cond` is {"context", "vec", "guidance"}."""
+    from .hyvideo import HUNYUAN_VIDEO_720P_CONFIG, HYVideoDiT
+
+    config = HUNYUAN_VIDEO_720P_CONFIG if config is None else config
+    module = _materialize(HYVideoDiT, config, state_dict, resolve_device(device), param_dtype,
+                          seed)
+
+    @torch.no_grad()
+    def apply(x, t, cond):
+        squeeze = x.ndim == 4  # an image latent: one frame of video
+        xv = x[:, :, None] if squeeze else x
+        is_dict = isinstance(cond, dict)
+        ctx = cond["context"] if is_dict else cond
+        vec, guidance = (cond.get(k) if is_dict else None for k in ("vec", "guidance"))
+        x0 = xv - bcast_to(t, xv.ndim) * module(xv, t, ctx, vec, guidance)
+        return x0[:, :, 0] if squeeze else x0
+
+    den = Denoiser(apply=apply, kind=ModelKind.FLOW, sigma_table=FlowSigmaTable(shift=shift),
+                   name=name, latent_channels=config.in_channels, module=module)
+    return den, module
+
+
+def build_tiny_hyvideo(state_dict=None, **kw):
+    from .hyvideo import TINY_HYVIDEO_CONFIG
+
+    return build_hyvideo(TINY_HYVIDEO_CONFIG, state_dict, name="tiny-hyvideo", **kw)
+
+
+# --------------------------------------------------------------------------
+# HiDream-I1 MoE-MMDiT
+
+
+def build_hidream(
+    config=None,
+    state_dict: Optional[dict] = None,
+    *,
+    shift: float = 3.0,
+    device=None,
+    param_dtype: torch.dtype = torch.float32,
+    seed: int = 0,
+    name: str = "hidream",
+):
+    """Build the HiDream-I1 Denoiser (models/hidream.py) on `device` (the
+    CUDA card when None) with `param_dtype` parameters.  `config` defaults
+    to HIDREAM_I1_CONFIG; x0 = x - t * v; `cond` is {"context", "vec",
+    "llama"} (`text.hidream_cond`)."""
+    from .hidream import HIDREAM_I1_CONFIG, HiDreamModel
+
+    config = HIDREAM_I1_CONFIG if config is None else config
+    module = _materialize(HiDreamModel, config, state_dict, resolve_device(device), param_dtype,
+                          seed)
+
+    @torch.no_grad()
+    def apply(x, t, cond):
+        is_dict = isinstance(cond, dict)
+        ctx = cond["context"] if is_dict else cond
+        vec, llama = (cond.get(k) if is_dict else None for k in ("vec", "llama"))
+        return x - bcast_to(t, x.ndim) * module(x, t, ctx, vec, llama)
+
+    den = Denoiser(apply=apply, kind=ModelKind.FLOW, sigma_table=FlowSigmaTable(shift=shift),
+                   is_flux=False, name=name, latent_channels=config.latent_channels,
+                   module=module)
+    return den, module
+
+
+def build_tiny_hidream(state_dict=None, **kw):
+    from .hidream import TINY_HIDREAM_CONFIG
+
+    return build_hidream(TINY_HIDREAM_CONFIG, state_dict, name="tiny-hidream", **kw)
+
+
+# --------------------------------------------------------------------------
+# SD3 / SD3.5 rectified-flow MMDiT
+
+
+def build_sd3(
+    config,
+    state_dict: Optional[dict] = None,
+    *,
+    shift: float = 3.0,
+    device=None,
+    param_dtype: torch.dtype = torch.float32,
+    seed: int = 0,
+    name: str = "sd3",
+):
+    """Build the SD3 / SD3.5 MMDiT Denoiser (models/sd3.py) of `config` on
+    `device` (the CUDA card when None) with `param_dtype` parameters.
+    x0 = x - t * v on the shift-3 flow ladder; `cond` is {"context", "vec"}
+    (`text.sd3_cond`)."""
+    from .sd3 import SD3MMDiT
+
+    module = _materialize(SD3MMDiT, config, state_dict, resolve_device(device), param_dtype, seed)
+
+    @torch.no_grad()
+    def apply(x, t, cond):
+        is_dict = isinstance(cond, dict)
+        ctx = cond["context"] if is_dict else cond
+        vec = cond.get("vec") if is_dict else None
+        return x - bcast_to(t, x.ndim) * module(x, t, ctx, vec)
+
+    den = Denoiser(apply=apply, kind=ModelKind.FLOW, sigma_table=FlowSigmaTable(shift=shift),
+                   is_flux=False, name=name, latent_channels=config.in_channels, module=module)
+    return den, module
+
+
+def build_sd35_large(state_dict=None, **kw):
+    from .sd3 import SD35_LARGE_CONFIG
+
+    return build_sd3(SD35_LARGE_CONFIG, state_dict, name="sd3.5-large", **kw)
+
+
+def build_sd35_large_turbo(state_dict=None, **kw):
+    from .sd3 import SD35_LARGE_TURBO_CONFIG
+
+    return build_sd3(SD35_LARGE_TURBO_CONFIG, state_dict, name="sd3.5-large-turbo", **kw)
+
+
+def build_sd35_medium(state_dict=None, **kw):
+    from .sd3 import SD35_MEDIUM_CONFIG
+
+    return build_sd3(SD35_MEDIUM_CONFIG, state_dict, name="sd3.5-medium", **kw)
+
+
+def build_sd3_medium(state_dict=None, **kw):
+    from .sd3 import SD3_MEDIUM_CONFIG
+
+    return build_sd3(SD3_MEDIUM_CONFIG, state_dict, name="sd3-medium", **kw)
+
+
+def build_tiny_sd3(state_dict=None, **kw):
+    from .sd3 import TINY_SD3_CONFIG
+
+    return build_sd3(TINY_SD3_CONFIG, state_dict, name="tiny-sd3", **kw)
+
+
+# --------------------------------------------------------------------------
 # image autoencoders
 
 
@@ -505,21 +662,11 @@ def dual_model_denoiser(positive: Denoiser, negative: Denoiser,
 # --------------------------------------------------------------------------
 # checkpoint key census
 
-# the JAX package's census families whose models the port does not run yet,
-# by the ROADMAP item that ports them
-_CENSUS_WAITS = {
-    "hidream": "A.14", "sd35-large": "A.14", "sd35-medium": "A.14", "sd3-medium": "A.14",
-    "hyvideo": "A.14",
-}
-
-
 def family_expected_keys(family: str):
     """The full checkpoint key set each family's importer consumes, from
     the import tables alone (no tensor is allocated): the key census of
-    `lanpaint_tpu.models.zoo.family_expected_keys` for the families the
-    port runs.  A family whose model waits for a later ROADMAP item raises
-    NotImplementedError naming it; an unknown family raises ValueError as
-    the JAX package does."""
+    `lanpaint_tpu.models.zoo.family_expected_keys`.  An unknown family
+    raises ValueError as the JAX package does."""
     from . import load as L
 
     if family in ("sd15", "sd21", "sdxl"):
@@ -543,10 +690,20 @@ def family_expected_keys(family: str):
 
         cfg = WAN22_T2V_14B_CONFIG if family == "wan-14b" else WAN22_TI2V_5B_CONFIG
         return L.expected_keys(L._wan_entries(cfg), "")
-    if family in _CENSUS_WAITS:
-        raise NotImplementedError(
-            f"family {family!r}: its model and importer are not ported yet "
-            f"(ROADMAP {_CENSUS_WAITS[family]})")
+    if family == "hidream":
+        from .hidream import HIDREAM_I1_CONFIG
+
+        return L.hidream_expected_keys(HIDREAM_I1_CONFIG)
+    if family in ("sd35-large", "sd35-medium", "sd3-medium"):
+        from .sd3 import SD3_MEDIUM_CONFIG, SD35_LARGE_CONFIG, SD35_MEDIUM_CONFIG
+
+        cfg = {"sd35-large": SD35_LARGE_CONFIG, "sd35-medium": SD35_MEDIUM_CONFIG,
+               "sd3-medium": SD3_MEDIUM_CONFIG}[family]
+        return L.expected_keys(L._sd3_entries(cfg), "model.diffusion_model.")
+    if family == "hyvideo":
+        from .hyvideo import HUNYUAN_VIDEO_720P_CONFIG
+
+        return L.expected_keys(L._hyvideo_entries(HUNYUAN_VIDEO_720P_CONFIG), "")
     raise ValueError(
         f"no key census for family {family!r}; supported: sd15 sd21 sdxl "
         "flux-dev flux-schnell flux2-dev flux2-klein krea2 anima qwen "

@@ -43,7 +43,8 @@ _BF16 = {torch.bfloat16: 1, torch.float32: 0}
 # block shape of least launch-weighted device time in the sweep on the card
 # (scripts/measure_torch_row_norm.py; NVIDIA H100 80GB HBM3, 700 W); other
 # widths follow `launch_config`'s rule
-CONFIG = {128: (128, 8), 640: (256, 32), 1280: (192, 96), 3072: (128, 128)}
+CONFIG = {64: (128, 8), 128: (128, 8), 640: (256, 32), 1280: (192, 96), 2560: (96, 96),
+          3072: (128, 128), 3584: (128, 128), 3840: (128, 128)}
 
 
 def layernorm_ref(x, gamma=None, beta=None, eps: float = 1e-5, out_dtype=None):

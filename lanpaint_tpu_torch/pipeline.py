@@ -27,10 +27,6 @@ from torch import nn
 from .api import inpaint_image, ksampler
 from .text import NativeEncoder, encode_prompt
 
-# from_components' families whose models wait for ROADMAP A.14
-_COMPONENTS_WAIT = ("sd35",)
-
-
 def _import_clip_auto(sub: Dict[str, Any], cfg):
     """Import a CLIP text tower from either layout found in checkpoints."""
     from .models.load import import_clip, import_clip_openclip
@@ -118,42 +114,43 @@ class LanPaintPipeline:
     # ------------------------------------------------------------------
     @classmethod
     def from_components(cls, *, family: str, model, vae,
-                        clip_l=None, t5=None, llama=None,
+                        clip_l=None, clip_g=None, t5=None, llama=None,
                         clip_vocab: Optional[str] = None,
                         clip_merges: Optional[str] = None,
                         t5_tokenizer=None, llama_tokenizer=None,
                         with_vision: bool = False,
                         model_config=None, vae_config=None,
-                        clip_l_config=None, t5_config=None, llama_config=None,
+                        clip_l_config=None, clip_g_config=None,
+                        t5_config=None, llama_config=None,
                         vision_config=None, shift: Optional[float] = None,
                         height: int = 1024, width: int = 1024,
-                        device=None, param_dtype: torch.dtype = torch.float32
+                        device=None, param_dtype: torch.dtype = torch.float32,
+                        encoder_dtype: Optional[torch.dtype] = None
                         ) -> "LanPaintPipeline":
         """Build a pipeline from the multi-file layout modern releases ship
         (separate diffusion model / text encoder(s) / VAE safetensors — the
         reference's UNETLoader + DualCLIPLoader + VAELoader node trio).
 
-        Families: "flux" (clip_l + t5 + the 16-channel VAE), "qwen" (the
-        Qwen2.5-VL llama stack + the Wan2.1-graph VAE at one frame;
-        with_vision=True also loads the vision tower, from the same llama
-        state, for Qwen-Image-Edit's image conditioning) and "z-image" (the
-        Qwen3-4B stack + the 16-channel VAE).  "sd35" raises
-        NotImplementedError: its model waits for ROADMAP A.14, and with it
-        the JAX signature's clip_g and clip_g_config arguments.  Component
+        Families: "flux" (clip_l + t5 + the 16-channel VAE), "sd35" (clip_l
+        + clip_g + t5 + the SD3 VAE; the model's `model.diffusion_model.`
+        prefix detected), "qwen" (the Qwen2.5-VL llama stack + the
+        Wan2.1-graph VAE at one frame; with_vision=True also loads the
+        vision tower, from the same llama state, for Qwen-Image-Edit's image
+        conditioning) and "z-image" (the Qwen3-4B stack + the 16-channel
+        VAE).  Component
         args accept file paths or pre-loaded state dicts; tokenizer args
         accept paths (tokenizer.json / spiece.model / vocab+merges) or
         constructed tokenizer objects.  *_config args override the
-        full-size defaults (used by the tiny-model tests)."""
+        full-size defaults (used by the tiny-model tests).  The text
+        encoders (and the vision tower) take `encoder_dtype` parameters,
+        `param_dtype` when it is None: a bf16 diffusion model beside fp32
+        encoders, say."""
         from .models import textenc as TE
         from .models import zoo
         from .models.load import (import_clip, import_dit, import_llama, import_t5, import_vae,
                                   load_safetensors)
 
-        if family in _COMPONENTS_WAIT:
-            raise NotImplementedError(
-                f"from_components(family={family!r}): its model and importers are not "
-                "ported yet (ROADMAP A.14)")
-        if family not in ("flux", "qwen", "z-image"):
+        if family not in ("flux", "sd35", "qwen", "z-image"):
             raise ValueError(f"from_components: unknown family {family!r} "
                              "(flux, sd35, qwen, z-image)")
 
@@ -193,6 +190,7 @@ class LanPaintPipeline:
         from .models.vae import FLUX_VAE_CONFIG
 
         built = dict(device=device, param_dtype=param_dtype)
+        enc_built = dict(device=device, param_dtype=encoder_dtype or param_dtype)
         encoders: Dict[str, Any] = {}
         if family == "flux":
             from .models.dit import FLUX_DEV_CONFIG
@@ -206,9 +204,33 @@ class LanPaintPipeline:
             cl = clip_l_config or TE.CLIP_L_CONFIG
             tc = t5_config or TE.T5_XXL_CONFIG
             encoders["clip_l"] = NativeEncoder("clip", import_clip(_state(clip_l), cl), cl,
-                                               _clip_tok(), **built)
+                                               _clip_tok(), **enc_built)
             encoders["t5"] = NativeEncoder("t5", import_t5(_state(t5), tc), tc, _t5_tok(),
-                                           **built)
+                                           **enc_built)
+        elif family == "sd35":
+            from .models.load import import_sd3
+            from .models.sd3 import SD35_LARGE_CONFIG
+            from .models.vae import SD3_VAE_CONFIG
+
+            cfg = model_config or SD35_LARGE_CONFIG
+            st = _state(model)
+            prefix = ("model.diffusion_model."
+                      if any(k.startswith("model.diffusion_model.") for k in st) else "")
+            den, _ = zoo.build_sd3(cfg, import_sd3(st, cfg, prefix=prefix),
+                                   shift=3.0 if shift is None else shift, name="sd35", **built)
+            vae_cfg = vae_config or SD3_VAE_CONFIG
+            vae_module = zoo.build_vae(vae_cfg, _vae_import(vae, vae_cfg), **built)
+            tok = _clip_tok()
+            cl = clip_l_config or TE.CLIP_L_CONFIG
+            cg = clip_g_config or TE.CLIP_G_CONFIG
+            encoders["clip_l"] = NativeEncoder("clip", _import_clip_auto(_state(clip_l), cl), cl,
+                                               tok, **enc_built)
+            encoders["clip_g"] = NativeEncoder("clip", _import_clip_auto(_state(clip_g), cg), cg,
+                                               tok, **enc_built)
+            tc = t5_config or TE.T5_XXL_CONFIG
+            encoders["t5"] = NativeEncoder("t5", import_t5(_state(t5), tc), tc, _t5_tok(),
+                                           **enc_built)
+            family = "sd3"
         elif family == "z-image":
             from .models.load import import_zimage
             from .models.zimage import Z_IMAGE_S3_CONFIG
@@ -221,7 +243,7 @@ class LanPaintPipeline:
             vae_module = zoo.build_vae(vae_cfg, _vae_import(vae, vae_cfg), **built)
             lc = llama_config or TE.QWEN3_4B_CONFIG
             encoders["llama"] = NativeEncoder("llama", import_llama(_state(llama), lc), lc,
-                                              _llama_tok(), **built)
+                                              _llama_tok(), **enc_built)
             family = "qwen3"
         else:  # qwen
             from .models.dit import QWEN_IMAGE_CONFIG
@@ -239,12 +261,13 @@ class LanPaintPipeline:
             lst = _state(llama)
             lc = llama_config or TE.QWEN25_7B_CONFIG
             encoders["llama"] = NativeEncoder("llama", import_llama(lst, lc), lc, _llama_tok(),
-                                              **built)
+                                              **enc_built)
             if with_vision:
                 from .models.vision import QWEN25_VL_VISION_CONFIG
 
                 vc = vision_config or QWEN25_VL_VISION_CONFIG
-                encoders["vision"] = VisionEncoder(import_qwen_vl_vision(lst, vc), vc, **built)
+                encoders["vision"] = VisionEncoder(import_qwen_vl_vision(lst, vc), vc,
+                                                   **enc_built)
         return cls(den, vae=vae_module, encoders=encoders, family=family, height=height,
                    width=width)
 

@@ -21,9 +21,8 @@ Conventions (public model cards / reference hosts):
 - Qwen-Image-Edit: the source image as Qwen2.5-VL vision tokens spliced
   into the prompt sequence, with the 3-stream multimodal rope.
 - HiDream: T5 sequence + pooled vec + per-layer Llama hidden states.
-
-HiDream and HunyuanVideo wait for their models (ROADMAP A.14): their
-families raise NotImplementedError.
+- HunyuanVideo: llava-llama3 hidden states behind a chat template, its
+  system prefix cropped, + pooled CLIP-L.
 """
 
 from __future__ import annotations
@@ -33,11 +32,6 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 from torch import nn
-
-# encode_prompt's families whose models wait for a later ROADMAP item
-_FAMILY_WAITS = {"hidream": "HiDream (models/hidream.py, import_hidream)",
-                 "hyvideo": "HunyuanVideo (models/hyvideo.py, import_hyvideo)"}
-
 
 def _a(x) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
@@ -329,10 +323,13 @@ def encode_prompt(prompt: str, *, family: str,
     flux (clip_l+t5), wan (t5), qwen (llama: the Qwen-Image template, its
     34 prefix states dropped), qwen_edit (llama + vision + image: the
     source image as Qwen2.5-VL vision tokens in the prompt sequence),
-    qwen3 (bare Qwen3 final states: Z-Image, Anima, Klein, Krea2).  CLIP
-    hidden states use each encoder's clip_skip (default 2 = penultimate,
-    the hosts' convention).  hidream and hyvideo raise NotImplementedError
-    (ROADMAP A.14)."""
+    qwen3 (bare Qwen3 final states: Z-Image, Anima, Klein, Krea2), hidream
+    (llama + clip_l + t5: the Llama trunk's per-layer states after the
+    embedding, CLIP-L pooled, T5; with clip_g, the pooled vec is CLIP-L's
+    followed by CLIP-G's, the full-size model's 2,048) and hyvideo (llama + clip_l: the
+    HunyuanVideo image template, or the video one with video=True, its
+    system prefix cropped).  CLIP hidden states use each encoder's
+    clip_skip (default 2 = penultimate, the hosts' convention)."""
 
     def clip_out(enc):
         hs, _last, pooled = enc(prompt)
@@ -385,7 +382,24 @@ def encode_prompt(prompt: str, *, family: str,
         tpl = assemble_kw.pop("template", None)
         _hs, final = llama(tpl.format(prompt) if tpl else prompt)
         return qwen_cond(final)
-    if family in _FAMILY_WAITS:
-        raise NotImplementedError(f"encode_prompt(family={family!r}): {_FAMILY_WAITS[family]} "
-                                  "is not ported yet (ROADMAP A.14)")
+    if family == "hidream":
+        hs, _final = llama(prompt)
+        pooled = clip_out(clip_l)[1]
+        if clip_g is not None:
+            # HiDream-I1's pooled input is CLIP-L's 768 + CLIP-G's 1280
+            # (HIDREAM_I1_CONFIG.vec_dim 2048); the JAX family takes CLIP-L's
+            # alone, which that model's vector_in refuses
+            pooled = torch.cat([pooled, clip_out(clip_g)[1]], dim=-1)
+        return hidream_cond(t5(prompt, t5_length), pooled, hs[1:])
+    if family == "hyvideo":
+        # HunyuanVideo dual encoder: llava-llama3 hidden states behind the
+        # official chat template with its system prefix cropped, + CLIP-L
+        # pooled; video=True selects the video template (crop 95, not 36)
+        video = assemble_kw.pop("video", False)
+        tpl = assemble_kw.pop("template",
+                              HYVIDEO_VIDEO_TEMPLATE if video else HYVIDEO_IMAGE_TEMPLATE)
+        crop = assemble_kw.pop("crop_start", HYVIDEO_VIDEO_CROP if video else HYVIDEO_IMAGE_CROP)
+        _hs, final = llama(tpl.format(prompt))
+        pooled = clip_out(clip_l)[1]
+        return hyvideo_cond(final[:, crop:], pooled)
     raise ValueError(f"unknown family {family!r}")

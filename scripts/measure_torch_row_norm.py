@@ -2,11 +2,14 @@
 """Device time of the port's row-norm kernel by the shape of its blocks, on
 one CUDA card.
 
-    python3 scripts/measure_torch_row_norm.py
+    python3 scripts/measure_torch_row_norm.py [--widths 64,2560,3584,3840]
 
-For each row-norm shape of the main paths (`chip_smoke.NORM_SHAPES`: the
-SDXL LayerNorms, the DiTs' fp32-out adaLN norms, QKNorm's strided views of
-a fused projection, Wan's full-width norms), runs `csrc/row_norm.cu` under
+For each row-norm shape of the main paths (`chip_smoke.NORM_SHAPES`, with
+the shapes whose text lengths come from the synthetic tokenizers: the SDXL
+LayerNorms, the DiTs' fp32-out adaLN norms, QKNorm's strided views of a
+fused projection, the full-width q / k norms of Wan and HiDream, Z-Image's
+and Qwen-Image's RMS norms; `--widths` keeps the rows of those widths
+only), runs `csrc/row_norm.cu` under
 each candidate block shape, (threads a block, threads a row): up to 32
 threads a row with many rows a block, or any whole number of warps a row
 with 1, 2 or 4 rows a block, with 1 to 8 16-byte vectors a thread.  Each candidate is
@@ -17,8 +20,9 @@ host queues behind a sleep kernel), in turns, in order and then in
 reverse.  One JSON line per shape and candidate, after the card's
 nvidia-smi name and power limit; then one line per row width with the
 candidate of least device time summed over that width's shapes, each
-weighted by its launches in the four main-path runs (`ops/norms.CONFIG`
-takes those).
+weighted by its launches in the main-path runs (`ops/norms.CONFIG` takes
+those), beside the weighted time of the block shape the kernel took for
+that width when the script ran (`norms.launch_config`).
 """
 
 import argparse
@@ -54,9 +58,10 @@ def candidates(c: int) -> list:
 def case(shape, mode, gen):
     """(kernel(config), plain()) on inputs as chip_smoke phase 3 makes them."""
     c = shape[-1]
-    if mode == "rmsnorm":
+    if mode.startswith("rmsnorm"):
         x = (chip_smoke._qkv_views(*shape, gen)[0] if len(shape) == 4 else
-             torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16))
+             torch.randn(shape, device="cuda", generator=gen))
+        x = x if mode == "rmsnorm_fp32" else x.to(torch.bfloat16)
         g = (1.0 + 0.1 * torch.randn(c, device="cuda", generator=gen)).to(torch.bfloat16)
         return (lambda cfg: norms._launch(norms.rmsnorm, x, g, None, 1e-6, True, None, cfg),
                 lambda: norms.rmsnorm_ref(x, g))
@@ -71,17 +76,31 @@ def case(shape, mode, gen):
             lambda: norms.layernorm_ref(x, g, beta, eps=1e-6, out_dtype=out_dtype))
 
 
+def add_path_shapes() -> None:
+    """chip_smoke's rows whose text lengths come from its synthetic
+    tokenizers (Z-Image, Qwen-Image-Edit, SD3.5, HiDream, HunyuanVideo)."""
+    chip_smoke.add_new_path_shapes(*chip_smoke.text_lengths(chip_smoke.synthetic_qwen_tokenizer()))
+    chip_smoke.add_a14_shapes(
+        *chip_smoke.a14_text_lengths(chip_smoke.synthetic_llama_tokenizer()))
+
+
 def main() -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--widths", default="",
+                        help="comma-separated row widths to sweep (default: every width)")
+    widths = {int(c) for c in parser.parse_args().widths.split(",") if c}
     if not torch.cuda.is_available():
         print("measure_torch_row_norm: no CUDA device", file=sys.stderr)
         return 1
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    add_path_shapes()
     gen = torch.Generator(device="cuda").manual_seed(0)
     totals = {}  # C -> {config: launch-weighted device us}
     for shape, mode, calls, *run_calls in chip_smoke.NORM_SHAPES:
         c = shape[-1]
+        if widths and c not in widths:
+            continue
         launches = (sum(n * chip_smoke.FORWARDS[p] for p, n in calls.items())
                     + sum((run_calls[0] if run_calls else {}).values()))
         kernel, plain = case(shape, mode, gen)
@@ -105,8 +124,9 @@ def main() -> int:
                               "threads_per_row": cfg[1], "device_us": times[cfg],
                               "launches_per_runs": launches}), flush=True)
     for c, by_cfg in totals.items():
-        best = min(by_cfg, key=by_cfg.get)
-        print(json.dumps({"C": c, "best": list(best),
+        best, current = min(by_cfg, key=by_cfg.get), norms.launch_config(c)
+        print(json.dumps({"C": c, "best": list(best), "best_us": by_cfg[best],
+                          "current": list(current), "current_us": by_cfg.get(current),
                           "weighted_us": {f"{t}x{r}": v for (t, r), v in by_cfg.items()}}),
               flush=True)
     return 0

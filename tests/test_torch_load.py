@@ -4,7 +4,8 @@
 For every family the port imports (the SD UNets, the VAE, CLIP in the HF
 and the OpenCLIP layouts, T5 / UMT5, the Llama / Qwen2.5 / Qwen3 trunks,
 the Qwen2.5-VL vision tower, the MMDiT in the Flux and the Qwen-Image
-layouts, Z-Image, the Wan DiT and both Wan VAEs), a checkpoint state is
+layouts, SD3.5 and SD3-Medium, HiDream-I1, HunyuanVideo, Z-Image, the Wan
+DiT and both Wan VAEs), a checkpoint state is
 made by the JAX exporter from a tree of random values (every leaf
 distinct, biases and norm scales included): the port's import must equal
 `bridge.params_from_flax` of the JAX import bit for bit, cover the port
@@ -28,7 +29,10 @@ import torch
 
 import manifests as M
 from lanpaint_tpu.models import dit as jdit
+from lanpaint_tpu.models import hidream as jhidream
+from lanpaint_tpu.models import hyvideo as jhyvideo
 from lanpaint_tpu.models import load as JL
+from lanpaint_tpu.models import sd3 as jsd3
 from lanpaint_tpu.models import textenc as jte
 from lanpaint_tpu.models import unet as junet
 from lanpaint_tpu.models import vae as jvae
@@ -39,7 +43,10 @@ from lanpaint_tpu.models import zimage as jzimage
 from lanpaint_tpu.models import zoo as jzoo
 from lanpaint_tpu_torch.models import bridge
 from lanpaint_tpu_torch.models import dit as tdit
+from lanpaint_tpu_torch.models import hidream as thidream
+from lanpaint_tpu_torch.models import hyvideo as thyvideo
 from lanpaint_tpu_torch.models import load as TL
+from lanpaint_tpu_torch.models import sd3 as tsd3
 from lanpaint_tpu_torch.models import textenc as tte
 from lanpaint_tpu_torch.models import unet as tunet
 from lanpaint_tpu_torch.models import vae as tvae
@@ -174,6 +181,34 @@ def _qwen_image():
             TL.import_qwen)
 
 
+def _sd3(dual):
+    kw = {} if dual else dict(dual_attn_layers=(), qk_norm=False)
+    jcfg = dataclasses.replace(jsd3.TINY_SD3_CONFIG, **kw)
+    tcfg = dataclasses.replace(tsd3.TINY_SD3_CONFIG, **kw)
+    tree = random_tree(jsd3.SD3MMDiT(jcfg), jnp.zeros((1, 4, 8, 8)), jnp.full((1,), 0.5),
+                       jnp.zeros((1, 3, jcfg.context_dim)), jnp.zeros((1, jcfg.vec_dim)))
+    return (tree, jcfg, tcfg, tsd3.SD3MMDiT, JL.export_sd3, JL.import_sd3, TL.export_sd3,
+            TL.import_sd3)
+
+
+def _hidream():
+    jcfg, tcfg = jhidream.TINY_HIDREAM_CONFIG, thidream.TINY_HIDREAM_CONFIG
+    tree = random_tree(jhidream.HiDreamModel(jcfg), jnp.zeros((1, 4, 8, 8)), jnp.full((1,), 0.5),
+                       jnp.zeros((1, 3, jcfg.context_dim)), jnp.zeros((1, jcfg.vec_dim)),
+                       jnp.zeros((2, 1, 4, jcfg.llama_dim)))
+    return (tree, jcfg, tcfg, thidream.HiDreamModel, JL.export_hidream, JL.import_hidream,
+            TL.export_hidream, TL.import_hidream)
+
+
+def _hyvideo():
+    jcfg, tcfg = jhyvideo.TINY_HYVIDEO_CONFIG, thyvideo.TINY_HYVIDEO_CONFIG
+    tree = random_tree(jhyvideo.HYVideoDiT(jcfg), jnp.zeros((1, 4, 1, 8, 8)), jnp.full((1,), 0.5),
+                       jnp.zeros((1, 3, jcfg.context_dim)), jnp.zeros((1, jcfg.vec_dim)),
+                       jnp.full((1,), 6.0))
+    return (tree, jcfg, tcfg, thyvideo.HYVideoDiT, JL.export_hyvideo, JL.import_hyvideo,
+            TL.export_hyvideo, TL.import_hyvideo)
+
+
 def _wan():
     jcfg, tcfg = jwan.TINY_WAN_CONFIG, twan.TINY_WAN_CONFIG
     tree = random_tree(jwan.WanModel(jcfg), jnp.zeros((1, jcfg.in_channels, 3, 8, 8)),
@@ -199,7 +234,8 @@ FAMILIES = {
     "llama": lambda: _llama(rope_scaling=(8.0, 1.0, 4.0, 64)),
     "qwen25": lambda: _llama(qkv_bias=True, mrope_section=(1, 1, 0)),
     "qwen3": lambda: _llama(head_dim=8, qk_norm=True), "qwen_vl_vision": _vision,
-    "zimage": _zimage, "qwen_image": _qwen_image,
+    "zimage": _zimage, "qwen_image": _qwen_image, "sd3": lambda: _sd3(True),
+    "sd3_medium": lambda: _sd3(False), "hidream": _hidream, "hyvideo": _hyvideo,
 }
 
 
@@ -351,7 +387,6 @@ PORTED_FAMILIES = ["sd15", "sd21", "sdxl", "flux-dev", "flux-schnell", "wan-14b"
 # ported since are held to the JAX package's census like PORTED_FAMILIES
 WAITING_FAMILIES = ["flux2-dev", "flux2-klein", "krea2", "anima", "qwen", "hidream",
                     "sd35-large", "sd35-medium", "sd3-medium", "zimage", "hyvideo"]
-STILL_WAITING = ["hidream", "sd35-large", "sd35-medium", "sd3-medium", "hyvideo"]
 
 
 @pytest.mark.parametrize("family", PORTED_FAMILIES)
@@ -361,18 +396,14 @@ def test_family_expected_keys_match_jax(family):
 
 @pytest.mark.parametrize("family", WAITING_FAMILIES + ["nope"])
 def test_family_expected_keys_of_unported_families_raise(family):
-    """An unknown family raises the JAX package's ValueError; one whose
-    model waits raises NotImplementedError naming its ROADMAP item; the
-    others give the JAX package's key census."""
+    """An unknown family raises the JAX package's ValueError; every family
+    once waiting gives the JAX package's key census."""
     if family == "nope":
         with pytest.raises(ValueError) as want:
             jzoo.family_expected_keys(family)
         with pytest.raises(ValueError) as got:
             tzoo.family_expected_keys(family)
         assert str(got.value) == str(want.value)
-    elif family in STILL_WAITING:
-        with pytest.raises(NotImplementedError, match="A.14"):
-            tzoo.family_expected_keys(family)
     else:
         got = tzoo.family_expected_keys(family)
         assert got and got == jzoo.family_expected_keys(family)

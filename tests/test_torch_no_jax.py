@@ -2,12 +2,11 @@
 
 In a fresh interpreter where `import jax` (and flax, safetensors and
 ml_dtypes, which that machine lacks too) fails, the package and every
-module of it (api, engine, masks, quality, utils, the UNet, DiT, Z-Image,
-Wan, VAE, Wan VAE, TAESD, text-encoder and vision-tower models, the
-checkpoint loader and its
-native reader, the tokenizers, text conditioning, the pipeline, the kernel
-wrappers) import, and nothing of the JAX package (or triton) gets loaded
-along the way.
+module of it (api, engine, masks, quality, utils, the UNet, DiT, SD3,
+HiDream, HunyuanVideo, Z-Image, Wan, VAE, Wan VAE, TAESD, text-encoder and
+vision-tower models, the checkpoint loader and its native reader, the
+tokenizers, text conditioning, the pipeline, the kernel wrappers) import,
+and nothing of the JAX package (or triton) gets loaded along the way.
 """
 
 import subprocess
@@ -27,7 +26,10 @@ import lanpaint_tpu_torch.masks
 import lanpaint_tpu_torch.quality
 import lanpaint_tpu_torch.utils
 import lanpaint_tpu_torch.models.dit
+import lanpaint_tpu_torch.models.hidream
+import lanpaint_tpu_torch.models.hyvideo
 import lanpaint_tpu_torch.models.layers
+import lanpaint_tpu_torch.models.sd3
 import lanpaint_tpu_torch.models.taesd
 import lanpaint_tpu_torch.models.unet
 import lanpaint_tpu_torch.models.vae

@@ -133,7 +133,8 @@ def test_the_wrapper_refuses_before_any_launch():
     assert tnorms.rmsnorm.launches == 0 and tnorms.layernorm.launches == 0
 
 
-@pytest.mark.parametrize("c", [8, 64, 128, 256, 640, 1280, 2048, 3072, 4096, 8192])
+@pytest.mark.parametrize("c", [8, 64, 128, 256, 640, 1280, 2048, 2560, 3072, 3584, 3840, 4096,
+                               8192])
 def test_launch_config_meets_the_kernel_contract(c):
     """(threads a block, threads a row) as `lp_row_norm` takes them: whole
     warps, at most 1,024; threads a row a power of two up to 32 or a

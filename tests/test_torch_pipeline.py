@@ -12,11 +12,13 @@ trees bit for bit, and `pipe.encode` must match JAX's within relative L2
 equal the port's own `inpaint_image` fed `pipe.encode(prompt)` /
 `pipe.encode("")` and the same seed, bit for bit (`inpaint_image` is held
 to JAX by tests/test_torch_pixel.py).  `from_components` gets the same
-checks for "flux", "z-image" (a tiny Z-Image, a Qwen3 trunk, the tiny VAE)
-and "qwen" (a tiny Qwen-Image MMDiT in the diffusers layout, a Qwen2.5
+checks for "flux", "z-image" (a tiny Z-Image, a Qwen3 trunk, the tiny VAE),
+"qwen" (a tiny Qwen-Image MMDiT in the diffusers layout, a Qwen2.5
 trunk and the tiny vision tower in one llama state, the tiny Wan2.1-graph
-VAE at one frame), the latter's encode with and without an image; "sd35",
-whose model waits, raises.
+VAE at one frame), the latter's encode with and without an image, and
+"sd35" (a tiny SD3 MMDiT with a dual-attention layer under the
+`model.diffusion_model.` prefix, CLIP-L in the HF layout, CLIP-G in the
+OpenCLIP one, a T5, the tiny VAE).
 """
 
 import dataclasses
@@ -31,6 +33,7 @@ from lanpaint_tpu import pipeline as jpipeline
 from lanpaint_tpu import tokenizers as jtok
 from lanpaint_tpu.models import dit as jdit
 from lanpaint_tpu.models import load as JL
+from lanpaint_tpu.models import sd3 as jsd3
 from lanpaint_tpu.models import textenc as jte
 from lanpaint_tpu.models import unet as junet
 from lanpaint_tpu.models import vae as jvae
@@ -41,6 +44,7 @@ from lanpaint_tpu_torch import api
 from lanpaint_tpu_torch import pipeline as tpipeline
 from lanpaint_tpu_torch.models import bridge
 from lanpaint_tpu_torch.models import dit as tdit
+from lanpaint_tpu_torch.models import sd3 as tsd3
 from lanpaint_tpu_torch.models import textenc as tte
 from lanpaint_tpu_torch.models import unet as tunet
 from lanpaint_tpu_torch.models import vae as tvae
@@ -272,8 +276,63 @@ def _llama_state(enc):
     return _np(JL.export_llama(enc.params, enc.cfg))
 
 
+def _sd35_components(tmp_path, **port_kw):
+    """(JAX pipeline, port pipeline) of a tiny SD3 MMDiT (one dual-attention
+    layer; its `model.diffusion_model.` prefix autodetected), the tiny VAE,
+    a CLIP-L and a CLIP-G (whose hidden widths 8 + 12 pad into T5's 32 and
+    whose pooled 8 + 8 make the model's vec 16) and a T5, written as files."""
+    vp, mp, _ = _clip_files(tmp_path)
+    spiece = tmp_path / "spiece.model"
+    spiece.write_bytes(_spiece_bytes())
+    spiece, n_pieces = str(spiece), len(jtok.load_sentencepiece_model(str(spiece)))
+    jcfg, tcfg = jsd3.TINY_SD3_CONFIG, tsd3.TINY_SD3_CONFIG
+    mtree = random_tree(jsd3.SD3MMDiT(jcfg), jnp.zeros((1, 4, 8, 8)), jnp.full((1,), 0.5),
+                        jnp.zeros((1, 3, jcfg.context_dim)), jnp.zeros((1, jcfg.vec_dim)),
+                        seed=5)
+    vtree = random_tree(jvae.VAE(jvae.TINY_VAE_CONFIG), jnp.zeros((1, 3, 16, 16)),
+                        jax.random.PRNGKey(0), seed=6)
+    jl, tl = _clip_cfgs(CLIP_L, 49408)
+    jg, tg = _clip_cfgs(dict(CLIP_G, projection_dim=8), 49408)
+    ltree = random_tree(jte.CLIPTextEncoder(jl), jnp.zeros((1, 77), jnp.int32), seed=7)
+    gtree = random_tree(jte.CLIPTextEncoder(jg), jnp.zeros((1, 77), jnp.int32), seed=8)
+    t5kw = dict(vocab_size=n_pieces, d_model=jcfg.context_dim, head_dim=8, d_ff=40, layers=2,
+                heads=3, rel_buckets=8, rel_max_distance=16)
+    jt5, tt5 = jte.T5Config(**t5kw), tte.T5Config(**t5kw)
+    t5_tree = random_tree(jte.T5Encoder(jt5), jnp.zeros((1, 8), jnp.int32), seed=9)
+    files = dict(model=_np(JL.export_sd3(mtree, jcfg)),
+                 vae=_np(JL.export_vae(vtree, jvae.TINY_VAE_CONFIG)),
+                 clip_l=_np(JL.export_clip(ltree, jl)),
+                 clip_g=_hf_to_openclip(_np(JL.export_clip(gtree, jg)), jg.layers),
+                 t5=_np(JL.export_t5(t5_tree, jt5)))
+    files = {k: _write(tmp_path / f"{k}.safetensors", v, bf16=False) for k, v in files.items()}
+    common = dict(family="sd35", clip_vocab=vp, clip_merges=mp, t5_tokenizer=spiece, height=16,
+                  width=24, **files)
+    jpipe = jpipeline.LanPaintPipeline.from_components(
+        model_config=jcfg, vae_config=jvae.TINY_VAE_CONFIG, clip_l_config=jl, clip_g_config=jg,
+        t5_config=jt5, **common)
+    tpipe = tpipeline.LanPaintPipeline.from_components(
+        model_config=tcfg, vae_config=tvae.TINY_VAE_CONFIG, clip_l_config=tl, clip_g_config=tg,
+        t5_config=tt5, device="cpu", **common, **port_kw)
+    return jpipe, tpipe
+
+
+def test_from_components_builds_the_encoders_in_their_own_dtype(tmp_path):
+    """`encoder_dtype` (the port's own argument, as device and param_dtype
+    are) gives the text encoders their parameter dtype beside a bf16
+    model: their weights stay the files' fp32, bit for bit."""
+    jpipe, tpipe = _sd35_components(tmp_path, param_dtype=torch.bfloat16,
+                                    encoder_dtype=torch.float32)
+    assert {p.dtype for p in tpipe.model.module.parameters()} == {torch.bfloat16}
+    assert {p.dtype for p in tpipe.vae.parameters()} == {torch.bfloat16}
+    for name, enc in tpipe.encoders.items():
+        assert {p.dtype for p in enc.module.parameters()} == {torch.float32}, name
+        _assert_bridged(enc.module, jpipe.encoders[name].params)
+
+
 def _components(family, tmp_path):
     """(JAX pipeline, port pipeline) of tiny components written as files."""
+    if family == "sd35":
+        return _sd35_components(tmp_path)
     llamas = qwen_llamas()
     (jt, tt) = (enc.tokenizer for enc in llamas["qwen25"])
     if family == "z-image":
@@ -326,12 +385,11 @@ def _same_conds(got, want):
 
 @pytest.mark.parametrize("family", ["sd35", "qwen", "z-image", "nope"])
 def test_from_components_of_unported_families_raises(family, tmp_path):
-    """"sd35" waits for its model (ROADMAP A.14) and raises; an unknown
-    family raises JAX's ValueError.  "z-image" and "qwen", once waiting,
-    load what the JAX package loads (bit-equal to the bridge of its trees),
-    encode as it does (qwen with an image: the edit conditioning through
-    the vision tower), and the call equals `inpaint_image` on the loaded
-    modules bit for bit."""
+    """An unknown family raises JAX's ValueError.  "sd35", "z-image" and
+    "qwen", once waiting, load what the JAX package loads (bit-equal to the
+    bridge of its trees), encode as it does (qwen with an image: the edit
+    conditioning through the vision tower), and the call equals
+    `inpaint_image` on the loaded modules bit for bit."""
     kw = dict(family=family, model={}, vae={})
     if family == "nope":
         with pytest.raises(ValueError) as want:
@@ -340,12 +398,9 @@ def test_from_components_of_unported_families_raises(family, tmp_path):
             tpipeline.LanPaintPipeline.from_components(**kw)
         assert str(got.value) == str(want.value)
         return
-    if family == "sd35":
-        with pytest.raises(NotImplementedError, match="A.14"):
-            tpipeline.LanPaintPipeline.from_components(**kw)
-        return
     jpipe, tpipe = _components(family, tmp_path)
-    want_family, want_encoders = {"z-image": ("qwen3", ["llama"]),
+    want_family, want_encoders = {"sd35": ("sd3", ["clip_g", "clip_l", "t5"]),
+                                  "z-image": ("qwen3", ["llama"]),
                                   "qwen": ("qwen", ["llama", "vision"])}[family]
     assert tpipe.family == jpipe.family == want_family
     assert sorted(tpipe.encoders) == sorted(jpipe.encoders) == want_encoders
@@ -384,17 +439,12 @@ def test_from_components_of_unported_families_raises(family, tmp_path):
 @pytest.mark.parametrize("arg", ["clip_g", "llama", "llama_tokenizer", "with_vision",
                                  "clip_g_config", "llama_config", "vision_config"])
 def test_from_components_refuses_the_arguments_of_unported_families(arg):
-    """The JAX signature's clip_g and clip_g_config wait with sd35: the
-    port's from_components does not take them.  The llama, llama_tokenizer,
-    with_vision, llama_config and vision_config arguments (of the qwen and
-    z-image families, waiting once) are taken, with the JAX defaults."""
+    """The arguments of the families once waiting, clip_g and clip_g_config
+    (sd35), llama, llama_tokenizer, with_vision, llama_config and
+    vision_config (qwen and z-image), are taken, keyword-only, with the JAX
+    defaults."""
     import inspect
 
-    if arg.startswith("clip_g"):
-        with pytest.raises(TypeError, match=arg):
-            tpipeline.LanPaintPipeline.from_components(family="flux", model={}, vae={},
-                                                       **{arg: True})
-        return
     got = inspect.signature(tpipeline.LanPaintPipeline.from_components).parameters[arg]
     want = inspect.signature(jpipeline.LanPaintPipeline.from_components).parameters[arg]
     assert got.kind == want.kind == inspect.Parameter.KEYWORD_ONLY

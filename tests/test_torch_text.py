@@ -12,8 +12,9 @@ tokenizers.py`, `text.py`) against the JAX package's.
   and qwen_edit, with tiny Qwen2.5 / Qwen3 trunks and the tiny Qwen2.5-VL
   vision tower behind a byte-level BPE with the chat templates' special
   tokens, matches JAX's `encode_prompt` within relative L2 1e-5 on every
-  cond entry (fp32, JAX at "highest" matmul precision); hidream and
-  hyvideo raise.
+  cond entry (fp32, JAX at "highest" matmul precision), and so do hidream
+  and hyvideo (the tiny Qwen2.5 trunk standing in for Llama-3.1, with the
+  tiny CLIP-L and T5).
 * `encode_prompt_hf`, fed a module with HuggingFace CLIP's call contract,
   gives JAX's conds.
 """
@@ -327,12 +328,15 @@ def _edit_image():
 
 
 @pytest.mark.parametrize("family", ["qwen", "qwen_edit", "qwen3", "hidream", "hyvideo", "nope"])
-def test_encode_prompt_of_unported_families_raises(llamas, family):
+def test_encode_prompt_of_unported_families_raises(encoders, llamas, family):
     """qwen (the Qwen-Image template, its 34 prefix states dropped),
     qwen_edit (the source image's vision tokens spliced at <|image_pad|>,
-    64 prefix states dropped) and qwen3 (the bare final states), once
-    waiting, match JAX; hidream and hyvideo wait for their models (ROADMAP
-    A.14) and raise; an unknown family raises JAX's ValueError."""
+    64 prefix states dropped), qwen3 (the bare final states), hidream (the
+    Qwen2.5 trunk's per-layer states standing in for Llama-3.1's, CLIP-L
+    pooled, T5; with CLIP-G as well, CLIP-G's pooled output follows
+    CLIP-L's in the vec) and hyvideo (the image template, 36 prefix states
+    cropped, CLIP-L pooled; and the video template, 95 cropped), once
+    waiting, match JAX; an unknown family raises JAX's ValueError."""
     if family == "nope":
         with pytest.raises(ValueError) as want:
             jtext.encode_prompt("a cat", family=family)
@@ -341,8 +345,31 @@ def test_encode_prompt_of_unported_families_raises(llamas, family):
         assert str(got.value) == str(want.value)
         return
     if family in ("hidream", "hyvideo"):
-        with pytest.raises(NotImplementedError, match="A.14"):
-            ttext.encode_prompt("a cat", family=family)
+        cases = ([dict(t5_length=24)] if family == "hidream"
+                 else [{}, dict(video=True)])
+        for prompt, kw in ((p, kw) for p in ("a photo of the cat", "unicode café über ½")
+                           for kw in cases):
+            libs = [dict(llama=enc, clip_l=clip) for enc, clip in
+                    zip(llamas["qwen25"], encoders["clip_l"])]
+            if family == "hidream":
+                for lib, t5 in zip(libs, encoders["t5"]):
+                    lib["t5"] = t5
+            with jax.default_matmul_precision("highest"):
+                want = jtext.encode_prompt(prompt, family=family, **kw, **libs[0])
+            got = ttext.encode_prompt(prompt, family=family, **kw, **libs[1])
+            _same_cond(got, want)
+            want_keys = ["context", "llama", "vec"] if family == "hidream" else ["context", "vec"]
+            assert sorted(got) == want_keys
+            if family == "hidream":
+                # with CLIP-G too (the port's own argument: HIDREAM_I1_CONFIG's
+                # vec is CLIP-L's pooled 768 + CLIP-G's 1280), the same cond
+                # but for the vec, which gains CLIP-G's pooled output
+                both = ttext.encode_prompt(prompt, family=family, clip_g=encoders["clip_g"][1],
+                                           **kw, **libs[1])
+                _, _, pooled_g = encoders["clip_g"][1](prompt)
+                for k in ("context", "llama"):
+                    assert torch.equal(both[k], got[k])
+                assert torch.equal(both["vec"], torch.cat([got["vec"], pooled_g], dim=-1))
         return
     stack = "qwen3" if family == "qwen3" else "qwen25"
     kw = {}
