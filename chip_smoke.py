@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the root of the repository
 
-Twelve main paths, each with random bf16 weights made on the card from a
+Fourteen main paths, each with random bf16 weights made on the card from a
 seed, the euler solver, 20 steps (Z-Image's 9), outer early stop 1 and a
 centre mask; 5 think steps but for the video paths' 2:
 
@@ -73,13 +73,28 @@ centre mask; 5 think steps but for the video paths' 2:
   CLIP-L (fp32) encode through `encode_prompt(family="hyvideo")` (the
   image template, 36 states cropped) and are released, then
   `build_hyvideo` runs `api.ksampler` with guidance 6.0: "simple", cfg 1,
-  115 forwards on a 4D latent run as one frame.
+  115 forwards on a 4D latent run as one frame;
+* SDXL-1024 with a ControlNet (`zoo.build_controlled_unet(SDXL_CONFIG,
+  ...)`: the SDXL path's UNet weights and a ControlNet of 1.251 B random
+  parameters, its zero convs drawn too): the SDXL path's settings with a
+  seeded 1024^2 hint in both conds at strength 1: 230 forwards of the UNet
+  and the ControlNet, 104 self-attention and 312 LayerNorm launches each;
+* serving (`python -m lanpaint_tpu_torch serve`, as `cmd_serve` stands it
+  up): the single-file SDXL checkpoint with a seeded rank-8 kohya LoRA
+  merged at 0.8 (`models.lora.apply_lora`), read by
+  `from_single_file(state=...)`, behind `serve.InpaintServer` (batch 2,
+  `pipeline_runner`, `pipeline_validator`) and `serve.make_http_server` on
+  127.0.0.1: three 1024^2 requests POSTed over HTTP at the default
+  `Variant` (euler karras 20 x 5, cfg 5 batched: 115 UNet forwards at
+  batch 4 a batch), in two batches (a co-batched pair, a padded lone
+  request), and one request of a wrong shape that fails alone.
 
 Phases, one line of output each or more (any failure raises and the script
 exits non-zero without printing a result):
 
 1. device: nvidia-smi's name and power limit, torch and CUDA versions, the
-   TF32 flags in force;
+   TF32 flags in force; then `python -m lanpaint_tpu_torch info` in a
+   subprocess (exit 0, the card named);
 2. build: one nvcc per CUDA source in csrc/ (the D <= 128 and the
    wide-head attention libraries, the row norm, the fused think-step
    kernels), all started together; seconds for each, and ptxas's register
@@ -111,6 +126,9 @@ exits non-zero without printing a result):
    feed; for the UNet also the same run with each of the 22 solvers (a
    shared solver-noise draw too), and `zoo.dual_model_denoiser` over two
    small UNets with sequential CFG, its calls of each model counted;
+4b. small controlled UNet reference (after phase 4): phase 4's check on
+   the small UNet with a ControlNet at strength 1, its zero convs drawn,
+   a seeded hint in both conds;
 6. SDXL main path and 8. Flux main path: build, then LanPaintSampler twice
    (for Flux the first run is a 2-step warm-up); the second run is timed
    and its kernel launches counted: the output is finite, the known region
@@ -183,17 +201,38 @@ exits non-zero without printing a result):
    the DiT built, one forward under torch.profiler, a 2-step warm-up, then
    `api.ksampler`, timed and counted with phase 6's checks.  Phase 3 holds
    each kernel at these paths' shapes too (the synthetic Llama-3.1
-   tokenizer, 128,256 ids, gives the text lengths).
+   tokenizer, 128,256 ids, gives the text lengths);
+20. ControlNet path (after phase 12's pipeline call, on phase 6's UNet
+   state): the ControlNet's 9 skip residuals and middle residual finite,
+   one forward of the pair at strength 0 bit-equal to its forward without
+   a hint, one forward with the hint and one without under
+   torch.profiler (idle share, device time by kernel class), then phase
+   6's run at strength 0 (the first run) and at 1 (timed and counted,
+   phase 6's checks), the two outputs different;
+21. serving path (phase 12's file, kept until then): the file read back
+   with `load_safetensors` (numpy fp32), the LoRA merge timed on the host,
+   a strength-0 merge bit-equal to the source, one merged weight against
+   float64, the merged pipeline's UNet forward different from phase 12's;
+   then the server on an ephemeral port: each answer of the right shape,
+   finite, every pixel beyond the blend bit-equal to its input, the
+   repainted region moved, two seeds' answers different, the bad request's
+   HTTP 500 alone, /stats (3 served, 2 batches, 1 padded lane, 1 error),
+   /progress polled while the first batch runs and done with
+   `think_steps_done`, and exact launches in each batch (phase 3 holds the
+   kernels at the batch-4 shapes: attention (4, 4096, 10, 64) and (4, 1024,
+   20, 64), LayerNorm rows (16384, 640) and (4096, 1280), the VAE's wide
+   head at (2, 16384, 1, 512)).
 
 Then, on lines of their own: the nvidia-smi line, one JSON line with the
 per-kernel numbers, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-In the kernels line, `launches` is the twelve timed runs' count (phase
-13's `inpaint_image` run and phase 16b's call are checks and not
-counted), and `ms` /
+In the kernels line, `launches` is the fourteen timed runs' count (phase
+13's `inpaint_image` run, phase 16b's call and phase 20's strength-0 run
+are checks and not counted; phase 21's two batches are one count), and
+`ms` /
 `plain_ms` / `library_ms` / `bound_ms` are the kernel's / plain version's /
 PyTorch call's per-launch times and the bound at each main-path shape times
-that shape's launches in the twelve timed runs, summed (`library_ms` null
+that shape's launches in the fourteen timed runs, summed (`library_ms` null
 where a launched shape has no such call; each shape alone in `per_shape`,
 with its device times in us).
 
@@ -205,8 +244,11 @@ the tokenizer and text lengths: tok = c.synthetic_qwen_tokenizer(); z, q
 It needs one CUDA card, the CUDA toolkit (nvcc, cuobjdump) and g++ (the
 checkpoint reader's native conversion, built at first use); no network.
 Phases 12 and 13 write their files into a temporary directory (~7 GB and
-~2 GB) and remove it; phase 17 holds ~39 GB of exported states on the
-host while it loads them.
+~2 GB) and remove it (phase 12's after phase 21, which reads it back and
+holds its ~14 GB of fp32 arrays on the host while it merges); phase 17
+holds ~39 GB of exported states on the host while it loads them.  Phase
+21's server listens on 127.0.0.1 only, and its client ignores any proxy
+setting.
 """
 
 import contextlib
@@ -223,7 +265,10 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 
@@ -234,8 +279,8 @@ from torch.nn.attention import SDPBackend, sdpa_kernel
 from lanpaint_tpu_torch import (LanPaintConfig, LanPaintPipeline, LanPaintSampler, ModelKind, api,
                                 edit_image, inpaint_image, inpaint_video)
 from lanpaint_tpu_torch.engine import lanpaint_update
-from lanpaint_tpu_torch import pipeline, samplers, text, tokenizers
-from lanpaint_tpu_torch.models import (dit, hidream, hyvideo, load, sd3, textenc, unet, vae,
+from lanpaint_tpu_torch import pipeline, samplers, serve, text, tokenizers
+from lanpaint_tpu_torch.models import (dit, hidream, hyvideo, load, lora, sd3, textenc, unet, vae,
                                        video_vae, vision, wan, zimage, zoo)
 from lanpaint_tpu_torch.native import loader as native_loader
 from lanpaint_tpu_torch.ops import attention, cuda_build, fused, norms
@@ -263,7 +308,13 @@ FORWARDS = {"sdxl": 2 * PAIRS, "pixel": 2 * PAIRS, "flux": PAIRS,  # CFG 5 seq. 
             "video": 2 * VIDEO_PAIRS, "pair": 2 * VIDEO_PAIRS,     # CFG 5 sequential
             "pipeline": 2 * PAIRS, "sd15": 2 * PAIRS,
             "zimage": Z_FORWARDS, "qwen_edit": PAIRS, "qwen_small": SMALL_QWEN_FORWARDS,
-            "sd35": 2 * PAIRS, "hidream": PAIRS, "hyvideo": PAIRS}  # CFG 4.5 seq. / cfg 1
+            "sd35": 2 * PAIRS, "hidream": PAIRS, "hyvideo": PAIRS,  # CFG 4.5 seq. / cfg 1
+            "controlnet": 2 * PAIRS}  # CFG 5 sequential
+# the serving path: two batches of 2 lanes (one co-batched pair, one lone
+# request padded with its lane 0), batched CFG: one UNet forward at batch 4
+# a CFG pair
+SERVE_BATCHES = 2
+FORWARDS["serve"] = SERVE_BATCHES * PAIRS
 PER_FORWARD = {  # kernel launches per model forward
     "sdxl": {"flash_attention": 70, "layernorm": 210, "rmsnorm": 0},
     # 19 double + 38 single blocks; adaLN norms 4 + 1 per block + 1 final;
@@ -274,7 +325,11 @@ PER_FORWARD = {  # kernel launches per model forward
     "video": {"flash_attention": 30, "layernorm": 91, "rmsnorm": 90},
     "pair": {"flash_attention": 40, "layernorm": 121, "rmsnorm": 120},  # 40 blocks
 }
-PER_FORWARD["pixel"] = PER_FORWARD["pipeline"] = PER_FORWARD["sdxl"]
+PER_FORWARD["pixel"] = PER_FORWARD["pipeline"] = PER_FORWARD["serve"] = PER_FORWARD["sdxl"]
+# SDXL with its ControlNet: the UNet's 70 self-attention calls and 210
+# LayerNorms, and the ControlNet encoder's transformer_depth (0, 2, 10) and
+# middle 10: 4 blocks at S = 4,096 and 30 at S = 1,024, 3 LayerNorms each
+PER_FORWARD["controlnet"] = {"flash_attention": 104, "layernorm": 312, "rmsnorm": 0}
 # SD1.5 at 512^2: 16 transformer blocks, 3 LayerNorms each; its head dims
 # (40, 80, 160) are not multiples of 64, so its attention stays plain, as
 # the JAX package leaves it to XLA
@@ -314,14 +369,18 @@ PER_RUN["pipeline"] = PER_RUN["sd15"] = PER_RUN["zimage"] = PER_RUN["qwen_small"
 # edit_image encodes the source twice (the reference tokens and the latent)
 PER_RUN["qwen_edit"] = {"fused_half_step": 0, "fused_finish": 0, "wide_attention": 3}
 PER_RUN["sd35"] = PER_RUN["pixel"]  # the SD3 VAE's encode and decode
-PER_RUN["hidream"] = PER_RUN["hyvideo"] = PER_RUN["sdxl"]  # latent paths
+PER_RUN["hidream"] = PER_RUN["hyvideo"] = PER_RUN["controlnet"] = PER_RUN["sdxl"]  # latent paths
+# each serving batch: the SDXL VAE's encode and decode of the batch
+PER_RUN["serve"] = {"fused_half_step": 0, "fused_finish": 0, "wide_attention": 2 * SERVE_BATCHES}
 BLEND = 9  # MaskBlend overlap of the pixel and video paths
 SPLASH = "lanpaint_tpu/models/layers.py:131 (_splash_kernel)"
 # (shape, calls per forward by path, TPU kernel it replaces)
 ATTN_SHAPES = [
-    ((1, 4096, 10, 64), {"sdxl": 10, "pixel": 10, "pipeline": 10}, SPLASH),
-    ((1, 1024, 20, 64), {"sdxl": 60, "pixel": 60, "pipeline": 60},
+    ((1, 4096, 10, 64), {"sdxl": 10, "pixel": 10, "pipeline": 10, "controlnet": 14}, SPLASH),
+    ((1, 1024, 20, 64), {"sdxl": 60, "pixel": 60, "pipeline": 60, "controlnet": 90},
      "lanpaint_tpu/models/layers.py:238 (flash_attention)"),
+    ((4, 4096, 10, 64), {"serve": 10}, SPLASH),  # batched CFG over two lanes
+    ((4, 1024, 20, 64), {"serve": 60}, "lanpaint_tpu/models/layers.py:238 (flash_attention)"),
     ((1, 9216, 5, 64), {}, SPLASH),   # SD2.1-v at 768^2: the 96x96 level
     ((1, 2304, 10, 64), {}, SPLASH),  # and the 48x48 level
     ((1, 4608, 24, 128), {"flux": 57}, SPLASH),
@@ -337,6 +396,7 @@ SPLASH_VIDEO = SPLASH + " via lanpaint_tpu/models/video_vae.py:159"
 WIDE_SHAPES = [
     ((1, 16384, 1, 512), {"pixel": 2, "pipeline": 2, "zimage": 2},
      SPLASH_VAE),  # 1024^2: encode, decode
+    ((2, 16384, 1, 512), {"serve": 2 * SERVE_BATCHES}, SPLASH_VAE),  # a serving batch's
     ((1, 4096, 1, 512), {"sd15": 2}, SPLASH_VAE),    # 512^2
     ((1, 4000, 1, 512), {}, SPLASH_VAE),             # a ragged S
     ((9, 3520, 1, 640), {"video": 2}, SPLASH_VIDEO),  # Wan2.2 VAE, 704x1280 x 33 frames
@@ -348,8 +408,11 @@ WIDE_SHAPES = [
 # rmsnorm input is the strided q/k view of a fused projection, as the DiT
 # hands it over, a 3D one a dense projection's output (Wan's full-width norm)
 NORM_SHAPES = [
-    ((1, 4096, 640), "layernorm", {"sdxl": 30, "pixel": 30, "pipeline": 30}),
-    ((1, 1024, 1280), "layernorm", {"sdxl": 180, "pixel": 180, "pipeline": 180}),
+    ((1, 4096, 640), "layernorm", {"sdxl": 30, "pixel": 30, "pipeline": 30, "controlnet": 42}),
+    ((1, 1024, 1280), "layernorm", {"sdxl": 180, "pixel": 180, "pipeline": 180,
+                                    "controlnet": 270}),
+    ((4, 4096, 640), "layernorm", {"serve": 30}),  # batched CFG over two lanes
+    ((4, 1024, 1280), "layernorm", {"serve": 180}),
     ((1, 4096, 320), "layernorm", {"sd15": 15}),  # SD1.5 at 512^2, by level
     ((1, 1024, 640), "layernorm", {"sd15": 15}),
     ((1, 256, 1280), "layernorm", {"sd15": 15}),
@@ -1051,6 +1114,44 @@ def phase_small_unet() -> None:
     _small_dual(models, cond, sigmas, (1, 4, 32, 32))
 
 
+def phase_small_controlnet() -> None:
+    """Phase 4's check on SMALL_UNET with a ControlNet (seed 3) at strength
+    1: its zero convs and middle_block_out drawn at 0.2 (they start at zero,
+    and the control would add nothing), a seeded (1, 3, 256, 256) hint in
+    both conds; one forward and the 4-step LanPaint run (CFG 5 sequential),
+    bf16 on the card against the same weights in fp32 on the CPU, beside the
+    CPU's bf16 plain path."""
+    ref, (ref_unet, ref_cn) = zoo.build_controlled_unet(
+        dataclasses.replace(SMALL_UNET, dtype=torch.float32), device="cpu", seed=3, name="small")
+    gen = torch.Generator().manual_seed(9)
+    with torch.no_grad():
+        for conv in ref_cn.zero_convs():
+            conv.weight.normal_(0.0, 0.2, generator=gen)
+    states = (ref_unet.state_dict(), ref_cn.state_dict())
+    models = [(ref, ref, "cpu")] + [
+        (den, den, dev) for den, dev in
+        ((zoo.build_controlled_unet(SMALL_UNET, *states, device=dev, name="small")[0], dev)
+         for dev in ("cpu", "cuda"))]
+    x = torch.randn((1, 4, 32, 32), generator=gen)
+    hint = torch.rand((1, 3, 256, 256), generator=gen) * 2.0 - 1.0
+    cond = tuple({"context": torch.randn((1, 12, 64), generator=gen), "hint": hint}
+                 for _ in range(2))
+    sigma = torch.tensor([3.0])
+    with torch.no_grad():
+        moved = rel_l2(ref.apply(x, sigma, cond[0]),
+                       ref.apply(x, sigma, {"context": cond[0]["context"]}))
+    ok, ran = _small_reference(
+        f"phase 4b small controlled UNet reference (rel_l2 of the control's change to the "
+        f"forward {moved:.3g})", models,
+        lambda den, dev: den.apply(x.to(dev), sigma.to(dev),
+                                   {k: v.to(dev) for k, v in cond[0].items()}),
+        dict(cfg=5.0, sequential_cfg=True), (1, 4, 32, 32), cond,
+        calculate_sigmas(ref.sigma_table, "karras", 4))
+    if not (ok and moved > 0.05 and ran["attention"] and ran["layernorm"]):
+        raise AssertionError("the small controlled UNet on the card is less accurate than the "
+                             "plain path, the control did not act, or the kernels did not run")
+
+
 def phase_small_dit() -> None:
     """A small MMDiT at head dim 128 (hidden 256, 2 heads, 2 + 2 blocks) on
     a 64x64 latent: 1,024 image and 16 text tokens, so its joint attention
@@ -1362,9 +1463,25 @@ def profile_forward(fn) -> dict:
     cuda = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(_self_device_us(e) for e in cuda) / 1e3
     top = sorted(cuda, key=_self_device_us, reverse=True)[:8]
+    classes = {}
+    for e in cuda:
+        name = _kernel_class(e.key)
+        classes[name] = classes.get(name, 0.0) + _self_device_us(e) / 1e3
     return dict(wall_ms=wall_ms, device_ms=device_ms, idle=1.0 - device_ms / wall_ms,
                 kernels=sum(e.count for e in cuda),
-                top=[(e.key[:48], round(_self_device_us(e) / 1e3, 3), e.count) for e in top])
+                top=[(e.key[:48], round(_self_device_us(e) / 1e3, 3), e.count) for e in top],
+                classes={k: round(v, 3) for k, v in sorted(classes.items())})
+
+
+# kernel classes by name, first match: this package's kernels, then the libraries'
+KERNEL_CLASSES = (("attention", ("flash_fwd", "wide_fwd")), ("row norm", ("row_norm",)),
+                  ("conv", ("conv", "fprop", "implicit", "nhwc", "nchw", "cudnn")),
+                  ("gemm", ("gemm", "nvjet", "cutlass", "xmma")))
+
+
+def _kernel_class(name: str) -> str:
+    low = name.lower()
+    return next((c for c, keys in KERNEL_CLASSES if any(k in low for k in keys)), "other")
 
 
 def _profile_text(prof) -> str:
@@ -1649,16 +1766,16 @@ def _single_file(label, parts, directory, **pipe_kw) -> tuple:
     return pipe, text_
 
 
-def phase_single_file(smi: str, den) -> tuple:
+def phase_single_file(smi: str, den, directory: str) -> tuple:
     """Single-file SDXL at full width: phase 6's UNet, a new SDXL VAE (seed
     1, phase 7's), a seeded CLIP-L in the HF layout and a CLIP-G in the
-    OpenCLIP layout, exported into one BF16 safetensors file (a temporary
-    directory, removed), read back with `from_single_file`: the family and
+    OpenCLIP layout, exported into one BF16 safetensors file in `directory`
+    (the caller's, which it removes), read back with `from_single_file`: the family and
     the encoders, every tensor of the UNet, the VAE and both towers bit-equal
     to its source, and `pipe.encode` timed and checked.  The VAE config is
     passed: the JAX package's pipeline defaults to SD_VAE_CONFIG's scale for
-    both families.  Returns (pipe, the VAE, the prompt's and the empty
-    prompt's conds)."""
+    both families.  The file (and the vocabulary) stay there for phase 21.
+    Returns (pipe, the VAE, the prompt's and the empty prompt's conds)."""
     model, _ = _build_sdxl_vae()
     towers = {name: zoo.build_clip(cfg, device="cuda", param_dtype=torch.bfloat16, seed=seed)
               for name, cfg, seed in (("clip_l", textenc.CLIP_L_CONFIG, 2),
@@ -1673,11 +1790,7 @@ def phase_single_file(smi: str, den) -> tuple:
             load.export_clip(towers["clip_g"].state_dict(), textenc.CLIP_G_CONFIG),
             textenc.CLIP_G_CONFIG.layers)),
     ]
-    directory = tempfile.mkdtemp(prefix="chip_smoke_")
-    try:
-        pipe, loaded = _single_file("phase 12", parts, directory, vae_config=vae.SDXL_VAE_CONFIG)
-    finally:
-        shutil.rmtree(directory, ignore_errors=True)
+    pipe, loaded = _single_file("phase 12", parts, directory, vae_config=vae.SDXL_VAE_CONFIG)
     del parts
     same = {"unet": _same_weights(pipe.model.module, den.module),
             "vae": _same_weights(pipe.vae, model)}
@@ -1719,6 +1832,362 @@ def phase_pipeline_run(smi: str, pipe, reference) -> dict:
     if not (ok and same):
         raise AssertionError("phase 12 pipeline call failed its checks")
     return launches
+
+
+# --------------------------------------------------------------------------
+# phases 20-21: the ControlNet adapter, LoRA merging and the HTTP server
+
+
+def _hinted_conds(gen, hint):
+    """Phase 6's random SDXL conds with the control image in both (batched
+    CFG needs the same keys in cond and uncond)."""
+    return tuple(dict(c, hint=hint) for c in _sdxl_conds(gen))
+
+
+def phase_controlnet(smi: str, den) -> dict:
+    """SDXL-1024 with a ControlNet (`zoo.build_controlled_unet(SDXL_CONFIG,
+    ...)`): phase 6's UNet state, a ControlNet of random bf16 weights (seed
+    1) whose zero convs and middle_block_out are drawn too (they start at
+    zero without a state, and the control would add nothing), a seeded
+    (1, 3, 1024, 1024) hint in both conds.  Checks: the ControlNet's
+    residuals (9 skips and the middle, finite); one forward of the same
+    modules at strength 0 bit-equal to the forward without a hint; phase
+    6's run at strength 0 (the warm-up) and at 1 (timed and counted, 104
+    flash_attention and 312 layernorm launches a forward), the two outputs
+    different.  One forward with the hint and one without are profiled
+    (the card's idle share and device time by kernel class)."""
+    t0 = time.perf_counter()
+    cden, (c_unet, cn) = zoo.build_controlled_unet(unet.SDXL_CONFIG, den.module.state_dict(),
+                                                   device="cuda", param_dtype=torch.bfloat16,
+                                                   seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    with torch.no_grad():
+        for conv in cn.zero_convs():
+            conv.weight.normal_(0.0, 0.02, generator=gen)
+    zden, _ = zoo.build_controlled_unet(unet.SDXL_CONFIG, c_unet.state_dict(), cn.state_dict(),
+                                        strength=0.0, device="cuda", param_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_cn = _params(cn)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    latent = torch.randn((1, 4, 128, 128), device="cuda", generator=gen)
+    hint = torch.rand((1, 3, 1024, 1024), device="cuda", generator=gen) * 2.0 - 1.0
+    cond, uncond = _hinted_conds(gen, hint)
+    sigma = torch.tensor([3.0], device="cuda")
+    with torch.no_grad():
+        x_in = latent / math.sqrt(1.0 + 3.0**2)
+        res = cn(x_in, hint, torch.tensor([500.0], device="cuda"), cond["context"], cond["y"])
+        plain = zden.apply(latent, sigma, {k: v for k, v in cond.items() if k != "hint"})
+        at_zero = zden.apply(latent, sigma, cond)
+    torch.cuda.synchronize()
+    n_res = len(res["output"])
+    res_ok = (n_res == 9 and all(bool(torch.isfinite(r).all()) and float(r.abs().mean()) > 0
+                                 for r in res["output"] + [res["middle"]]))
+    zero_same = torch.equal(plain, at_zero)
+    say(f"phase 20 ControlNet: {n_cn / 1e9:.3f} B params bf16 beside the UNet's "
+        f"{_params(c_unet) / 1e9:.3f} B (init {t_init:.1f} s, both strengths) | residuals: "
+        f"{n_res} skips {[tuple(r.shape[1:]) for r in res['output']]} + middle "
+        f"{tuple(res['middle'].shape[1:])}, finite and non-zero {res_ok} | strength-0 forward "
+        f"bit-equal to the forward without a hint {zero_same} on {smi} "
+        f"{'ok' if res_ok and zero_same else 'FAIL'}")
+    if not (res_ok and zero_same):
+        raise AssertionError("phase 20 ControlNet residual checks failed")
+    del res, plain, at_zero
+    bare = {k: v for k, v in cond.items() if k != "hint"}
+    profiles = {key: profile_forward(lambda c=c: cden.apply(latent, sigma, c))
+                for key, c in (("controlled", cond), ("hint-less", bare))}
+    say(f"phase 20 one forward at sigma 3 under torch.profiler, strength 1: "
+        f"{_profile_text(profiles['controlled'])}, by class (ms) "
+        f"{profiles['controlled']['classes']} | the same module without a hint: "
+        f"{_profile_text(profiles['hint-less'])}, by class (ms) "
+        f"{profiles['hint-less']['classes']} on {smi}")
+
+    sigmas = calculate_sigmas(cden.sigma_table, "karras", STEPS)
+    config = LanPaintConfig(n_steps=THINK, outer_early_stop=EARLY_STOP)
+    outs = {}
+
+    def sampled(model, key):
+        sam = LanPaintSampler(model, config=config, sampler_name="euler", cfg=5.0,
+                              sequential_cfg=True)
+        return lambda: outs.setdefault(key, sam(latent=latent, sigmas=sigmas, cond=cond,
+                                                uncond=uncond, mask=_centre_mask(1024, 1024),
+                                                seed=0))
+
+    launches = _main_path(
+        f"phase 20 SDXL + ControlNet main path: euler karras {STEPS} x think {THINK}, cfg 5 "
+        f"sequential, strength 1 (first run: the same at strength 0)", "controlnet", smi, cden,
+        cden.module, t_init, sampled(cden, "one"), sampled(zden, "zero"), latent)
+    change = float((outs["one"][0] - outs["zero"][0]).abs().mean())
+    say(f"phase 20 ControlNet: mean |strength 1 - strength 0| of the samples {change:.4g} "
+        f"{'ok' if change > 1e-3 else 'FAIL'}")
+    if not change > 1e-3:
+        raise AssertionError("phase 20: the control did not move the output")
+    return launches
+
+
+# every attention projection of the UNet: the LoRA targets of phase 21
+LORA_TARGETS = re.compile(r"^model\.diffusion_model\..*\.attn[12]\.to_(q|k|v|out\.0)\.weight$")
+LORA_RANK, LORA_ALPHA, LORA_STRENGTH = 8, 4.0, 0.8
+
+
+def _seeded_lora(state: dict, seed: int = 0) -> dict:
+    """A kohya LoRA of rank LORA_RANK over every LORA_TARGETS weight of
+    `state`: lora_down (r, in), lora_up (out, r), N(0, 0.05^2) from a numpy
+    seed, and alpha."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for key in sorted(k for k in state if LORA_TARGETS.match(k)):
+        o, i = state[key].shape
+        base = lora._kohya_name(key)
+        out[base + ".lora_down.weight"] = (0.05 * rng.standard_normal((LORA_RANK, i))).astype(
+            np.float32)
+        out[base + ".lora_up.weight"] = (0.05 * rng.standard_normal((o, LORA_RANK))).astype(
+            np.float32)
+        out[base + ".alpha"] = np.float32(LORA_ALPHA)
+    return out
+
+
+# the local server's client: no proxy, whatever the environment names
+_LOCAL = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+
+def _post(url: str, payload: dict, timeout: float = 600.0) -> tuple:
+    """POST `payload` as JSON: (HTTP status, the decoded body, seconds)."""
+    body = json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=body, headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with _LOCAL.open(req, timeout=timeout) as resp:
+            status, reply = resp.status, resp.read()
+    except urllib.error.HTTPError as err:
+        status, reply = err.code, err.read()
+    return status, json.loads(reply), time.perf_counter() - t0
+
+
+def _get(url: str) -> tuple:
+    try:
+        with _LOCAL.open(url, timeout=30) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as err:
+        return err.code, json.loads(err.read())
+
+
+def phase_serve(smi: str, directory: str, ref_pipe) -> dict:
+    """Serving a LoRA-merged single file over HTTP.  Phase 12's SDXL file
+    read back (`load_safetensors`, numpy fp32), a seeded kohya LoRA of rank
+    8 over every attn1 / attn2 to_q / to_k / to_v / to_out.0 weight merged
+    at 0.8 (`models.lora.apply_lora`, timed on the host): a strength-0
+    merge bit-equal to the source, one merged weight equal to w + 0.8 *
+    (alpha / r) * up @ down in float64 within fp32 rounding, and the
+    pipeline `from_single_file(state=merged)` gives a UNet forward that
+    differs from phase 12's pipeline's.  Then `InpaintServer` with
+    `pipeline_runner(batch_size=2)` and `pipeline_validator(2)` behind
+    `make_http_server` on 127.0.0.1 (port 0), as `cmd_serve` stands them
+    up; three 1024^2 requests POSTed with urllib at the default Variant
+    (euler karras 20 x 5, cfg 5, batched CFG): two together (one batch,
+    one with a request_id whose /progress is polled), then one alone (a
+    padded batch) beside one of a wrong image shape (HTTP 500, alone).
+    Checks: each answer (3, 1024, 1024), finite, every pixel beyond the
+    blend bit-equal to its input, the repainted region moved, the two
+    co-batched seeds' answers different; /stats 3 served in 2 batches, 1
+    padded lane, 1 error; /progress done with think_steps_done; exact
+    launches in each batch."""
+    import numpy as np
+
+    path = os.path.join(directory, "model.safetensors")
+    vocab_path, merges_path = (os.path.join(directory, n) for n in ("vocab.json", "merges.txt"))
+    t0 = time.perf_counter()
+    state = load.load_safetensors(path)
+    t_read = time.perf_counter() - t0
+    lora_sd = _seeded_lora(state)
+    n_pairs = sum(k.endswith(".lora_down.weight") for k in lora_sd)
+    t0 = time.perf_counter()
+    merged = lora.apply_lora(state, lora_sd, strength=LORA_STRENGTH)
+    t_merge = time.perf_counter() - t0
+    zero = lora.apply_lora(state, lora_sd, strength=0.0)
+    targets = sorted(k for k in state if LORA_TARGETS.match(k))
+    zero_same = all(zero[k].dtype == state[k].dtype
+                    and np.array_equal(zero[k].view(np.uint32), state[k].view(np.uint32))
+                    for k in targets)
+    key = targets[0]
+    base = lora._kohya_name(key)
+    delta = lora_sd[base + ".lora_up.weight"].astype(np.float64) @ \
+        lora_sd[base + ".lora_down.weight"].astype(np.float64)
+    want = state[key].astype(np.float64) + LORA_STRENGTH * (LORA_ALPHA / LORA_RANK) * delta
+    merge_err = float(np.abs(merged[key] - want).max())
+    merge_ok = merged[key].dtype == np.float32 and np.allclose(merged[key], want, rtol=1e-6,
+                                                                atol=1e-7)
+    del zero, state
+    t0 = time.perf_counter()
+    pipe = LanPaintPipeline.from_single_file("<in-memory>", state=merged, vocab=vocab_path,
+                                             merges=merges_path, param_dtype=torch.bfloat16,
+                                             vae_config=vae.SDXL_VAE_CONFIG)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    del merged
+    gc.collect()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((1, 4, 128, 128), device="cuda", generator=gen)
+    sigma = torch.tensor([2.0], device="cuda")
+    cond = ref_pipe.encode(PROMPT)
+    with torch.no_grad():
+        before = ref_pipe.model.apply(x, sigma, cond)
+        after = pipe.model.apply(x, sigma, cond)
+    fwd_change = float((after - before).abs().mean())
+    load_ok = (zero_same and merge_ok and fwd_change > 1e-3
+               and bool(torch.isfinite(after).all()))
+    say(f"phase 21 LoRA: {n_pairs} kohya pairs of rank {LORA_RANK} (alpha {LORA_ALPHA}) over the "
+        f"UNet's attention projections, the single file read {t_read:.2f} s (numpy fp32), merged "
+        f"at {LORA_STRENGTH} in {t_merge:.3f} s on the host | strength-0 merge bit-equal "
+        f"{zero_same}, {key} against float64 max err {merge_err:.3g} | from_single_file("
+        f"state=merged) {t_load:.2f} s, a UNet forward's mean change from phase 12's pipeline "
+        f"{fwd_change:.4g} on {smi} {'ok' if load_ok else 'FAIL'}")
+    if not load_ok:
+        raise AssertionError("phase 21 LoRA merge checks failed")
+    del before, after, x
+
+    board = serve.ProgressBoard()
+    runner = serve.pipeline_runner(pipe, batch_size=2, progress=board)
+    batches = []
+
+    def counted(batch):  # each batch's launches and seconds
+        before = {k: f.launches for k, f in COUNTERS.items()}
+        t0 = time.perf_counter()
+        out = runner(batch)
+        torch.cuda.synchronize()
+        batches.append({"lanes": len(batch), "seconds": time.perf_counter() - t0,
+                        "launches": {k: f.launches - before[k] for k, f in COUNTERS.items()}})
+        return out
+
+    srv = serve.InpaintServer(counted, batch_size=2, max_delay_s=1.5,
+                              validator=serve.pipeline_validator(2))
+    httpd = serve.make_http_server(srv, host="127.0.0.1", port=0, progress=board)
+    server_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server_thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    rng = np.random.default_rng(7)
+    side = 1024
+    mask = np.zeros((side, side), np.float32)
+    mask[side // 4:3 * side // 4, side // 4:3 * side // 4] = 1.0
+    images = [rng.uniform(-1.0, 1.0, (3, side, side)).astype(np.float32) for _ in range(3)]
+    t0 = time.perf_counter()
+    payloads = [{"prompt": PROMPT, "image": serve._encode_array(img),
+                 "mask": serve._encode_array(mask), "seed": 11 + i}
+                for i, img in enumerate(images)]
+    t_encode = (time.perf_counter() - t0) / 3
+    payloads[0]["request_id"] = "a"
+    bad = dict(payloads[2], image=serve._encode_array(images[2][:, :1000]))
+    answers = {}
+
+    def post(name, payload):
+        answers[name] = _post(url + "/inpaint", payload)
+
+    _zero_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_all = time.perf_counter()
+    progress = []
+    try:
+        first = [threading.Thread(target=post, args=(n, p))
+                 for n, p in (("a", payloads[0]), ("b", payloads[1]))]
+        for t in first:
+            t.start()
+        while any(t.is_alive() for t in first):
+            status, entry = _get(url + "/progress?id=a")
+            if status == 200:
+                progress.append((entry["step"], entry["total"], entry["done"]))
+            time.sleep(0.25)
+        for t in first:
+            t.join()
+        second = [threading.Thread(target=post, args=(n, p))
+                  for n, p in (("c", payloads[2]), ("bad", bad))]
+        for t in second:
+            t.start()
+        for t in second:
+            t.join()
+        wall = time.perf_counter() - t_all
+        launches = {k: f.launches for k, f in COUNTERS.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        _, stats = _get(url + "/stats")
+        _, done_entry = _get(url + "/progress?id=a")
+        _, health = _get(url + "/healthz")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.close()
+    server_thread.join(timeout=60)
+
+    t0 = time.perf_counter()
+    outs = {n: serve._decode_array(answers[n][1]["image"]) for n in ("a", "b", "c")
+            if answers[n][0] == 200}
+    t_decode = (time.perf_counter() - t0) / max(1, len(outs))
+    far = np.ones((side, side), bool)
+    far[side // 4 - BLEND:3 * side // 4 + BLEND, side // 4 - BLEND:3 * side // 4 + BLEND] = False
+    checks = {}
+    for n, img in zip(("a", "b", "c"), images):
+        out = outs.get(n)
+        checks[n] = (out is not None and out.shape == (3, side, side) and out.dtype == np.float32
+                     and bool(np.isfinite(out).all())
+                     and np.array_equal(out[:, far].view(np.uint32), img[:, far].view(np.uint32))
+                     and float(np.abs(out - img)[:, mask > 0].mean()) > 1e-2)
+    want_total = _want("serve")
+    want_batch = {k: n // SERVE_BATCHES for k, n in want_total.items()}
+    per_batch_ok = (len(batches) == SERVE_BATCHES
+                    and all(b["launches"] == {k: want_batch.get(k, 0) for k in COUNTERS}
+                            for b in batches))
+    seeds_differ = "a" in outs and "b" in outs and not np.array_equal(outs["a"], outs["b"])
+    stats_ok = (stats["requests"] == 3 and stats["batches"] == SERVE_BATCHES
+                and stats["padded_lanes"] == 1 and stats["errors"] == 1)
+    prog_ok = (done_entry.get("done") is True and done_entry.get("step") == STEPS
+               and len(done_entry.get("think_steps_done", [])) == STEPS
+               and any(not d and s < STEPS for s, _, d in progress))
+    bad_ok = answers["bad"][0] >= 400 and "image shape" in answers["bad"][1].get("error", "")
+    ok = (all(checks.values()) and per_batch_ok and launches == {k: want_total.get(k, 0)
+                                                                 for k in COUNTERS}
+          and seeds_differ and stats_ok and prog_ok and bad_ok and health == {"ok": True})
+    lat = {n: round(answers[n][2], 3) for n in ("a", "b", "c", "bad")}
+    batch_s = [round(b["seconds"], 3) for b in batches]
+    overhead = {n: round(answers[n][2] - batches[i // 2]["seconds"], 3)
+                for i, n in enumerate(("a", "b")) if len(batches) > i // 2}
+    if len(batches) == SERVE_BATCHES:
+        overhead["c"] = round(answers["c"][2] - batches[1]["seconds"], 3)
+    fwd = PAIRS
+    say(f"phase 21 serving: InpaintServer(batch_size=2, max_delay_s=1.5) + make_http_server, "
+        f"SDXL-1024 LoRA-merged, default Variant (euler karras {STEPS} x think {THINK}, cfg 5 "
+        f"batched: {fwd} UNet forwards at batch 4 a batch) | 3 requests + 1 bad in {wall:.3f} s: "
+        f"client seconds {lat}, batches {batch_s} s = "
+        f"{[round(1e3 * b / fwd, 2) for b in batch_s]} ms per forward, per request "
+        f"{wall / 3:.3f} s; client minus batch (HTTP, base64, queue, batching window) "
+        f"{overhead} s, of which the client's base64 + JSON encode {t_encode:.3f} s and decode "
+        f"{t_decode:.3f} s a request; peak {peak_gb:.1f} GB | answers ok {checks} (shape, finite, "
+        f"beyond-blend pixels bit-equal, repainted moved), seeds differ {seeds_differ}, bad "
+        f"request HTTP {answers['bad'][0]} alone {bad_ok}, /stats {stats} {stats_ok}, /progress "
+        f"polled {len(progress)} times, done {done_entry.get('done')} think_steps_done "
+        f"{done_entry.get('think_steps_done')} {prog_ok} | launches {launches} (want "
+        f"{want_total}), per batch {[b['launches'] for b in batches]} {per_batch_ok} on {smi} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 21 serving checks failed")
+    return launches
+
+
+def phase_info(smi: str) -> None:
+    """`python -m lanpaint_tpu_torch info` in a subprocess: it exits 0 and
+    names the card."""
+    proc = subprocess.run([sys.executable, "-m", "lanpaint_tpu_torch", "info"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=300)
+    name = torch.cuda.get_device_name(0)
+    devices = next((ln for ln in proc.stdout.splitlines() if ln.startswith("devices:")), "")
+    ok = proc.returncode == 0 and name in devices
+    say(f"phase 1 CLI: python -m lanpaint_tpu_torch info exit {proc.returncode}, {devices} on "
+        f"{smi} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the CLI's info failed: {proc.stdout}\n{proc.stderr}")
 
 
 def phase_sd15(smi: str) -> dict:
@@ -2454,6 +2923,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 1
     smi = phase_device()
+    phase_info(smi)
     phase_build()
     qwen_tok = synthetic_qwen_tokenizer()
     z_txt, q_txt = text_lengths(qwen_tok)
@@ -2463,15 +2933,27 @@ def main() -> int:
     add_a14_shapes(n_ll, n_hy)
     rows = phase_kernels()
     phase_small_unet()
+    phase_small_controlnet()
     phase_small_dit()
     phase_small_zimage()
     phase_small_a14()
     launches = {}
     launches["sdxl"], den = phase_sdxl(smi)
-    pipe, sdxl_vae, conds = phase_single_file(smi, den)
-    launches["pixel"], reference = phase_pixel(smi, den, sdxl_vae, conds)
-    launches["pipeline"] = phase_pipeline_run(smi, pipe, reference)
-    del den, pipe, sdxl_vae, conds, reference
+    single = tempfile.mkdtemp(prefix="chip_smoke_")  # phase 12's file, kept for phase 21
+    try:
+        pipe, sdxl_vae, conds = phase_single_file(smi, den, single)
+        launches["pixel"], reference = phase_pixel(smi, den, sdxl_vae, conds)
+        launches["pipeline"] = phase_pipeline_run(smi, pipe, reference)
+        del sdxl_vae, conds, reference
+        launches["controlnet"] = phase_controlnet(smi, den)
+        del den
+        api._SAMPLER_CACHE.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches["serve"] = phase_serve(smi, single, pipe)
+        del pipe
+    finally:
+        shutil.rmtree(single, ignore_errors=True)
     api._SAMPLER_CACHE.clear()  # ksampler's sampler cache holds the SDXL models
     gc.collect()
     torch.cuda.empty_cache()

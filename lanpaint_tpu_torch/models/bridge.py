@@ -1,8 +1,8 @@
-"""Weight bridge: the JAX package's flax UNet, MMDiT, SD3, HiDream,
+"""Weight bridge: the JAX package's flax UNet, ControlNet, MMDiT, SD3, HiDream,
 HunyuanVideo, Z-Image, Wan, VAE, Wan VAE, TAESD, CLIP, T5, Llama and
 Qwen2.5-VL vision parameter trees -> this package's module state_dicts
-(and a two-model wrapper's pair of trees -> its nn.ModuleDict's,
-`pair_params_from_flax`).
+(and a two-model wrapper's pair of trees, or the ControlNet-conditioned
+UNet's {"unet", "cn"}, -> its nn.ModuleDict's, `pair_params_from_flax`).
 
 The tree holds numpy arrays (e.g. `lanpaint_tpu.models.zoo.init_params_host`
 output or `jax.device_get` of device params); nothing here imports JAX.
@@ -135,13 +135,14 @@ def flax_entries(tree):
 
 
 def params_from_flax(tree) -> dict:
-    """Map a flax UNet, MMDiT, SD3, HiDream, HunyuanVideo, Z-Image, Wan, VAE,
-    Wan VAE, CLIP, T5, Llama or vision-tower parameter tree onto the port
-    module's `state_dict()` keys, as torch tensors."""
+    """Map a flax UNet, ControlNet, MMDiT, SD3, HiDream, HunyuanVideo,
+    Z-Image, Wan, VAE, Wan VAE, CLIP, T5, Llama or vision-tower parameter
+    tree onto the port module's `state_dict()` keys, as torch tensors."""
     return {key: _to_tensor(arr) for key, arr in flax_entries(tree)}
 
 
 unet_params_from_flax = dit_params_from_flax = wan_params_from_flax = params_from_flax
+controlnet_params_from_flax = params_from_flax
 vae_params_from_flax = wan_vae_params_from_flax = params_from_flax
 zimage_params_from_flax = llama_params_from_flax = vision_params_from_flax = params_from_flax
 sd3_params_from_flax = hidream_params_from_flax = hyvideo_params_from_flax = params_from_flax
@@ -149,8 +150,9 @@ sd3_params_from_flax = hidream_params_from_flax = hyvideo_params_from_flax = par
 
 def pair_params_from_flax(trees) -> dict:
     """Map a JAX two-model wrapper's parameters, {"high": tree, "low": tree}
-    (`zoo.switching_denoiser`) or {"pos": tree, "neg": tree}
-    (`zoo.dual_model_denoiser`), onto the port wrapper's `module`
+    (`zoo.switching_denoiser`), {"pos": tree, "neg": tree}
+    (`zoo.dual_model_denoiser`) or {"unet": tree, "cn": tree}
+    (`zoo.build_controlled_unet`), onto the port wrapper's `module`
     (nn.ModuleDict) state_dict keys, each tree through `params_from_flax`."""
     return {f"{name}.{key}": val for name, tree in trees.items()
             for key, val in params_from_flax(tree).items()}

@@ -5,7 +5,8 @@ PyTorch counterpart of the parts of `lanpaint_tpu/models/load.py` whose
 models the port runs: the reader (`load_safetensors`,
 `safetensors_header_keys`), the entry-table machinery (`expected_keys`,
 `manifest_coverage`, `key_census`, `split_checkpoint`), and the importers
-and exporters of the SD UNets (with `fuse_unet_qkv` / `unfuse_unet_qkv`),
+and exporters of the SD UNets (with `fuse_unet_qkv` / `unfuse_unet_qkv`)
+and their ControlNets,
 the AutoencoderKL VAE, CLIP (HF and OpenCLIP layouts), T5 / UMT5, the
 Llama / Qwen text trunk, the Qwen2.5-VL vision tower, the MMDiT (Flux
 layout, Qwen-Image's diffusers layout, the stand-ins' census guard), SD3 /
@@ -780,6 +781,29 @@ def import_unet(state, cfg, prefix: str = "model.diffusion_model.") -> dict:
 
 def export_unet(state_dict, cfg, prefix: str = "model.diffusion_model.") -> dict:
     return _export(unfuse_unet_qkv(state_dict), _unet_entries(cfg), prefix)
+
+
+def _controlnet_entries(cfg):
+    """cldm ControlNet layout: the UNet encoder entries + hint encoder +
+    zero convs (public keys input_hint_block.{0,2,..,14}, zero_convs.{j}.0,
+    middle_block_out.0; prefix `control_model.`)."""
+    e = _unet_entries(cfg, encoder_only=True)
+    for j in range(8):
+        e.append((f"input_hint_block.{2 * j}", ("input_hint_block", f"conv_{j}"), "conv", None))
+    n_zero = 1 + len(cfg.channel_mult) * cfg.num_res_blocks + (len(cfg.channel_mult) - 1)
+    for j in range(n_zero):
+        e.append((f"zero_convs.{j}.0", (f"zero_conv_{j}",), "conv", None))
+    e.append(("middle_block_out.0", ("middle_block_out",), "conv", None))
+    return e
+
+
+def import_controlnet(state, cfg, prefix: str = "control_model.") -> dict:
+    """A cldm ControlNet checkpoint -> the port ControlNet's (fused) state_dict."""
+    return fuse_unet_qkv(_import(state, _controlnet_entries(cfg), prefix))
+
+
+def export_controlnet(state_dict, cfg, prefix: str = "control_model.") -> dict:
+    return _export(unfuse_unet_qkv(state_dict), _controlnet_entries(cfg), prefix)
 
 
 def import_dit(state, cfg, prefix: str = "") -> dict:

@@ -68,8 +68,67 @@ TINY_UNET_CONFIG = UNetConfig(  # test-size config
 )
 
 
+def _transformer(cfg: UNetConfig, ch: int, depth: int) -> SpatialTransformer:
+    heads = ch // cfg.head_dim if cfg.head_dim is not None else cfg.num_heads
+    return SpatialTransformer(ch, cfg.context_dim, heads, depth=depth, dtype=cfg.dtype)
+
+
+def build_encoder(module: nn.Module, cfg: UNetConfig) -> tuple:
+    """Register the encoder half that the UNet and its ControlNet share on
+    `module`, under the flax module names: the time (and label) embedding,
+    the input conv, the down path's blocks and the middle block.  Returns
+    (the down path as (res, attn, downsample) names in execution order,
+    the channels of every skip in production order)."""
+    dt = cfg.dtype
+    mc = cfg.model_channels
+    emb_dim = mc * 4
+    module.time_embed = MLPEmbedder(mc, emb_dim, dtype=dt)
+    if cfg.adm_in_channels is not None:
+        module.label_emb = MLPEmbedder(cfg.adm_in_channels, emb_dim, dtype=dt)
+    module.input_conv = Conv2d(cfg.in_channels, mc, 3, padding=1, compute_dtype=dt)
+
+    # skip channel bookkeeping as in the flax module, which infers input
+    # widths lazily
+    plan = []
+    skip_chs = [mc]
+    ch_in = mc
+    for level, mult in enumerate(cfg.channel_mult):
+        ch = mc * mult
+        for i in range(cfg.num_res_blocks):
+            module.add_module(f"down_{level}_{i}_res", ResBlock(ch_in, ch, emb_dim, dtype=dt))
+            attn = None
+            if cfg.transformer_depth[level] > 0:
+                attn = f"down_{level}_{i}_attn"
+                module.add_module(attn, _transformer(cfg, ch, cfg.transformer_depth[level]))
+            plan.append((f"down_{level}_{i}_res", attn, None))
+            ch_in = ch
+            skip_chs.append(ch)
+        if level != len(cfg.channel_mult) - 1:
+            module.add_module(f"down_{level}_ds", Downsample(ch, dtype=dt))
+            plan.append((None, None, f"down_{level}_ds"))
+            skip_chs.append(ch)
+
+    ch = mc * cfg.channel_mult[-1]
+    module.mid_res1 = ResBlock(ch_in, ch, emb_dim, dtype=dt)
+    module.mid_attn = (_transformer(cfg, ch, cfg.transformer_depth_middle)
+                       if cfg.transformer_depth_middle > 0 else None)
+    module.mid_res2 = ResBlock(ch, ch, emb_dim, dtype=dt)
+    return plan, skip_chs
+
+
+def embed(module: nn.Module, timesteps, y):
+    """The time (plus label) embedding of a module `build_encoder` built."""
+    cfg = module.cfg
+    emb = module.time_embed(timestep_embedding(timesteps, cfg.model_channels).to(cfg.dtype))
+    if cfg.adm_in_channels is not None:
+        if y is None:
+            raise ValueError("this UNet config needs pooled conditioning y (SDXL)")
+        emb = emb + module.label_emb(y.to(cfg.dtype))
+    return emb
+
+
 class UNetModel(nn.Module):
-    """SD UNet.  forward(x_nchw, timesteps, context, y, kv_cache) -> eps."""
+    """SD UNet.  forward(x_nchw, timesteps, context, y, control, kv_cache) -> eps."""
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
@@ -77,39 +136,9 @@ class UNetModel(nn.Module):
         dt = cfg.dtype
         mc = cfg.model_channels
         emb_dim = mc * 4
-        self.time_embed = MLPEmbedder(mc, emb_dim, dtype=dt)
-        if cfg.adm_in_channels is not None:
-            self.label_emb = MLPEmbedder(cfg.adm_in_channels, emb_dim, dtype=dt)
-        self.input_conv = Conv2d(cfg.in_channels, mc, 3, padding=1, compute_dtype=dt)
+        self.down_plan, skip_chs = build_encoder(self, cfg)
 
-        # (name, kind) in execution order; skip channel bookkeeping as in the
-        # flax module, which infers input widths lazily
-        self.down_plan = []
-        skip_chs = [mc]
-        ch_in = mc
-        for level, mult in enumerate(cfg.channel_mult):
-            ch = mc * mult
-            for i in range(cfg.num_res_blocks):
-                self.add_module(f"down_{level}_{i}_res", ResBlock(ch_in, ch, emb_dim, dtype=dt))
-                attn = None
-                if cfg.transformer_depth[level] > 0:
-                    attn = f"down_{level}_{i}_attn"
-                    self.add_module(attn, self._transformer(ch, cfg.transformer_depth[level]))
-                self.down_plan.append((f"down_{level}_{i}_res", attn, None))
-                ch_in = ch
-                skip_chs.append(ch)
-            if level != len(cfg.channel_mult) - 1:
-                self.add_module(f"down_{level}_ds", Downsample(ch, dtype=dt))
-                self.down_plan.append((None, None, f"down_{level}_ds"))
-                skip_chs.append(ch)
-
-        ch = mc * cfg.channel_mult[-1]
-        self.mid_res1 = ResBlock(ch_in, ch, emb_dim, dtype=dt)
-        self.mid_attn = (self._transformer(ch, cfg.transformer_depth_middle)
-                         if cfg.transformer_depth_middle > 0 else None)
-        self.mid_res2 = ResBlock(ch, ch, emb_dim, dtype=dt)
-        ch_in = ch
-
+        ch_in = mc * cfg.channel_mult[-1]
         self.up_plan = []
         for level, mult in reversed(list(enumerate(cfg.channel_mult))):
             ch = mc * mult
@@ -119,7 +148,7 @@ class UNetModel(nn.Module):
                 attn = None
                 if cfg.transformer_depth[level] > 0:
                     attn = f"up_{level}_{i}_attn"
-                    self.add_module(attn, self._transformer(ch, cfg.transformer_depth[level]))
+                    self.add_module(attn, _transformer(cfg, ch, cfg.transformer_depth[level]))
                 self.up_plan.append((name, attn))
                 ch_in = ch
             if level != 0:
@@ -130,29 +159,34 @@ class UNetModel(nn.Module):
         self.out_conv = Conv2d(mc, cfg.out_channels, 3, padding=1,
                                compute_dtype=torch.float32)
 
-    def _heads(self, ch: int) -> int:
-        if self.cfg.head_dim is not None:
-            return ch // self.cfg.head_dim
-        return self.cfg.num_heads
+    def forward(self, x, timesteps, context, y=None, control=None, kv_cache=None):
+        """`control` (ControlNet residual injection): optional dict with
+        "input" (list added to each skip activation as it is produced),
+        "middle" (added after the middle block) and/or "output" (list added
+        to each skip as it is consumed in the up path).  Both lists are
+        indexed by the skip's production order, so a ControlNet's
+        encoder-order residuals plug into "output" directly; entries may be
+        None and the lists shorter than the skips (missing entries add
+        nothing); each residual is cast to the activation's dtype first.
 
-    def _transformer(self, ch: int, depth: int) -> SpatialTransformer:
-        return SpatialTransformer(ch, self.cfg.context_dim, self._heads(ch), depth=depth,
-                                  dtype=self.cfg.dtype)
-
-    def forward(self, x, timesteps, context, y=None, kv_cache=None):
-        """`kv_cache`: optional dict SpatialTransformer name -> precomputed
+        `kv_cache`: optional dict SpatialTransformer name -> precomputed
         cross-attention k|v (B, depth, T, 2*ch), see zoo.unet_precompute_kv."""
         cfg = self.cfg
         kv_cache = kv_cache or {}
+        ctl_in = list((control or {}).get("input") or [])
+        ctl_out = list((control or {}).get("output") or [])
+        ctl_mid = (control or {}).get("middle")
+
+        def add_ctl(h, entries, idx):
+            if idx < len(entries) and entries[idx] is not None:
+                h = h + entries[idx].to(h.dtype)
+            return h
+
         x = x.to(cfg.dtype)
         context = context.to(cfg.dtype)
-        emb = self.time_embed(timestep_embedding(timesteps, cfg.model_channels).to(cfg.dtype))
-        if cfg.adm_in_channels is not None:
-            if y is None:
-                raise ValueError("SDXL UNet needs pooled conditioning y")
-            emb = emb + self.label_emb(y.to(cfg.dtype))
+        emb = embed(self, timesteps, y)
 
-        h = self.input_conv(x)
+        h = add_ctl(self.input_conv(x), ctl_in, 0)
         skips = [h]
         for res, attn, ds in self.down_plan:
             if ds is not None:
@@ -161,18 +195,23 @@ class UNetModel(nn.Module):
                 h = getattr(self, res)(h, emb)
                 if attn is not None:
                     h = getattr(self, attn)(h, context, kv_pre=kv_cache.get(attn))
+            h = add_ctl(h, ctl_in, len(skips))
             skips.append(h)
 
         h = self.mid_res1(h, emb)
         if self.mid_attn is not None:
             h = self.mid_attn(h, context, kv_pre=kv_cache.get("mid_attn"))
         h = self.mid_res2(h, emb)
+        if ctl_mid is not None:
+            h = h + ctl_mid.to(h.dtype)
 
         for res, attn in self.up_plan:
             if res is None:
                 h = getattr(self, attn)(h)  # upsample
                 continue
-            h = getattr(self, res)(torch.cat([h, skips.pop()], dim=1), emb)
+            idx = len(skips) - 1
+            skip = add_ctl(skips.pop(), ctl_out, idx)
+            h = getattr(self, res)(torch.cat([h, skip], dim=1), emb)
             if attn is not None:
                 h = getattr(self, attn)(h, context, kv_pre=kv_cache.get(attn))
 

@@ -4,13 +4,15 @@ SD3.5, HiDream-I1, HunyuanVideo, Z-Image and the Wan video DiTs), the
 image and video VAEs, the CLIP, T5 and Llama / Qwen text encoders and the
 Qwen2.5-VL vision tower.
 
-PyTorch counterpart of `lanpaint_tpu/models/zoo.py` but for its ControlNet
-and sequence-parallel Wan builders, with its two-model wrappers
+PyTorch counterpart of `lanpaint_tpu/models/zoo.py` but for its
+sequence-parallel Wan builder, with the ControlNet-conditioned UNet
+(`build_controlled_unet`), its two-model wrappers
 (`switching_denoiser`, the Wan2.2 high/low-noise expert pair, and
 `dual_model_denoiser`) and the checkpoint key census
 (`family_expected_keys`, `family_census`).
 `build_unet`, `build_dit`, `build_sd3`, `build_hidream`, `build_hyvideo`,
-`build_zimage` and `build_wan` return (Denoiser, module); `build_vae`,
+`build_zimage` and `build_wan` return (Denoiser, module),
+`build_controlled_unet` (Denoiser, (unet, controlnet)); `build_vae`,
 `build_wan_vae`, `build_clip`, `build_t5`, `build_llama` and
 `build_vision` return the module.
 Every `build_*` function builds on the CUDA card unless `device` names
@@ -109,15 +111,8 @@ def build_unet(
     v (SD2.x-v): x0 = x / (1 + s^2) - s / sqrt(1 + s^2) * v."""
     device = resolve_device(device)
     module = _materialize(UNetModel, config, state_dict, device, param_dtype, seed)
-
     table = EpsSigmaTable()
-    log_sigmas = torch.log(torch.tensor(table.sigmas, dtype=torch.float32, device=device))
-    steps = torch.arange(log_sigmas.shape[0], dtype=torch.float32, device=device)
-
-    def sigma_to_timestep(sigma):
-        # log-sigma interpolation into the discrete table (ComfyUI
-        # ModelSamplingDiscrete.timestep analogue)
-        return _interp(torch.log(torch.clamp_min(sigma, 1e-10)), log_sigmas, steps)
+    sigma_to_timestep = _discrete_timestep(table, device)
 
     # eps: x0 = x - sigma * eps, with eps predicted from the VP-scaled input
     # (c_in scaling, ComfyUI EPS.calculate_denoised analogue)
@@ -125,19 +120,32 @@ def build_unet(
     def apply(x, sigma, cond):
         s = bcast_to(sigma, x.ndim)
         x_in = x / torch.sqrt(1.0 + s**2)
-        t_disc = sigma_to_timestep(sigma)
         y = cond.get("y") if isinstance(cond, dict) else None
         ctx = cond["context"] if isinstance(cond, dict) else cond
         kvc = cond.get("kv_cache") if isinstance(cond, dict) else None
-        eps = module(x_in, t_disc, ctx, y, kv_cache=kvc)
-        if v_prediction:
-            return x / (1.0 + s**2) - s / torch.sqrt(1.0 + s**2) * eps
-        return x - s * eps
+        eps = module(x_in, sigma_to_timestep(sigma), ctx, y, kv_cache=kvc)
+        return _eps_to_x0(x, s, eps, v_prediction)
 
     den = Denoiser(apply=apply, kind=ModelKind.EPS, sigma_table=table, name=name,
                    latent_channels=config.in_channels, module=module,
                    precompute=lambda cond: unet_precompute_kv(module, cond))
     return den, module
+
+
+def _discrete_timestep(table: EpsSigmaTable, device):
+    """sigma -> the discrete model time: log-sigma interpolation into the
+    table (ComfyUI ModelSamplingDiscrete.timestep analogue)."""
+    log_sigmas = torch.log(torch.tensor(table.sigmas, dtype=torch.float32, device=device))
+    steps = torch.arange(log_sigmas.shape[0], dtype=torch.float32, device=device)
+    return lambda sigma: _interp(torch.log(torch.clamp_min(sigma, 1e-10)), log_sigmas, steps)
+
+
+def _eps_to_x0(x, s, eps, v_prediction: bool):
+    """The model output read as eps (x0 = x - s * eps) or, with
+    `v_prediction`, as v (x0 = x / (1 + s^2) - s / sqrt(1 + s^2) * v)."""
+    if v_prediction:
+        return x / (1.0 + s**2) - s / torch.sqrt(1.0 + s**2) * eps
+    return x - s * eps
 
 
 @torch.no_grad()
@@ -169,6 +177,68 @@ def build_sdxl(state_dict=None, **kw):
 
 def build_tiny_unet(state_dict=None, **kw):
     return build_unet(TINY_UNET_CONFIG, state_dict, name="tiny-unet", **kw)
+
+
+# --------------------------------------------------------------------------
+# ControlNet-conditioned UNet
+
+
+def build_controlled_unet(
+    config: UNetConfig,
+    unet_state: Optional[dict] = None,
+    cn_state: Optional[dict] = None,
+    *,
+    strength: float = 1.0,
+    v_prediction: bool = False,
+    device=None,
+    param_dtype: torch.dtype = torch.float32,
+    seed: int = 0,
+    name: str = "controlled-unet",
+):
+    """UNet + ControlNet pair on `device` (the CUDA card when None):
+    returns (Denoiser, (unet, controlnet)).
+
+    A cond dict that carries `hint`, a (B, 3, H*8, W*8) pixel-space control
+    image, runs the ControlNet on every forward and injects its residuals
+    at the UNet skips (UNetModel `control=`) scaled by `strength`; without
+    a hint the Denoiser is the plain UNet.  Without state dicts the weights
+    are random (the UNet's from `seed`, the ControlNet's from `seed + 1`),
+    and the ControlNet's zero convs and `middle_block_out` start at zero,
+    as the JAX package initializes them: a new pair is the UNet exactly.
+    No cross-attention k/v is hoisted (the JAX package's pair passes no
+    kv_cache).  `module` is an nn.ModuleDict {"unet", "cn"};
+    `bridge.pair_params_from_flax` maps the JAX pair's {"unet", "cn"}
+    parameters onto its state_dict."""
+    from .controlnet import ControlNet, scale_control
+
+    device = resolve_device(device)
+    module = _materialize(UNetModel, config, unet_state, device, param_dtype, seed)
+    cn = _materialize(ControlNet, config, cn_state, device, param_dtype, seed + 1)
+    if cn_state is None:
+        with torch.no_grad():
+            for conv in cn.zero_convs():
+                conv.weight.zero_()
+    table = EpsSigmaTable()
+    sigma_to_timestep = _discrete_timestep(table, device)
+
+    @torch.no_grad()
+    def apply(x, sigma, cond):
+        s = bcast_to(sigma, x.ndim)
+        x_in = x / torch.sqrt(1.0 + s**2)
+        t_disc = sigma_to_timestep(sigma)
+        y = cond.get("y") if isinstance(cond, dict) else None
+        ctx = cond["context"] if isinstance(cond, dict) else cond
+        hint = cond.get("hint") if isinstance(cond, dict) else None
+        control = None
+        if hint is not None:
+            control = scale_control(cn(x_in, hint, t_disc, ctx, y), strength)
+        eps = module(x_in, t_disc, ctx, y, control)
+        return _eps_to_x0(x, s, eps, v_prediction)
+
+    den = Denoiser(apply=apply, kind=ModelKind.EPS, sigma_table=table, name=name,
+                   latent_channels=config.in_channels,
+                   module=nn.ModuleDict({"unet": module, "cn": cn}))
+    return den, (module, cn)
 
 
 # --------------------------------------------------------------------------

@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
@@ -49,6 +50,7 @@ SOURCES = {
 }
 
 _ENTRIES: dict = {}
+_ENTRIES_LOCK = threading.Lock()
 
 
 def nvcc() -> str:
@@ -97,10 +99,15 @@ def load_entry(name: str, defines: tuple = ()):
 
 
 def entry(name: str):
-    """The C entry point of library `name` (the default build, loaded once)."""
+    """The C entry point of library `name` (the default build, loaded once,
+    also when threads first launch a kernel together: a serving worker's
+    first batch builds under a lock)."""
     fn = _ENTRIES.get(name)
     if fn is None:
-        fn = _ENTRIES[name] = load_entry(name)
+        with _ENTRIES_LOCK:
+            fn = _ENTRIES.get(name)
+            if fn is None:
+                fn = _ENTRIES[name] = load_entry(name)
     return fn
 
 

@@ -9,7 +9,8 @@ src/LanPaint/utils.py:203-300).  The process is
 with the velocity variable v = q / sqrt(Gamma).  The exact one-step
 transition is a 2D Gaussian in (y, v); its mean map and a manual 2x2
 Cholesky factor are computed once per branch on per-batch scalars, and the
-noise is passed in by the caller (the engine owns the draw order).
+noise is passed in by the caller (the engine owns the draw order);
+`sho_dynamics` is the standalone step, drawing from a generator or fed.
 """
 
 from __future__ import annotations
@@ -79,6 +80,28 @@ def sho_apply(coeffs: SHOCoeffs, y0, v0, a, c, eps_y, eps_v):
     y_t = y_mean + coeffs.l_yy * eps_y
     v_t = v_mean + coeffs.l_vy * eps_y + coeffs.l_vv * eps_v
     return y_t, v_t
+
+
+def sho_dynamics(y0, v0, t, gamma, a, c, d, generator=None, *, normals=None):
+    """One exact SHO step; the standalone (non-fused) entry point.
+
+    If `v0` is None the velocity is initialized from its stationary
+    distribution `N(0, D^2/2)` (reference utils.py:253-254).  The noise is
+    three standard-normal draws of y0's shape, in the JAX package's order
+    (v-init, eps_y, eps_v): `normals`, a tuple of the three, fed by the
+    caller (the JAX package's draws, to compare the two), or else three
+    `torch.randn` from `generator`, taken whether or not v0 is None, as
+    the JAX package splits three keys either way."""
+    if normals is None:
+        normals = tuple(torch.randn(y0.shape, generator=generator, dtype=y0.dtype,
+                                    device=y0.device) for _ in range(3))
+    n_v0, eps_y, eps_v = normals
+    t, gamma, a, c, d = (torch.as_tensor(v, dtype=y0.dtype, device=y0.device)
+                         for v in (t, gamma, a, c, d))
+    if v0 is None:
+        v0 = n_v0 * d / torch.sqrt(torch.tensor(2.0, dtype=y0.dtype, device=y0.device))
+    coeffs = sho_coeffs(gamma, a, d, t)
+    return sho_apply(coeffs, y0, v0, a, c, eps_y, eps_v)
 
 
 class OUCoeffs(NamedTuple):

@@ -44,6 +44,22 @@ ModelFn = Callable[[torch.Tensor, np.float32, int], Tuple[torch.Tensor, torch.Te
 
 _F = np.float32
 
+SAMPLER_NAMES = []
+_SOLVERS = {}
+
+
+def register_solver(name, *aliases):
+    """Register a solver step function under `name` and its aliases, in
+    `SAMPLER_NAMES` order: fn(model, carry, sigma, sigma_next, step,
+    generator[, row]) -> (carry, denoised) (the section below)."""
+    def deco(fn):
+        for n in (name,) + aliases:
+            _SOLVERS[n] = fn
+            SAMPLER_NAMES.append(n)
+        return fn
+
+    return deco
+
 
 class SolverCarry(NamedTuple):
     x: torch.Tensor
@@ -90,12 +106,14 @@ def _neg_log(s):
 # global step index (the noise slots'), `row` the step's table row.
 
 
+@register_solver("euler")
 def _euler(model, c, s, sn, i, gen):
     den, x = model(c.x, s)
     x = x + _to_d(x, s, den) * (_F(sn) - _F(s))
     return c._replace(x=x), den
 
 
+@register_solver("euler_ancestral")
 def _euler_ancestral(model, c, s, sn, i, gen):
     den, x = model(c.x, s)
     sd, su = _ancestral_step(s, sn)
@@ -105,6 +123,7 @@ def _euler_ancestral(model, c, s, sn, i, gen):
     return c._replace(x=x), den
 
 
+@register_solver("heun")
 def _heun(model, c, s, sn, i, gen):
     den, x = model(c.x, s)
     d = _to_d(x, s, den)
@@ -117,6 +136,7 @@ def _heun(model, c, s, sn, i, gen):
     return c._replace(x=x), den
 
 
+@register_solver("heunpp2")
 def _heunpp2(model, c, s, sn, i, gen, row):
     """Heun++2: 1/2/3-stage scheme selected by distance to the ladder end
     (the public k-diffusion `sample_heunpp2`): the last step is Euler, the
@@ -144,6 +164,7 @@ def _heunpp2(model, c, s, sn, i, gen, row):
     return c._replace(x=x), den
 
 
+@register_solver("dpm_2")
 def _dpm_2(model, c, s, sn, i, gen):
     s, sn = _F(s), _F(sn)
     s_mid = np.exp(_F(0.5) * (np.log(s) + np.log(np.maximum(sn, _F(1e-10)))))
@@ -157,6 +178,7 @@ def _dpm_2(model, c, s, sn, i, gen):
     return c._replace(x=x), den
 
 
+@register_solver("dpm_2_ancestral")
 def _dpm_2_ancestral(model, c, s, sn, i, gen):
     s, sn = _F(s), _F(sn)
     sd, su = _ancestral_step(s, sn)
@@ -172,6 +194,7 @@ def _dpm_2_ancestral(model, c, s, sn, i, gen):
     return c._replace(x=x), den
 
 
+@register_solver("ddpm")
 def _ddpm(model, c, s, sn, i, gen):
     """DDPM ancestral step in VP coords (ComfyUI DDPMSampler_step)."""
     s, sn = _F(s), _F(sn)
@@ -188,6 +211,7 @@ def _ddpm(model, c, s, sn, i, gen):
     return c._replace(x=mu * np.sqrt(_F(1.0) + sn**2)), den
 
 
+@register_solver("dpmpp_2m")
 def _dpmpp_2m(model, c, s, sn, i, gen):
     s, sn = _F(s), _F(sn)
     den, x = model(c.x, s)
@@ -200,6 +224,7 @@ def _dpmpp_2m(model, c, s, sn, i, gen):
     return c._replace(x=x, hist1=den, h1=h, nhist=c.nhist + 1), den
 
 
+@register_solver("dpmpp_2m_sde", "dpmpp_2m_sde_gpu")
 def _dpmpp_2m_sde(model, c, s, sn, i, gen, eta=1.0):
     s, sn = _F(s), _F(sn)
     den, x = model(c.x, s)
@@ -217,6 +242,7 @@ def _dpmpp_2m_sde(model, c, s, sn, i, gen, eta=1.0):
     return c._replace(x=x, hist1=den, h1=h, nhist=c.nhist + 1), den
 
 
+@register_solver("dpmpp_3m_sde", "dpmpp_3m_sde_gpu")
 def _dpmpp_3m_sde(model, c, s, sn, i, gen, eta=1.0):
     s, sn = _F(s), _F(sn)
     den, x = model(c.x, s)
@@ -245,6 +271,7 @@ def _dpmpp_3m_sde(model, c, s, sn, i, gen, eta=1.0):
     return c._replace(x=x, hist1=den, hist2=c.hist1, h1=h, h2=c.h1, nhist=c.nhist + 1), den
 
 
+@register_solver("dpmpp_sde", "dpmpp_sde_gpu")
 def _dpmpp_sde(model, c, s, sn, i, gen, eta=1.0, r=0.5):
     s, sn = _F(s), _F(sn)
     den, x = model(c.x, s)
@@ -290,14 +317,17 @@ def _res_multistep_core(model, c, s, sn, i, gen, eta):
     return c._replace(x=x1, hist1=den, h1=h, nhist=c.nhist + 1), den
 
 
+@register_solver("res_multistep")
 def _res_multistep(model, c, s, sn, i, gen):
     return _res_multistep_core(model, c, s, sn, i, gen, eta=0.0)
 
 
+@register_solver("res_multistep_ancestral")
 def _res_multistep_ancestral(model, c, s, sn, i, gen):
     return _res_multistep_core(model, c, s, sn, i, gen, eta=1.0)
 
 
+@register_solver("seeds_2")
 def _seeds_2(model, c, s, sn, i, gen, eta=1.0, r=0.5, s_noise=1.0):
     """SEEDS-2: 2-stage stochastic exponential derivative-free solver
     (Gonzalez et al. 2023)."""
@@ -325,6 +355,7 @@ def _seeds_2(model, c, s, sn, i, gen, eta=1.0, r=0.5, s_noise=1.0):
     return c._replace(x=x), den
 
 
+@register_solver("seeds_3")
 def _seeds_3(model, c, s, sn, i, gen, eta=1.0, r_1=1.0 / 3.0, r_2=2.0 / 3.0, s_noise=1.0):
     """SEEDS-3: 3-stage stochastic exponential solver."""
     s, sn = _F(s), _F(sn)
@@ -363,6 +394,7 @@ def _er_psi(sig):
     return sig * (np.exp(np.maximum(sig, _F(1e-10)) ** _F(0.3)) + _F(10.0))
 
 
+@register_solver("er_sde")
 def _er_sde(model, c, s, sn, i, gen):
     """Extended reverse-time SDE solver, max order 3 (VE ER-SDE-Solver-3,
     arXiv 2309.06169; k-diffusion `sample_er_sde`): stage k = min(3, nhist +
@@ -395,6 +427,7 @@ def _er_sde(model, c, s, sn, i, gen):
     return c._replace(x=x, hist1=den, hist2=den_d, h1=s, h2=c.h1, nhist=c.nhist + 1), den
 
 
+@register_solver("gradient_estimation")
 def _gradient_estimation(model, c, s, sn, i, gen, ge_gamma=2.0):
     den, x = model(c.x, s)
     d = _to_d(x, s, den)
@@ -433,6 +466,7 @@ def _deis_coeffs(sigmas, max_order: int = 3):
     return coeffs.astype("float32")
 
 
+@register_solver("deis")
 def _deis(model, c, s, sn, i, gen, row):
     den, x = model(c.x, s)
     eps = _to_d(x, s, den)
@@ -552,19 +586,9 @@ def _sample_dpm_fast(model, noise_x, sigmas, callback=None, g_range=None):
     return x, dens
 
 
-_SOLVERS = {
-    "euler": _euler, "euler_ancestral": _euler_ancestral, "heun": _heun,
-    "heunpp2": _heunpp2, "dpm_2": _dpm_2, "dpm_2_ancestral": _dpm_2_ancestral,
-    "ddpm": _ddpm, "dpmpp_2m": _dpmpp_2m, "dpmpp_2m_sde": _dpmpp_2m_sde,
-    "dpmpp_2m_sde_gpu": _dpmpp_2m_sde, "dpmpp_3m_sde": _dpmpp_3m_sde,
-    "dpmpp_3m_sde_gpu": _dpmpp_3m_sde, "dpmpp_sde": _dpmpp_sde, "dpmpp_sde_gpu": _dpmpp_sde,
-    "res_multistep": _res_multistep, "res_multistep_ancestral": _res_multistep_ancestral,
-    "seeds_2": _seeds_2, "seeds_3": _seeds_3, "er_sde": _er_sde,
-    "gradient_estimation": _gradient_estimation, "deis": _deis,
-    "dpm_fast": _sample_dpm_fast,  # runs a whole ladder; sample() dispatches it
-}
-# Every solver name, in the JAX package's registration order.
-SAMPLER_NAMES = list(_SOLVERS)
+# runs a whole ladder; sample() dispatches it (the JAX package lists the
+# name last and keeps no step function for it)
+register_solver("dpm_fast")(_sample_dpm_fast)
 _TABLE_SOLVERS = ("deis", "heunpp2")  # solvers that take their step's table row
 
 

@@ -1,8 +1,9 @@
 """The port's copies of the host-only modules against the originals.
 
 `lanpaint_tpu_torch/config.py`, `sigmas.py` and `tokenizers.py` are copies
-(importing the JAX package's would import jax), and so is the checkpoint
-reader's C++ (`native/convert.cpp`), byte for byte.  Defaults, validation and the derived
+(importing the JAX package's would import jax), and so are the checkpoint
+reader's C++ (`native/convert.cpp`), the LoRA merge (`models/lora.py`) and
+the web UI (`webui.py`), byte for byte.  Defaults, validation and the derived
 properties must agree, and every scheduler must give the same ladder,
 bit for bit.  So must the solvers' host tables in `samplers.py`: the deis
 coefficients (`_deis_coeffs`, numpy), heunpp2's full-ladder rows
@@ -108,6 +109,21 @@ def test_tokenizers_module_is_the_original():
     assert inspect.getsource(ttokenizers) == inspect.getsource(jtokenizers)
     public = lambda m: sorted(n for n in vars(m) if not n.startswith("__"))  # noqa: E731
     assert public(ttokenizers) == public(jtokenizers)
+
+
+@pytest.mark.parametrize("name", ["models/lora.py", "webui.py"])
+def test_numpy_only_modules_are_the_originals(name):
+    """The LoRA merge (numpy only) and the web UI (one HTML string) are
+    copies, byte for byte, with the same public names."""
+    import importlib
+
+    got = (REPO / "lanpaint_tpu_torch" / name).read_bytes()
+    assert got == (REPO / "lanpaint_tpu" / name).read_bytes()
+    mod = name[:-3].replace("/", ".")
+    j = importlib.import_module(f"lanpaint_tpu.{mod}")
+    t = importlib.import_module(f"lanpaint_tpu_torch.{mod}")
+    public = lambda m: sorted(n for n in vars(m) if not n.startswith("__"))  # noqa: E731
+    assert public(t) == public(j)
 
 
 def test_native_convert_source_is_byte_identical():

@@ -31,7 +31,9 @@ import manifests as M
 from lanpaint_tpu.models import dit as jdit
 from lanpaint_tpu.models import hidream as jhidream
 from lanpaint_tpu.models import hyvideo as jhyvideo
+from lanpaint_tpu.models import controlnet as jcn
 from lanpaint_tpu.models import load as JL
+from lanpaint_tpu.models import lora as jlora
 from lanpaint_tpu.models import sd3 as jsd3
 from lanpaint_tpu.models import textenc as jte
 from lanpaint_tpu.models import unet as junet
@@ -42,10 +44,12 @@ from lanpaint_tpu.models import wan as jwan
 from lanpaint_tpu.models import zimage as jzimage
 from lanpaint_tpu.models import zoo as jzoo
 from lanpaint_tpu_torch.models import bridge
+from lanpaint_tpu_torch.models import controlnet as tcn
 from lanpaint_tpu_torch.models import dit as tdit
 from lanpaint_tpu_torch.models import hidream as thidream
 from lanpaint_tpu_torch.models import hyvideo as thyvideo
 from lanpaint_tpu_torch.models import load as TL
+from lanpaint_tpu_torch.models import lora as tlora
 from lanpaint_tpu_torch.models import sd3 as tsd3
 from lanpaint_tpu_torch.models import textenc as tte
 from lanpaint_tpu_torch.models import unet as tunet
@@ -113,6 +117,16 @@ def _unet(kw):
     tree = JL.fuse_unet_qkv(tree)
     return (tree, jcfg, tunet.UNetConfig(**kw), tunet.UNetModel,
             JL.export_unet, JL.import_unet, TL.export_unet, TL.import_unet)
+
+
+def _controlnet():
+    jcfg = junet.UNetConfig(**UNET_SDXL)
+    tree = random_tree(jcn.ControlNet(jcfg), jnp.zeros((1, 4, 16, 16)),
+                       jnp.zeros((1, 3, 128, 128)), jnp.zeros((1,)),
+                       jnp.zeros((1, 8, jcfg.context_dim)), jnp.zeros((1, jcfg.adm_in_channels)))
+    return (JL.fuse_unet_qkv(tree), jcfg, tunet.UNetConfig(**UNET_SDXL), tcn.ControlNet,
+            JL.export_controlnet, JL.import_controlnet, TL.export_controlnet,
+            TL.import_controlnet)
 
 
 def _vae(quant_conv):
@@ -226,6 +240,7 @@ def _wan_vae(name):
 
 FAMILIES = {
     "unet_sd1": lambda: _unet(UNET_SD1), "unet_sdxl": lambda: _unet(UNET_SDXL),
+    "controlnet_sdxl": _controlnet,
     "vae": lambda: _vae(True), "vae_no_quant": lambda: _vae(False),
     "clip_proj": lambda: _clip(24), "clip_square_proj": lambda: _clip(32),
     "clip_no_proj": lambda: _clip(0), "t5": lambda: _t5(False), "umt5": lambda: _t5(True),
@@ -490,3 +505,83 @@ def test_unet_denoiser_matches_jax(v_prediction):
     got = tden.apply(torch.from_numpy(x), torch.from_numpy(sigma),
                      {"context": torch.from_numpy(ctx)}).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
+
+
+def _lora(state, rank=4):
+    """A LoRA over the UNet state's attention projections: kohya pairs (with
+    an alpha on every other one) for attn1, diffusers / PEFT pairs for
+    attn2, from a numpy seed."""
+    rng = np.random.default_rng(12)
+    lora = {}
+    for i, key in enumerate(sorted(k for k in state if ".attn" in k and k.endswith(".weight"))):
+        out_dim, in_dim = state[key].shape
+        down = (0.3 * rng.standard_normal((rank, in_dim))).astype(np.float32)
+        up = (0.3 * rng.standard_normal((out_dim, rank))).astype(np.float32)
+        if ".attn1." in key:
+            base = jlora._kohya_name(key)
+            lora[base + ".lora_down.weight"], lora[base + ".lora_up.weight"] = down, up
+            if i % 2:
+                lora[base + ".alpha"] = np.float32(2.0)
+        else:
+            base = key[: -len(".weight")]
+            lora[base + ".lora_A.weight"], lora[base + ".lora_B.weight"] = down, up
+    return lora
+
+
+def test_lora_merge_then_import_equals_the_bridge_of_the_jax_merge():
+    """JAX's `export_unet` -> `apply_lora` (the port's copy) -> the port's
+    `import_unet` is the bridge of JAX's import of JAX's merge, bit for
+    bit; the merge moves the forward, and strength 0 gives the source."""
+    tree, jcfg, tcfg, *_ = _unet(UNET_SDXL)
+    state = {k: np.asarray(v) for k, v in JL.export_unet(tree, jcfg).items()}
+    lora = _lora(state)
+    assert any(k.endswith(".lora_down.weight") for k in lora)
+    assert any(k.endswith(".lora_A.weight") for k in lora)
+    want = bridge.params_from_flax(JL.import_unet(jlora.apply_lora(state, lora, 0.8), jcfg))
+    merged = tlora.apply_lora(state, lora, 0.8)
+    got = TL.import_unet(merged, tcfg)
+    _assert_equal_states(got, want)
+    n_merged = sum(not np.array_equal(merged[k], state[k]) for k in state)
+    assert n_merged == len([k for k in lora if k.endswith(("lora_down.weight", "lora_A.weight"))])
+    same = tlora.apply_lora(state, lora, 0.0)
+    assert all(same[k].dtype == v.dtype and same[k].tobytes() == v.tobytes()
+               for k, v in state.items())
+
+    kw = dict(UNET_SDXL, dtype=torch.float32)
+    cfg32 = tunet.UNetConfig(**kw)
+    rng = np.random.default_rng(6)
+    args = [torch.from_numpy(a) for a in (
+        rng.standard_normal((1, 4, 16, 16)).astype(np.float32), np.array([300.0], np.float32),
+        rng.standard_normal((1, 8, cfg32.context_dim)).astype(np.float32),
+        rng.standard_normal((1, cfg32.adm_in_channels)).astype(np.float32))]
+    outs = []
+    for st in (TL.import_unet(state, tcfg), got):
+        _, module = tzoo.build_unet(cfg32, st, device="cpu")
+        with torch.no_grad():
+            outs.append(module(*args))
+    assert float((outs[0] - outs[1]).abs().max()) > 1e-2
+
+
+def test_lora_merges_into_the_readers_widened_arrays(tmp_path):
+    """A BF16 file read by the port's reader holds fp32 numpy arrays; the
+    merge keeps their dtype and a strength-0 merge gives them back bit for
+    bit, as `merged = w + s * (alpha / r) * up @ down` in fp32."""
+    safetensors_torch = pytest.importorskip("safetensors.torch")
+    tree, jcfg, *_ = _unet(UNET_SDXL)
+    state = {k: np.asarray(v) for k, v in JL.export_unet(tree, jcfg).items()}
+    path = tmp_path / "unet.safetensors"
+    safetensors_torch.save_file(
+        {k: torch.from_numpy(np.ascontiguousarray(v)).to(torch.bfloat16)
+         for k, v in state.items()}, str(path))
+    read = TL.load_safetensors(str(path))
+    lora = _lora(read)
+    merged = tlora.apply_lora(read, lora, 0.8)
+    same = tlora.apply_lora(read, lora, 0.0)
+    for k, v in read.items():
+        assert v.dtype == np.float32 and merged[k].dtype == np.float32, k
+        assert same[k].tobytes() == v.tobytes(), k
+    key = sorted(k for k in read if ".attn2.to_k." in k)[0]
+    base = key[: -len(".weight")]
+    delta = lora[base + ".lora_B.weight"].astype(np.float64) @ \
+        lora[base + ".lora_A.weight"].astype(np.float64)
+    np.testing.assert_allclose(merged[key], read[key] + 0.8 * delta, rtol=1e-6, atol=1e-6)

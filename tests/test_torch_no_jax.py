@@ -4,8 +4,9 @@ In a fresh interpreter where `import jax` (and flax, safetensors and
 ml_dtypes, which that machine lacks too) fails, the package and every
 module of it (api, engine, masks, quality, utils, the UNet, DiT, SD3,
 HiDream, HunyuanVideo, Z-Image, Wan, VAE, Wan VAE, TAESD, text-encoder and
-vision-tower models, the checkpoint loader and its native reader, the
-tokenizers, text conditioning, the pipeline, the kernel wrappers) import,
+vision-tower models, the ControlNet and the LoRA merge, the checkpoint
+loader and its native reader, the tokenizers, text conditioning, the
+pipeline, the server, the web UI, the CLI, the kernel wrappers) import,
 and nothing of the JAX package (or triton) gets loaded along the way.
 """
 
@@ -46,6 +47,11 @@ import lanpaint_tpu_torch.native.loader
 import lanpaint_tpu_torch.tokenizers
 import lanpaint_tpu_torch.text
 import lanpaint_tpu_torch.pipeline
+import lanpaint_tpu_torch.models.controlnet
+import lanpaint_tpu_torch.models.lora
+import lanpaint_tpu_torch.serve
+import lanpaint_tpu_torch.webui
+import lanpaint_tpu_torch.__main__
 import lanpaint_tpu_torch.ops.attention
 import lanpaint_tpu_torch.ops.fused
 import lanpaint_tpu_torch.ops.norms

@@ -165,6 +165,48 @@ def test_sho_and_ou_apply():
                                                                      (y0, c, ey))))
 
 
+@pytest.mark.parametrize("with_v0", [True, False], ids=["v0", "stationary_v0"])
+def test_sho_dynamics_matches_jax_through_fed_draws(with_v0):
+    """`sho_dynamics` fed the JAX step's own three draws (its key split into
+    v-init, eps_y, eps_v) gives the JAX step's result; without v0 the
+    velocity starts from the first draw, scaled to N(0, D^2/2)."""
+    rng = np.random.default_rng(9)
+    shape = (2, 4, 8, 8)
+    y0 = rng.standard_normal(shape).astype(np.float32)
+    v0 = rng.standard_normal(shape).astype(np.float32) if with_v0 else None
+    t, gamma, a, c, d = 0.3, 20.0, 1.5, 0.7, float(np.sqrt(2.0))
+    key = jax.random.PRNGKey(4)
+    want = jsho.sho_dynamics(jnp.asarray(y0), None if v0 is None else jnp.asarray(v0),
+                             jnp.float32(t), jnp.float32(gamma), jnp.float32(a),
+                             jnp.float32(c), jnp.float32(d), key)
+    draws = [torch.from_numpy(np.array(jax.random.normal(k, shape, jnp.float32)))
+             for k in jax.random.split(key, 3)]
+    got = tsho.sho_dynamics(torch.from_numpy(y0), None if v0 is None else torch.from_numpy(v0),
+                            t, gamma, a, c, d, normals=tuple(draws))
+    for g_, w_, name in zip(got, want, ("y", "v")):
+        _close(g_, w_, name)
+
+
+def test_sho_dynamics_draws_from_a_generator():
+    """From a generator: the transition's mean and spread (5-sigma bounds on
+    the mean, as tests/test_sho.py's statistics test), three draws whether
+    or not v0 is given, and a finite step from the stationary velocity."""
+    n = 400_000
+    t, gamma, a, c, d = 0.3, 20.0, 1.0, 0.7, float(np.sqrt(2.0))
+    y0, v0 = torch.full((n,), 1.3), torch.full((n,), -0.1)
+    y, v = tsho.sho_dynamics(y0, v0, t, gamma, a, c, d, torch.Generator().manual_seed(0))
+    coef = tsho.sho_coeffs(*(torch.tensor(x) for x in (gamma, a, d, t)))
+    ym, vm = tsho.sho_apply(coef, torch.tensor(1.3), torch.tensor(-0.1), a, c, 0.0, 0.0)
+    assert abs(float(y.mean() - ym)) < 5 * float(coef.l_yy) / np.sqrt(n)
+    assert abs(float(v.mean() - vm)) < 5 * float(torch.hypot(coef.l_vy, coef.l_vv)) / np.sqrt(n)
+    np.testing.assert_allclose(float(y.std()), float(coef.l_yy), rtol=2e-2)
+    gens = [torch.Generator().manual_seed(3) for _ in range(2)]
+    with_v0 = tsho.sho_dynamics(y0[:100], v0[:100], t, gamma, a, c, d, gens[0])
+    stationary = tsho.sho_dynamics(y0[:100], None, t, gamma, a, c, d, gens[1])
+    assert torch.equal(gens[0].get_state(), gens[1].get_state())
+    assert all(bool(torch.isfinite(z).all()) for z in (*with_v0, *stationary))
+
+
 @pytest.mark.parametrize("kind", ["eps", "flow"])
 def test_schedule(kind):
     tk, jk = TKind(kind), JKind(kind)

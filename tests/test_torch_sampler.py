@@ -101,6 +101,33 @@ def test_get_solver_names_unported_solvers():
         get_solver("no_such_solver")
 
 
+def test_register_solver_matches_jax(monkeypatch):
+    """A solver registered through the decorator joins `SAMPLER_NAMES` (name
+    then aliases, at the end) and the table, as in the JAX package, and a
+    LanPaintSampler runs it: here euler under two new names."""
+    from lanpaint_tpu import samplers as jsamplers
+    from lanpaint_tpu_torch import samplers as tsamplers
+
+    for mod in (jsamplers, tsamplers):
+        monkeypatch.setattr(mod, "SAMPLER_NAMES", list(mod.SAMPLER_NAMES))
+        monkeypatch.setattr(mod, "_SOLVERS", dict(mod._SOLVERS))
+    for mod in (jsamplers, tsamplers):
+        fn = mod._SOLVERS["euler"]
+        assert mod.register_solver("my_euler", "my_euler_alias")(fn) is fn
+    assert tsamplers.SAMPLER_NAMES == jsamplers.SAMPLER_NAMES
+    assert tsamplers.SAMPLER_NAMES[-2:] == ["my_euler", "my_euler_alias"]
+    assert tsamplers.get_solver("my_euler_alias") is tsamplers._SOLVERS["euler"]
+
+    model = Denoiser(apply=lambda x, t, c: 0.5 * x, kind=ModelKind.EPS)
+    latent = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 4, 8, 8)).astype(
+        np.float32))
+    sigmas = np.asarray([14.6, 3.0, 0.5, 0.0], np.float32)
+    outs = [LanPaintSampler(model, sampler_name=name)(latent=latent, sigmas=sigmas, cond={},
+                                                      seed=1)[0]
+            for name in ("euler", "my_euler")]
+    assert torch.equal(outs[0], outs[1])
+
+
 def _toy_x0(lib):
     def model_x0(x, t, cond):
         c = cond["c"] if isinstance(cond, dict) else cond
