@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py          # from the root of the repository
 
-Fourteen main paths, each with random bf16 weights made on the card from a
-seed, the euler solver, 20 steps (Z-Image's 9), outer early stop 1 and a
-centre mask; 5 think steps but for the video paths' 2:
+Sixteen main paths, each with random bf16 weights made on the card from a
+seed, the euler solver, 20 steps (Z-Image's 9, the parallel path's 4),
+outer early stop 1 and a centre mask; 5 think steps but for the video and
+parallel paths' 2:
 
 * SDXL-1024: karras, CFG 5 as two sequential passes, the unfused think
   step: (20 - 1) * 6 + 1 = 115 CFG pairs, 230 UNet forwards;
@@ -87,7 +88,14 @@ centre mask; 5 think steps but for the video paths' 2:
   127.0.0.1: three 1024^2 requests POSTed over HTTP at the default
   `Variant` (euler karras 20 x 5, cfg 5 batched: 115 UNet forwards at
   batch 4 a batch), in two batches (a co-batched pair, a padded lone
-  request), and one request of a wrong shape that fails alone.
+  request), and one request of a wrong shape that fails alone;
+* the parallel path (`lanpaint_tpu_torch.parallel`) at a world of one over
+  NCCL: TI2V-5B through `zoo.build_wan_seq_parallel(..., tp_axis="tensor")`
+  on a (data, seq, tensor, expert) = (1, 1, 1, 1) mesh, ring self-attention
+  at S = 7,920, the video path's latent, euler "simple" 4 x 2 think, cfg 1:
+  10 forwards;
+* the 17 example scripts of `lanpaint_tpu_torch/examples/` in --smoke mode
+  on the card (tiny random models, each the twin of one of examples/).
 
 Phases, one line of output each or more (any failure raises and the script
 exits non-zero without printing a result):
@@ -221,20 +229,41 @@ exits non-zero without printing a result):
    `think_steps_done`, and exact launches in each batch (phase 3 holds the
    kernels at the batch-4 shapes: attention (4, 4096, 10, 64) and (4, 1024,
    20, 64), LayerNorm rows (16384, 640) and (4096, 1280), the VAE's wide
-   head at (2, 16384, 1, 512)).
+   head at (2, 16384, 1, 512));
+22. parallel path (after phase 19; `parallel.init_world("cuda")`, a
+   file-store NCCL group of one, destroyed with its store at the end of the
+   phase): one TI2V-5B forward of `build_wan_seq_parallel` and one of
+   `build_wan` on the same weights, each against `build_wan` in fp32 with
+   plain fp32 attention on those weights (the seq-parallel error within
+   twice `build_wan`'s) and timed; the sampler run, timed and
+   counted (finite, the known region equal to the latent, the repainted
+   region moved, exact launches: no flash attention, the ring replaces it);
+   `ring_attention` at (1, 7920, 24, 128) against the flash kernel and an
+   fp32 reference (its error within twice the kernel's), with the device
+   times of the ring, the kernel and SDPA; the T2V-A14B pair's bf16 bytes
+   per device at tensor 1, 2, 4, 8 (`tp_plan_bytes`, computed);
+23. examples: the 17 scripts through runpy with their default device, the
+   card (`serving_http` with --selftest, `wan22_seq_parallel` as a world of
+   one): each exits 0 and reports a finite output; wall time and launches
+   of each.  Each distinct kernel call they made (shapes, strides, dtypes,
+   mode: recorded while they run) is then made again on fresh inputs of its
+   layout, held against its plain version at phase 3's tolerance and timed
+   (median of 5, host-inclusive; device times not measured): these rows
+   join the kernels line with phase 23's launches.
 
 Then, on lines of their own: the nvidia-smi line, one JSON line with the
 per-kernel numbers, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-In the kernels line, `launches` is the fourteen timed runs' count (phase
-13's `inpaint_image` run, phase 16b's call and phase 20's strength-0 run
-are checks and not counted; phase 21's two batches are one count), and
+In the kernels line, `launches` is the sixteen main paths' count (phase
+13's `inpaint_image` run, phase 16b's call, phase 20's strength-0 run and
+phase 22's forwards are checks and not counted; phase 21's two batches are
+one count, and phase 23's 17 scripts one), and
 `ms` /
 `plain_ms` / `library_ms` / `bound_ms` are the kernel's / plain version's /
 PyTorch call's per-launch times and the bound at each main-path shape times
-that shape's launches in the fourteen timed runs, summed (`library_ms` null
+that shape's launches in the sixteen main paths, summed (`library_ms` null
 where a launched shape has no such call; each shape alone in `per_shape`,
-with its device times in us).
+with its device times in us, null for phase 23's shapes).
 
 To run some phases alone: python3 -c "import chip_smoke as c; smi =
 c.phase_device(); c.phase_build(); c.phase_pixel(smi)" (phases 15-16 take
@@ -251,14 +280,17 @@ holds ~39 GB of exported states on the host while it loads them.  Phase
 setting.
 """
 
+import collections
 import contextlib
 import dataclasses
 import gc
+import io
 import itertools
 import json
 import math
 import os
 import re
+import runpy
 import shutil
 import statistics
 import struct
@@ -273,13 +305,14 @@ import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from lanpaint_tpu_torch import (LanPaintConfig, LanPaintPipeline, LanPaintSampler, ModelKind, api,
                                 edit_image, inpaint_image, inpaint_video)
 from lanpaint_tpu_torch.engine import lanpaint_update
-from lanpaint_tpu_torch import pipeline, samplers, serve, text, tokenizers
+from lanpaint_tpu_torch import parallel, pipeline, samplers, serve, text, tokenizers
 from lanpaint_tpu_torch.models import (dit, hidream, hyvideo, load, lora, sd3, textenc, unet, vae,
                                        video_vae, vision, wan, zimage, zoo)
 from lanpaint_tpu_torch.native import loader as native_loader
@@ -315,6 +348,9 @@ FORWARDS = {"sdxl": 2 * PAIRS, "pixel": 2 * PAIRS, "flux": PAIRS,  # CFG 5 seq. 
 # a CFG pair
 SERVE_BATCHES = 2
 FORWARDS["serve"] = SERVE_BATCHES * PAIRS
+# the parallel path (phase 22, a world of one): 4 euler steps x 2 think, cfg 1
+SP_STEPS, SP_THINK = 4, 2
+FORWARDS["parallel"] = (SP_STEPS - EARLY_STOP) * (SP_THINK + 1) + EARLY_STOP  # 10
 PER_FORWARD = {  # kernel launches per model forward
     "sdxl": {"flash_attention": 70, "layernorm": 210, "rmsnorm": 0},
     # 19 double + 38 single blocks; adaLN norms 4 + 1 per block + 1 final;
@@ -325,6 +361,10 @@ PER_FORWARD = {  # kernel launches per model forward
     "video": {"flash_attention": 30, "layernorm": 91, "rmsnorm": 90},
     "pair": {"flash_attention": 40, "layernorm": 121, "rmsnorm": 120},  # 40 blocks
 }
+# the seq-parallel TI2V-5B: ring self-attention (plain fp32, no kernel), the
+# video path's norms, and the cross norm_k of each block in the forward (no
+# hoist on the parallel path)
+PER_FORWARD["parallel"] = {"flash_attention": 0, "layernorm": 91, "rmsnorm": 120}
 PER_FORWARD["pixel"] = PER_FORWARD["pipeline"] = PER_FORWARD["serve"] = PER_FORWARD["sdxl"]
 # SDXL with its ControlNet: the UNet's 70 self-attention calls and 210
 # LayerNorms, and the ControlNet encoder's transformer_depth (0, 2, 10) and
@@ -369,7 +409,8 @@ PER_RUN["pipeline"] = PER_RUN["sd15"] = PER_RUN["zimage"] = PER_RUN["qwen_small"
 # edit_image encodes the source twice (the reference tokens and the latent)
 PER_RUN["qwen_edit"] = {"fused_half_step": 0, "fused_finish": 0, "wide_attention": 3}
 PER_RUN["sd35"] = PER_RUN["pixel"]  # the SD3 VAE's encode and decode
-PER_RUN["hidream"] = PER_RUN["hyvideo"] = PER_RUN["controlnet"] = PER_RUN["sdxl"]  # latent paths
+PER_RUN["hidream"] = PER_RUN["hyvideo"] = PER_RUN["controlnet"] = PER_RUN["parallel"] = \
+    PER_RUN["sdxl"]  # latent paths
 # each serving batch: the SDXL VAE's encode and decode of the batch
 PER_RUN["serve"] = {"fused_half_step": 0, "fused_finish": 0, "wide_attention": 2 * SERVE_BATCHES}
 BLEND = 9  # MaskBlend overlap of the pixel and video paths
@@ -423,10 +464,10 @@ NORM_SHAPES = [
     ((1, 4096, 24, 128), "rmsnorm", {"flux": 38}),
     ((1, 512, 24, 128), "rmsnorm", {"flux": 38}),
     ((1, 4608, 24, 128), "rmsnorm", {"flux": 76}),
-    ((1, 7920, 3072), "layernorm_na", {"video": 61}),
-    ((1, 7920, 3072), "layernorm", {"video": 30}),
-    ((1, 7920, 3072), "rmsnorm", {"video": 90}),
-    ((1, 512, 3072), "rmsnorm", {}, {"video": 60}),
+    ((1, 7920, 3072), "layernorm_na", {"video": 61, "parallel": 61}),
+    ((1, 7920, 3072), "layernorm", {"video": 30, "parallel": 30}),
+    ((1, 7920, 3072), "rmsnorm", {"video": 90, "parallel": 90}),
+    ((1, 512, 3072), "rmsnorm", {"parallel": 30}, {"video": 60}),
     ((1, 14040, 5120), "layernorm_na", {"pair": 81}),
     ((1, 14040, 5120), "layernorm", {"pair": 40}),
     ((1, 14040, 5120), "rmsnorm", {"pair": 120}),
@@ -516,16 +557,19 @@ def bound(n_bytes: float, ops: float, peak: float) -> dict:
 
 
 def timed_row(kernel, plain, err, calls, *, bounds, library=None, library_name=None,
-              run_calls=None, **extra):
+              run_calls=None, reps: int = 20, device: bool = True, **extra):
     """Times of the kernel, its plain version and (where one PyTorch call
     computes the same function) that call: per launch including the host's
-    work (ms) and on the device (us).  `calls`: launches per forward by path;
-    `run_calls`: launches per run by path."""
-    r = dict(err=err, calls=calls, run_calls=run_calls or {}, ms=median_ms(kernel),
-             plain_ms=median_ms(plain), us=device_us(kernel), plain_us=device_us(plain),
+    work (ms, the median of `reps`) and, unless `device` is false, on the
+    device (us; else None, not measured).  `calls`: launches per forward by
+    path; `run_calls`: launches per run by path."""
+    us = device_us if device else (lambda fn: None)
+    ms = lambda fn: median_ms(fn, n=reps, warmup=min(3, reps))  # noqa: E731
+    r = dict(err=err, calls=calls, run_calls=run_calls or {}, ms=ms(kernel),
+             plain_ms=ms(plain), us=us(kernel), plain_us=us(plain),
              library=library_name, library_ms=None, library_us=None, **bounds, **extra)
     if library is not None:
-        r.update(library_ms=median_ms(library), library_us=device_us(library))
+        r.update(library_ms=ms(library), library_us=us(library))
     return r
 
 
@@ -2864,6 +2908,313 @@ def phase_hyvideo(smi: str, clip_files, llama_tok, n_hy: int) -> dict:
                          enc_text)
 
 
+def _sp_forward_checks(smi, cfg, state, wan_den, sp, x, t, cond) -> None:
+    """Phase 22's forward: `build_wan`'s (bf16, the flash kernel) and the
+    seq-parallel one (bf16, ring attention), each against `build_wan` in
+    fp32 on the same weights with plain fp32 attention (`_plain_attention`
+    in place of `wan.attention_bshd`: fp32 GEMMs, fp32 norms, no ring, no
+    row-parallel reduce, no frame offset); the seq-parallel error within
+    twice `build_wan`'s."""
+    ref_cfg = dataclasses.replace(cfg, dtype=torch.float32, residual_dtype=None)
+    ref, _ = zoo.build_wan(ref_cfg, state, device="cuda")
+    routed = wan.attention_bshd
+    wan.attention_bshd = lambda q, k, v, scale=None: _plain_attention(q, k, v)
+    try:
+        want = ref.apply(x, t, cond).float()
+    finally:
+        wan.attention_bshd = routed
+    del ref
+    outs = {"wan": wan_den.apply(x, t, cond).float(), "sp": sp.apply(x, t, cond).float()}
+    errs = {k: (float((o - want).abs().max()), rel_l2(o, want)) for k, o in outs.items()}
+    ms = {k: median_ms(lambda d=d: d.apply(x, t, cond), n=3, warmup=1)
+          for k, d in (("wan", wan_den), ("sp", sp))}
+    ok = bool(torch.isfinite(want).all()) and all(
+        bool(torch.isfinite(o).all()) for o in outs.values()) and all(
+        errs["sp"][i] <= 2 * errs["wan"][i] for i in (0, 1))
+    say(f"phase 22 parallel path: one forward at t = {float(t[0]):.1f}, x {tuple(x.shape)}: "
+        f"build_wan_seq_parallel (ring) {ms['sp']:.2f} ms, build_wan (flash kernel) "
+        f"{ms['wan']:.2f} ms (median of 3) on {smi} | against build_wan in fp32 with plain "
+        f"attention: seq-parallel max abs {errs['sp'][0]:.4g} rel_l2 {errs['sp'][1]:.4g}, "
+        f"build_wan max abs {errs['wan'][0]:.4g} rel_l2 {errs['wan'][1]:.4g} (limit twice "
+        f"build_wan's) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 22 seq-parallel forward check failed")
+
+
+def _sp_ring_checks(smi, group) -> dict:
+    """Phase 22's ring: `ring_attention` at TI2V-5B's (1, 7920, 24, 128) over
+    a group of one, against the flash kernel (row 2) and an fp32 reference
+    (`_plain_attention`); device times of the ring, the kernel and SDPA."""
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    q, k, v = _qkv_views(1, 7920, 24, 128, gen)
+    ring = parallel.ring_attention(q, k, v, group).float()
+    kern = attention.flash_attention(q, k, v).float()
+    want = _plain_attention(q.float(), k.float(), v.float())
+    err_ring, err_kern = (float((o - want).abs().max()) for o in (ring, kern))
+    del ring, kern, want
+    us = {"ring": device_us(lambda: parallel.ring_attention(q, k, v, group)),
+          "kernel": device_us(lambda: attention.flash_attention(q, k, v)),
+          "sdpa": device_us(lambda: _sdpa(q, k, v))}
+    ok = err_ring <= 2 * err_kern
+    say(f"phase 22 parallel path: ring_attention (1, 7920, 24, 128) bf16 over a group of one: "
+        f"max abs err from fp32 {err_ring:.3g} (the flash kernel's {err_kern:.3g}, limit twice) "
+        f"| device us: ring {us['ring']:.1f}, flash kernel {us['kernel']:.1f}, "
+        f"scaled_dot_product_attention {us['sdpa']:.1f} on {smi} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 22 ring attention check failed")
+    return us
+
+
+def phase_parallel(smi: str) -> dict:
+    """The parallel path at a world of one over NCCL (`parallel.init_world`:
+    a file store in a temporary directory, the group destroyed and the
+    directory removed at the end): the mesh, TI2V-5B at full width (random
+    bf16 weights, seed 0) at the video path's latent (1, 48, 9, 44, 80),
+    S = 7,920, through `build_wan_seq_parallel(..., tp_axis="tensor")`: one
+    forward held against `build_wan`'s on the same weights, then a counted
+    4-step, 2-think euler LanPaintSampler run (finite, the known region
+    equal to the latent), then the ring against the flash kernel; the A14B
+    pair's bytes per device by tensor size, computed from a meta-device
+    state."""
+    with parallel.init_world("cuda"):
+        mesh = parallel.make_mesh(parallel.MeshSpec(), "cuda")
+        if tuple(mesh.shape) != (1, 1, 1, 1) or dist.get_backend() != "nccl":
+            raise AssertionError(f"phase 22 mesh {mesh} on {dist.get_backend()}")
+        cfg = wan.WAN22_TI2V_5B_CONFIG
+        wan_den, module = zoo.build_wan(cfg, device="cuda", param_dtype=torch.bfloat16, seed=0)
+        state = module.state_dict()
+        t0 = time.perf_counter()
+        sp, sp_module = zoo.build_wan_seq_parallel(cfg, state, mesh, tp_axis="tensor",
+                                                   param_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        latent = torch.randn((1, 48, 9, 44, 80), device="cuda", generator=gen)
+        cond = {"context": torch.randn((1, 512, 4096), device="cuda", generator=gen)}
+        _sp_forward_checks(smi, cfg, state, wan_den, sp, latent,
+                           torch.tensor([0.7], device="cuda"), cond)
+        del wan_den, module, state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        sam = LanPaintSampler(sp, config=LanPaintConfig(n_steps=SP_THINK), sampler_name="euler",
+                              cfg=1.0)
+        sigmas = calculate_sigmas(sp.sigma_table, "simple", SP_STEPS)
+        mask = _centre_mask(44, 80)
+        _zero_counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        samples, _ = sam(latent=latent, sigmas=sigmas, cond=cond, mask=mask, seed=0, video=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in COUNTERS.items()}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        known = (mask == 0).expand_as(latent)
+        finite = bool(torch.isfinite(samples).all())
+        known_err = float((samples - latent)[known].abs().max())
+        moved = float((samples - latent)[~known].abs().mean())
+        want = _want("parallel")
+        ok = finite and known_err <= 1e-3 and moved > 1e-2 and launches == want
+        axes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        say(f"phase 22 parallel path: LanPaintSampler over build_wan_seq_parallel (mesh {axes}, "
+            f"{dist.get_backend()}), euler simple {SP_STEPS} x think {SP_THINK}, cfg 1, "
+            f"{FORWARDS['parallel']} forwards, init {t_init:.1f} s | run {wall:.3f} s = "
+            f"{1e3 * wall / FORWARDS['parallel']:.2f} ms per forward, peak {peak:.1f} GB on "
+            f"{smi} | finite {finite} known-region max err {known_err:.3g} repainted mean "
+            f"change {moved:.3g} | launches {launches} (want {want}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("phase 22 parallel sampler check failed")
+        del sam, sp, sp_module, samples
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        _sp_ring_checks(smi, mesh.get_group("seq"))
+        with torch.device("meta"):
+            shapes = wan.WanModel(wan.WAN22_T2V_14B_CONFIG).state_dict()
+        plan = {n: 2 * parallel.tp_plan_bytes(shapes, parallel.wan_tp_rules(), {"tensor": n})
+                / 2**30 for n in (1, 2, 4, 8)}
+        say("phase 22 parallel path: the T2V-A14B pair's bf16 weights per device under the Wan "
+            f"tensor rules, computed (not measured): "
+            + ", ".join(f"tensor {n}: {gib:.2f} GiB" for n, gib in plan.items()))
+    if dist.is_initialized():
+        raise AssertionError("phase 22: the world of one outlived its context")
+    return launches
+
+
+EXAMPLES = ("sdxl_inpaint", "sdxl_single_file", "flux_inpaint", "flux2_dev_inpaint",
+            "flux2_klein_inpaint", "krea2_inpaint", "anima_inpaint", "sd35_inpaint",
+            "hidream_inpaint", "hunyuan_inpaint", "z_image_inpaint", "qwen_image_edit",
+            "qwen_image_outpaint", "ideogram4_dual_model", "wan22_video_inpaint", "serving_http",
+            "wan22_seq_parallel")
+
+
+@contextlib.contextmanager
+def _recording(log: collections.Counter):
+    """While open, every launch of the row-norm and attention kernels also
+    counts its call in `log`, keyed by what the kernel sees: shapes,
+    strides, dtypes, mode, eps or scale."""
+    norm_launch, attn_launch = norms._launch, attention._tma_launch
+
+    def norm(wrapper, x, gamma, beta, eps, rms, out_dtype, config=None):
+        before = wrapper.launches
+        out = norm_launch(wrapper, x, gamma, beta, eps, rms, out_dtype, config)
+        if wrapper.launches > before:
+            log[("row_norm", rms, tuple(x.shape), x.stride(), x.dtype,
+                 None if gamma is None else gamma.dtype, beta is not None, eps, out.dtype)] += 1
+        return out
+
+    def attn(op, entry, q, k, v, scale):
+        out = attn_launch(op, entry, q, k, v, scale)
+        log[(op, tuple(q.shape), q.stride(), tuple(k.shape), k.stride(), v.stride(), q.dtype,
+             scale)] += 1
+        return out
+
+    norms._launch, attention._tma_launch = norm, attn
+    try:
+        yield
+    finally:
+        norms._launch, attention._tma_launch = norm_launch, attn_launch
+
+
+def _random_strided(shape, stride, dtype, gen, scale=1.0, shift=0.0):
+    """A tensor of `shape` and `stride` over a buffer of normals."""
+    size = 1 + sum((n - 1) * st for n, st in zip(shape, stride))
+    buf = (torch.randn(size, device=gen.device, generator=gen) * scale + shift).to(dtype)
+    return buf.as_strided(shape, stride)
+
+
+def _replay_norm(key, n, gen) -> dict:
+    """One recorded row-norm call on fresh inputs of its layout, against its
+    plain version (NORM_TOL), timed (reps 5, host-inclusive)."""
+    _, rms, shape, stride, dtype, g_dtype, has_beta, eps, out_dtype = key
+    c = shape[-1]
+    x = _random_strided(shape, stride, dtype, gen, 2.0, 0.5)
+    rnd = lambda: torch.randn(c, device=gen.device, generator=gen)  # noqa: E731
+    g = None if g_dtype is None else (1.0 + 0.1 * rnd()).to(g_dtype)
+    beta = (0.1 * rnd()).to(g_dtype) if has_beta else None
+    lib_w = lambda t: None if t is None else t.to(x.dtype)  # noqa: E731
+    library = library_name = None
+    if rms:
+        mode = "rmsnorm_fp32" if dtype == torch.float32 else "rmsnorm"
+        kernel, plain = (lambda: norms.rmsnorm(x, g, eps)), (lambda: norms.rmsnorm_ref(x, g, eps))
+        library, library_name = (lambda: F.rms_norm(x, (c,), lib_w(g), eps=eps)), "F.rms_norm"
+    else:
+        mode = "layernorm" if g is not None else "layernorm_na"
+        kw = dict(eps=eps, out_dtype=out_dtype)
+        kernel = lambda: norms.layernorm(x, g, beta, **kw)  # noqa: E731
+        plain = lambda: norms.layernorm_ref(x, g, beta, **kw)  # noqa: E731
+        if g is not None and out_dtype == dtype:
+            library_name = "F.layer_norm"
+            library = lambda: F.layer_norm(x, (c,), lib_w(g), lib_w(beta), eps=eps)  # noqa: E731
+    out = kernel()
+    want = plain()
+    err = float((out.float() - want.float()).abs().max())
+    if not (out.dtype == want.dtype and torch.allclose(out.float(), want.float(), **NORM_TOL)):
+        raise AssertionError(f"phase 23: {mode} {shape} stride {stride} {dtype} -> {out_dtype} "
+                             f"disagrees with its plain version: max abs {err}")
+    n_bytes = sum(t.numel() * t.element_size() for t in (x, out, g, beta) if t is not None)
+    return timed_row(kernel, plain, err, {}, run_calls={"examples": n}, reps=5, device=False,
+                     bounds=bound(n_bytes, NORM_OPS[mode] * x.numel(), PEAK_FP32),
+                     library=library, library_name=library_name, shape=shape, mode=mode)
+
+
+def _replay_attention(key, n, gen) -> dict:
+    """One recorded attention call on fresh inputs of its layout, against
+    `attention_ref` in fp32 (ATTN_TOL), timed (reps 5, host-inclusive)."""
+    op, q_shape, q_stride, k_shape, k_stride, v_stride, dtype, scale = key
+    q = _random_strided(q_shape, q_stride, dtype, gen)
+    k, v = (_random_strided(k_shape, st, dtype, gen) for st in (k_stride, v_stride))
+    kernel = getattr(attention, op)
+    out = kernel(q, k, v, scale)
+    want = attention.attention_ref(q.float(), k.float(), v.float(), scale)
+    err, rel = float((out.float() - want).abs().max()), rel_l2(out.float(), want)
+    if not (err <= ATTN_TOL["max_abs"] and rel <= ATTN_TOL["rel_l2"]):
+        raise AssertionError(f"phase 23: {op} {q_shape} disagrees with attention_ref: max abs "
+                             f"{err}, rel L2 {rel}, limits {ATTN_TOL}")
+    b, s, h, d = q_shape
+    sk = k_shape[1]
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    return timed_row(lambda: kernel(q, k, v, scale),
+                     lambda: attention.attention_ref(q, k, v, scale), err, {},
+                     run_calls={"examples": n}, reps=5, device=False,
+                     bounds=bound(2 * (2 * b * s * h * d + 2 * b * sk * h * d),
+                                  4 * b * h * s * sk * d, PEAK_BF16),
+                     library=lambda: F.scaled_dot_product_attention(t(q), t(k), t(v),
+                                                                    scale=scale),
+                     library_name="scaled_dot_product_attention", shape=q_shape)
+
+
+def phase_examples(smi: str) -> tuple:
+    """The port's 17 example scripts in --smoke mode on the card (their
+    default device), in this process through runpy as `python -m
+    lanpaint_tpu_torch.examples.<name> --smoke` runs them (serving_http with
+    --selftest, wan22_seq_parallel as a world of one over NCCL): each must
+    exit 0 and report a finite output; wall time and launches by kernel of
+    each.  Every distinct call of a kernel that they make (shapes, strides,
+    dtypes, mode) is then made again on fresh inputs of its layout and held
+    against the plain version at phase 3's tolerance; a launch of a kernel
+    that is not replayed fails the phase.  Returns the launches of all of
+    them and a kernels-line row per distinct call."""
+    total = {k: 0 for k in COUNTERS}
+    log = collections.Counter()
+    for name in EXAMPLES:
+        argv = ["--smoke"] + (["--selftest"] if name == "serving_http" else [])
+        out = io.StringIO()
+        _zero_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        code = 0
+        saved = sys.argv
+        sys.argv = [name] + argv
+        try:
+            with contextlib.redirect_stdout(out), _recording(log):
+                runpy.run_module(f"lanpaint_tpu_torch.examples.{name}", run_name="__main__",
+                                 alter_sys=False)
+        except SystemExit as e:
+            code = e.code or 0
+        finally:
+            sys.argv = saved
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in COUNTERS.items()}
+        for k, n in launches.items():
+            total[k] += n
+        report = [line for line in out.getvalue().splitlines() if "finite=" in line]
+        ok = code == 0 and bool(report) and all("finite=True" in line for line in report)
+        used = {k: n for k, n in launches.items() if n}
+        say(f"phase 23 examples: {name} {' '.join(argv)}: exit {code}, {wall:.2f} s, launches "
+            f"{used} | {report[-1] if report else 'no report'} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"phase 23 example {name} failed:\n{out.getvalue()[-2000:]}")
+        api._SAMPLER_CACHE.clear()
+        gc.collect()
+    if not (total["layernorm"] and total["rmsnorm"]):
+        raise AssertionError(f"phase 23: the row-norm kernel was not launched: {total}")
+    if total["fused_half_step"] or total["fused_finish"]:
+        raise AssertionError(f"phase 23: fused kernel launches are not replayed: {total}")
+    say(f"phase 23 examples: all {len(EXAMPLES)} on {smi}, launches {total}")
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    rows = {"flash_attention": [], "wide_attention": [], "row_norm": []}
+    for key, n in log.items():
+        replay = _replay_norm if key[0] == "row_norm" else _replay_attention
+        rows[key[0]].append(replay(key, n, gen))
+    recorded = {k: sum(n for key, n in log.items() if key[0] == k) for k in rows}
+    counted = {"flash_attention": total["flash_attention"],
+               "wide_attention": total["wide_attention"],
+               "row_norm": total["layernorm"] + total["rmsnorm"]}
+    ok = recorded == counted
+    say(f"phase 23 examples: each distinct kernel call made again on fresh inputs against its "
+        f"plain version: " + ", ".join(
+            f"{k} {len(r)} calls ({recorded[k]} launches), max abs err "
+            f"{max((x['err'] for x in r), default=0.0):.3g}" for k, r in rows.items())
+        + f" | recorded launches {recorded} (counted {counted}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 23: the recorded launches differ from the counters")
+    return total, rows
+
+
 def kernels_line(rows: dict, launches: dict) -> list:
     """One entry per kernel: launches in the timed main-path runs, and the
     per-launch times, bounds and library-call times at each main-path shape
@@ -2997,6 +3348,13 @@ def main() -> int:
         launches["hyvideo"] = phase_hyvideo(smi, clip_files, llama_tok, n_hy)
     finally:
         shutil.rmtree(directory, ignore_errors=True)
+    api._SAMPLER_CACHE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["parallel"] = phase_parallel(smi)
+    launches["examples"], example_rows = phase_examples(smi)
+    for name, extra in example_rows.items():
+        rows[name] = rows[name] + extra
     print(smi)
     print(json.dumps({"kernels": kernels_line(rows, launches)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

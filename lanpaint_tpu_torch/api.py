@@ -36,7 +36,7 @@ import torch.nn.functional as F
 
 from . import samplers
 from .config import LanPaintConfig, ModelKind
-from .engine import ThinkAux, lanpaint_update
+from .engine import BatchRows, ThinkAux, lanpaint_update, randn
 from .guidance import make_cfg_double_denoiser, resolve_cfg_big
 from .masks import mask_blend, prepare_mask
 from .models.base import Denoiser
@@ -132,6 +132,7 @@ class LanPaintSampler:
         video: bool = False,
         chunk_steps: Optional[int] = None,
         noise_feed=None,
+        batch_rows: Optional[tuple] = None,
     ):
         """Run sampling.  Returns (samples, denoised_history), or with
         `return_aux` (samples, denoised_history, aux).
@@ -150,6 +151,11 @@ class LanPaintSampler:
         of the generator, row per outer step (engine.lanpaint_update
         contract), the step of a model call being that of its nearest ladder
         sigma (`samplers.model_step`; the row index clamped to the feed).
+        `batch_rows` (data parallelism, `parallel.with_data_parallel`):
+        (rows, batch): this call computes rows `rows` (a slice) of a batch
+        of `batch`; every random tensor is drawn for the whole batch and
+        cut to these rows (`engine.BatchRows`), so the result is those rows
+        of the one-process run.
 
         RNG order: one `torch.Generator` on the latent's device, seeded with
         the seed's low 32 bits, draws the initial noise (unless `noise` is
@@ -162,18 +168,21 @@ class LanPaintSampler:
         total = int(sig_host.shape[0]) - 1
         seed = _seed32(seed)
         gen = torch.Generator(device=device).manual_seed(seed)
+        if batch_rows is not None:
+            gen = BatchRows(gen, *batch_rows)
 
         if noise is not None:
             noise = torch.as_tensor(noise, device=device, dtype=torch.float32)
         elif add_noise:
-            noise = torch.randn(latent.shape, generator=gen, dtype=torch.float32, device=device)
+            noise = randn(latent.shape, gen, device)
         else:
             noise = torch.zeros(latent.shape, dtype=torch.float32, device=device)
         think_noise = noise
         if decoupled_noise:
             think_gen = torch.Generator(device=device).manual_seed((seed + 1) & 0xFFFFFFFF)
-            think_noise = torch.randn(latent.shape, generator=think_gen, dtype=torch.float32,
-                                      device=device)
+            if batch_rows is not None:
+                think_gen = BatchRows(think_gen, *batch_rows)
+            think_noise = randn(latent.shape, think_gen, device)
         b = latent.shape[0]
         x_init = noise_scaling(
             kind, torch.full((b,), float(sig_host[0]), device=device), noise, latent,

@@ -119,6 +119,28 @@ def boundary_ring_weight(latent_mask, inpaint_weight):
     return ring.float() * inpaint_weight
 
 
+class BatchRows(NamedTuple):
+    """A generator for one data-parallel rank (`parallel.with_data_parallel`):
+    each draw is made for the whole batch of `batch` rows, as one process
+    makes it, and cut to this rank's `rows`, so the ranks together draw the
+    single-process stream."""
+
+    generator: torch.Generator
+    rows: slice
+    batch: int
+
+
+def randn(shape, generator, device, batch_dim: int = 0) -> torch.Tensor:
+    """fp32 standard normals of `shape` from `generator`, a torch.Generator
+    or a `BatchRows` (its batch on `batch_dim`)."""
+    if not isinstance(generator, BatchRows):
+        return torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+    full = list(shape)
+    full[batch_dim] = generator.batch
+    out = torch.randn(full, generator=generator.generator, dtype=torch.float32, device=device)
+    return out[(slice(None),) * batch_dim + (generator.rows,)]
+
+
 class _RegionParams(NamedTuple):
     """Mask-mixed per-element Langevin parameters."""
 
@@ -235,7 +257,7 @@ def lanpaint_update(
     # Zero noise (e.g. add_noise=disable) is regenerated so the replace step
     # still injects schedule-consistent randomness (reference lanpaint.py:44-45).
     noise_f = noise.float()
-    regen = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+    regen = randn(shape, generator, device)
     noise_f = torch.where(torch.mean(torch.abs(noise_f)) < 1e-8, regen, noise_f)
 
     # Replace step: re-noise the known region to its schedule-consistent value.
@@ -245,7 +267,9 @@ def lanpaint_update(
     x_t = to_vp(kind, xf, times, ndim).contiguous()
     flat = lambda t: t.reshape(b, -1)  # the fused kernels' (B, M) view, no copy
     # the kernels' Philox seed, drawn on the card: no host sync in the loop
-    seed = (torch.randint(0, 2**31 - 1, (1,), generator=generator, device=device)
+    # the seed is one number, the same on every data-parallel rank
+    seed_gen = generator.generator if isinstance(generator, BatchRows) else generator
+    seed = (torch.randint(0, 2**31 - 1, (1,), generator=seed_gen, device=device)
             if on_card else None)
 
     def score_to_c(x_eval, x0, x0_big):
@@ -291,8 +315,7 @@ def lanpaint_update(
                 eps = noise_feed[min(i, noise_feed.shape[0] - 1)].to(device=device,
                                                                       dtype=torch.float32)
             else:
-                eps = torch.randn((5,) + shape, generator=generator, dtype=torch.float32,
-                                  device=device)
+                eps = randn((5,) + shape, generator, device, batch_dim=1)
             eps_y1, eps_v1, eps_y2, eps_v2, eps_v0 = (eps.reshape(5, b, -1) if fused
                                                       else eps).unbind(0)
         if not fused:

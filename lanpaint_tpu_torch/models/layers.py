@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import WIDE_HEAD_DIMS, attention_ref, flash_attention, wide_attention
-from ..ops.norms import layernorm, rmsnorm
+from ..ops.norms import VEC, layernorm, rmsnorm, rmsnorm_ref
 
 
 def attention_bshd(q, k, v, scale: Optional[float] = None):
@@ -134,8 +134,10 @@ class LayerNormF32(nn.Module):
 
 class RMSNorm(nn.Module):
     """RMSNorm over the last axis with a learned scale (`weight`), fp32
-    statistics, output in the input dtype (through the row-norm kernel on
-    CUDA)."""
+    statistics, output in the input dtype: through the row-norm kernel on
+    CUDA where it takes the row width (a multiple of `ops.norms.VEC`),
+    `rmsnorm_ref` elsewhere, as the JAX package leaves the widths its
+    kernel does not take to jnp (the tiny Z-Image's head dim 12)."""
 
     def __init__(self, dim: int, eps: float = 1e-6):
         super().__init__()
@@ -143,6 +145,8 @@ class RMSNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim))
 
     def forward(self, x):
+        if x.shape[-1] % VEC:
+            return rmsnorm_ref(x, self.weight, self.eps)
         return rmsnorm(x, self.weight, self.eps)
 
 

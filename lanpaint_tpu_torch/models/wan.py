@@ -21,9 +21,18 @@ same row-norm kernel in its RMS mode with a scale (`ops.norms.rmsnorm`, one
 launch, counted in `rmsnorm.launches`).  Cross-attention over the 512 text
 tokens (Sk != S) takes `attention_ref`, as the JAX package leaves it to XLA.
 
-Not ported: sequence and tensor parallelism (`seq_axis`, `tp_axis`,
-`tp_size`; ROADMAP A.19).  The config keeps the fields and the model raises
-NotImplementedError when any is set.
+Sequence and tensor parallelism (JAX's shard_map-manual Wan, over the
+process groups of a `parallel.make_mesh` mesh: `WanModel(cfg, mesh)`).  With
+`cfg.seq_axis` each rank holds a contiguous block of frames: the RoPE frame
+ids are offset by its position along the axis times the local frame count,
+and self-attention is `parallel.ring_attention` over the axis's group.
+With `cfg.tp_size` > 1 the heads and the ffn width are split tp_size ways
+(`parallel.wan_tp_param_specs` cuts the weights): `o` and `ffn_2` are
+row-parallel (`_RowLinear`: an all-reduce over the `tp_axis` group, the bias
+added once after it), and `_WanQKNorm`'s sum of squares over the local
+features is all-reduced before the rsqrt, so the statistics are the full
+width's (plain PyTorch; at tp_size 1 the row-norm kernel, as without a
+mesh).  `zoo.build_wan_seq_parallel` builds the denoiser.
 """
 
 from __future__ import annotations
@@ -32,10 +41,12 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.norms import rmsnorm
+from ..parallel.ring import ring_attention
 from .layers import (
     LayerNormF32,
     Linear,
@@ -86,47 +97,97 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")  # flax nn.gelu's default
 
 
+def _all_reduce(x, group):
+    """Sum `x` over `group` (in place); no group, or a group of one, leaves
+    it as it is."""
+    if group is not None and dist.get_world_size(group) > 1:
+        dist.all_reduce(x, group=group)
+    return x
+
+
+class _RowLinear(Linear):
+    """Row-parallel Linear: the input features are split over the tensor
+    group, the partial products are all-reduced over it, and the bias is
+    added once after the reduce.  The state dict is a Linear's."""
+
+    def __init__(self, in_features: int, out_features: int, group, compute_dtype):
+        super().__init__(in_features, out_features, compute_dtype=compute_dtype)
+        self.group = group
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        y = _all_reduce(F.linear(x.to(dt), self.weight.to(dt)), self.group)
+        return y + self.bias.to(dt)
+
+
+def _out_linear(cfg: WanConfig, in_features: int, group):
+    """An output projection to the hidden width: row-parallel where the
+    input is split over a tensor group, else a plain Linear."""
+    if group is None:
+        return Linear(in_features, cfg.hidden, compute_dtype=cfg.dtype)
+    return _RowLinear(in_features, cfg.hidden, group, cfg.dtype)
+
+
 class _WanQKNorm(nn.Module):
     """RMSNorm over the FULL projection width, before the head reshape
     (public Wan semantics; checkpoint weight shape (dim,)): fp32
     statistics, output in the input dtype, through the row-norm kernel on
-    CUDA.  The flax leaf `scale` maps to `weight`."""
+    CUDA.  The flax leaf `scale` maps to `weight`.
 
-    def __init__(self, dim: int, eps: float = 1e-6):
+    Under tensor parallelism (tp_size > 1) a rank holds dim / tp_size
+    features and its slice of the scale: the sum of squares is all-reduced
+    over `group` and divided by the full `dim`, in plain PyTorch."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, tp_size: int = 1, group=None):
         super().__init__()
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(dim))
+        self.dim = dim
+        self.tp_size = tp_size
+        self.group = group
+        self.weight = nn.Parameter(torch.ones(dim // tp_size))
 
     def forward(self, x):
-        return rmsnorm(x, self.weight, self.eps)
+        if self.tp_size == 1:
+            return rmsnorm(x, self.weight, self.eps)
+        xf = x.float()
+        ss = _all_reduce(torch.sum(xf * xf, dim=-1, keepdim=True), self.group)
+        return (xf * torch.rsqrt(ss / self.dim + self.eps) * self.weight.float()).to(x.dtype)
 
 
-class WanSelfAttention(nn.Module):
-    def __init__(self, cfg: WanConfig):
+class _WanAttention(nn.Module):
+    """q / k / v (column-parallel under tensor parallelism), the full-width
+    q / k norms and the output projection of one Wan attention."""
+
+    def __init__(self, cfg: WanConfig, tp_group=None):
         super().__init__()
         self.cfg = cfg
         h, dt = cfg.hidden, cfg.dtype
-        self.q, self.k, self.v, self.o = (Linear(h, h, compute_dtype=dt) for _ in range(4))
-        self.norm_q = _WanQKNorm(h, cfg.eps)
-        self.norm_k = _WanQKNorm(h, cfg.eps)
+        inner = h // cfg.tp_size
+        self.heads = (cfg.num_heads // cfg.tp_size, cfg.head_dim)
+        self.q, self.k, self.v = (Linear(h, inner, compute_dtype=dt) for _ in range(3))
+        self.o = _out_linear(cfg, inner, tp_group)
+        self.norm_q = _WanQKNorm(h, cfg.eps, cfg.tp_size, tp_group)
+        self.norm_k = _WanQKNorm(h, cfg.eps, cfg.tp_size, tp_group)
+
+
+class WanSelfAttention(_WanAttention):
+    def __init__(self, cfg: WanConfig, tp_group=None, seq_group=None):
+        super().__init__(cfg, tp_group)
+        self.seq_group = seq_group
 
     def forward(self, x, pe):
-        cfg = self.cfg
-        heads = (cfg.num_heads, cfg.head_dim)
+        heads = self.heads
         q = apply_rope(self.norm_q(self.q(x)).unflatten(-1, heads), pe)
         k = apply_rope(self.norm_k(self.k(x)).unflatten(-1, heads), pe)
         v = self.v(x).unflatten(-1, heads)
-        return self.o(attention_bshd(q, k, v).flatten(2))
+        if self.seq_group is not None:
+            out = ring_attention(q, k, v, self.seq_group)
+        else:
+            out = attention_bshd(q, k, v)
+        return self.o(out.flatten(2))
 
 
-class WanCrossAttention(nn.Module):
-    def __init__(self, cfg: WanConfig):
-        super().__init__()
-        self.cfg = cfg
-        h, dt = cfg.hidden, cfg.dtype
-        self.q, self.k, self.v, self.o = (Linear(h, h, compute_dtype=dt) for _ in range(4))
-        self.norm_q = _WanQKNorm(h, cfg.eps)
-        self.norm_k = _WanQKNorm(h, cfg.eps)
+class WanCrossAttention(_WanAttention):
 
     def kv(self, context):
         """(k, v), each (B, T_text, hidden): the context-only slice, which
@@ -136,8 +197,7 @@ class WanCrossAttention(nn.Module):
     def forward(self, x, context, kv_pre=None):
         """`kv_pre`: an optional precomputed (k, v) pair (WanModel.precompute_kv),
         bit-identical to computing it here from `context`."""
-        cfg = self.cfg
-        heads = (cfg.num_heads, cfg.head_dim)
+        cfg, heads = self.cfg, self.heads
         q = self.norm_q(self.q(x)).unflatten(-1, heads)
         k, v = self.kv(context) if kv_pre is None else kv_pre
         k, v = (t.to(cfg.dtype).unflatten(-1, heads) for t in (k, v))
@@ -145,16 +205,16 @@ class WanCrossAttention(nn.Module):
 
 
 class WanBlock(nn.Module):
-    def __init__(self, cfg: WanConfig):
+    def __init__(self, cfg: WanConfig, tp_group=None, seq_group=None):
         super().__init__()
         self.cfg = cfg
         h, dt = cfg.hidden, cfg.dtype
         self.modulation = nn.Parameter(torch.zeros(1, 6, h))
-        self.self_attn = WanSelfAttention(cfg)
+        self.self_attn = WanSelfAttention(cfg, tp_group, seq_group)
         self.norm3 = LayerNormF32(h, cfg.eps)
-        self.cross_attn = WanCrossAttention(cfg)
-        self.ffn_0 = Linear(h, cfg.ffn_dim, compute_dtype=dt)
-        self.ffn_2 = Linear(cfg.ffn_dim, h, compute_dtype=dt)
+        self.cross_attn = WanCrossAttention(cfg, tp_group)
+        self.ffn_0 = Linear(h, cfg.ffn_dim // cfg.tp_size, compute_dtype=dt)
+        self.ffn_2 = _out_linear(cfg, cfg.ffn_dim // cfg.tp_size, tp_group)
 
     def forward(self, x, e, context, pe, kv_pre=None):
         """e: (B, 6, hidden) time modulation; the block's learned offset is
@@ -179,13 +239,28 @@ def video_ids(b: int, f: int, h: int, w: int, frame_offset: int = 0, device=None
 
 
 class WanModel(nn.Module):
-    """forward(x_ncfhw, t, context, kv_cache=None) -> velocity (B, C, F, H, W)."""
+    """forward(x_ncfhw, t, context, kv_cache=None) -> velocity (B, C, F, H, W).
 
-    def __init__(self, cfg: WanConfig):
+    `mesh` (a `parallel.make_mesh` DeviceMesh) resolves `cfg.seq_axis` and
+    `cfg.tp_axis` to its process groups; either axis set needs one, and
+    `cfg.tp_size` must be the tensor axis's size.  Under `seq_axis`, x is
+    this rank's block of frames."""
+
+    def __init__(self, cfg: WanConfig, mesh=None):
         super().__init__()
-        if cfg.seq_axis is not None or cfg.tp_axis is not None or cfg.tp_size != 1:
-            raise NotImplementedError("sequence and tensor parallelism (seq_axis, tp_axis, "
-                                      "tp_size) are not ported (ROADMAP A.19)")
+        axes = [a for a in (cfg.seq_axis, cfg.tp_axis) if a is not None]
+        if axes and mesh is None:
+            raise ValueError(f"WanModel: {axes} need a mesh (parallel.make_mesh)")
+        tp_group = seq_group = None
+        self.seq_rank = 0
+        if cfg.tp_axis is not None:
+            tp_group = mesh.get_group(cfg.tp_axis)
+            if dist.get_world_size(tp_group) != cfg.tp_size:
+                raise ValueError(f"WanModel: tp_size {cfg.tp_size} but the {cfg.tp_axis!r} "
+                                 f"axis has {dist.get_world_size(tp_group)} ranks")
+        if cfg.seq_axis is not None:
+            seq_group = mesh.get_group(cfg.seq_axis)
+            self.seq_rank = dist.get_rank(seq_group)
         self.cfg = cfg
         h, dt = cfg.hidden, cfg.dtype
         pf, ph, pw = cfg.patch
@@ -194,7 +269,7 @@ class WanModel(nn.Module):
         self.text_embedding_2 = Linear(h, h, compute_dtype=dt)
         self.time_embedding = MLPEmbedder(256, h, dtype=dt)
         self.time_projection = Linear(h, 6 * h, compute_dtype=dt)
-        self.blocks = nn.ModuleList(WanBlock(cfg) for _ in range(cfg.depth))
+        self.blocks = nn.ModuleList(WanBlock(cfg, tp_group, seq_group) for _ in range(cfg.depth))
         self.head_modulation = nn.Parameter(torch.zeros(1, 2, h))
         self.head = Linear(h, cfg.out_channels * pf * ph * pw, compute_dtype=torch.float32)
 
@@ -225,7 +300,8 @@ class WanModel(nn.Module):
         t = torch.as_tensor(t, device=x.device).float().reshape(-1)
         te = self.time_embedding(timestep_embedding(t * 1000.0, 256).to(dt))
         e6 = self.time_projection(F.silu(te)).reshape(b, 6, cfg.hidden)
-        pe = rope_freqs(video_ids(b, gf, gh, gw, device=x.device), cfg.axes_dim)
+        pe = rope_freqs(video_ids(b, gf, gh, gw, frame_offset=self.seq_rank * gf,
+                                  device=x.device), cfg.axes_dim)
 
         ctx = None if kv_cache is not None else self.embed_text(context)
         for i, block in enumerate(self.blocks):

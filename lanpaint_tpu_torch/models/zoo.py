@@ -4,8 +4,9 @@ SD3.5, HiDream-I1, HunyuanVideo, Z-Image and the Wan video DiTs), the
 image and video VAEs, the CLIP, T5 and Llama / Qwen text encoders and the
 Qwen2.5-VL vision tower.
 
-PyTorch counterpart of `lanpaint_tpu/models/zoo.py` but for its
-sequence-parallel Wan builder, with the ControlNet-conditioned UNet
+PyTorch counterpart of `lanpaint_tpu/models/zoo.py`, with its
+sequence- and tensor-parallel Wan builder (`build_wan_seq_parallel`), the
+ControlNet-conditioned UNet
 (`build_controlled_unet`), its two-model wrappers
 (`switching_denoiser`, the Wan2.2 high/low-noise expert pair, and
 `dual_model_denoiser`) and the checkpoint key census
@@ -26,6 +27,8 @@ across with models/bridge.py for identical weights).
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -623,6 +626,61 @@ def build_wan(
 
 def build_tiny_wan(state_dict=None, **kw):
     return build_wan(TINY_WAN_CONFIG, state_dict, name="tiny-wan", **kw)
+
+
+def build_wan_seq_parallel(
+    config: WanConfig,
+    state_dict: dict,
+    mesh,
+    *,
+    shift: float = 5.0,
+    seq_axis: str = "seq",
+    tp_axis: Optional[str] = None,
+    param_dtype: torch.dtype = torch.float32,
+    name: str = "wan-sp",
+):
+    """Sequence- (and tensor-) parallel Wan denoiser over a
+    `parallel.make_mesh` mesh, on this rank's device.
+
+    The sampler runs replicated on every rank (the same seed on the same
+    device type draws the same numbers).  The forward keeps this rank's
+    batch rows ("data") and block of latent frames (dim 2, `seq_axis`),
+    runs the sharded `WanModel` (ring self-attention over `seq_axis`; with
+    `tp_axis`, Megatron tensor parallelism over it, this rank holding its
+    `parallel.wan_tp_param_specs` shard of `state_dict`), and all-gathers
+    the velocity over `seq_axis` and "data", so every rank holds the same
+    latent after every step.  The cross-attention k/v hoist stays off, as
+    in the JAX package.  The frame count must divide over `seq_axis`, the
+    batch over "data".  Returns (Denoiser, module)."""
+    from ..parallel.mesh import (all_gather, axis_index, axis_size, block, mesh_device,
+                                 wan_tp_param_specs)
+
+    tp_size = axis_size(mesh, tp_axis) if tp_axis else 1
+    sp_cfg = dataclasses.replace(config, seq_axis=seq_axis, tp_axis=tp_axis, tp_size=tp_size)
+    if tp_axis:
+        state_dict = wan_tp_param_specs(state_dict, axis_index(mesh, tp_axis), tp_size)
+    module = _materialize(functools.partial(WanModel, mesh=mesh), sp_cfg, state_dict,
+                          mesh_device(mesh), param_dtype, 0)
+    n_seq, n_data = axis_size(mesh, seq_axis), axis_size(mesh, "data")
+    seq_group, data_group = mesh.get_group(seq_axis), mesh.get_group("data")
+
+    @torch.no_grad()
+    def apply(x, t, cond):
+        ctx = cond["context"] if isinstance(cond, dict) else cond
+        b, f = x.shape[0], x.shape[2]
+        if f % n_seq or b % n_data:
+            raise ValueError(f"build_wan_seq_parallel: {f} frames over {n_seq} seq ranks, "
+                             f"batch {b} over {n_data} data ranks")
+        tb = torch.broadcast_to(torch.as_tensor(t, device=x.device).reshape(-1), (b,))
+        rows = block(b, n_data, axis_index(mesh, "data"))
+        frames = block(f, n_seq, axis_index(mesh, seq_axis))
+        vel = module(x[rows, :, frames], tb[rows], ctx[rows])
+        vel = all_gather(all_gather(vel, seq_group, 2), data_group, 0)
+        return x - bcast_to(t, x.ndim) * vel
+
+    den = Denoiser(apply=apply, kind=ModelKind.FLOW, sigma_table=FlowSigmaTable(shift=shift),
+                   name=name, latent_channels=config.in_channels, module=module)
+    return den, module
 
 
 def build_wan_vae(config: WanVAEConfig = WAN22_VAE_CONFIG, state_dict: Optional[dict] = None, *,

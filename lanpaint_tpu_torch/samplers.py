@@ -40,6 +40,8 @@ from typing import Callable, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from .engine import randn
+
 ModelFn = Callable[[torch.Tensor, np.float32, int], Tuple[torch.Tensor, torch.Tensor]]
 
 _F = np.float32
@@ -92,8 +94,7 @@ def _ancestral_step(sigma, sigma_next, eta=1.0):
 def _noise_like(x, generator, step: int, slot: int):
     """Standard normals of x's shape (drawn in fp32, cast to x's dtype):
     slot `slot` of global step `step` (see the module docstring)."""
-    return torch.randn(x.shape, generator=generator, dtype=torch.float32,
-                       device=x.device).to(x.dtype)
+    return randn(x.shape, generator, x.device).to(x.dtype)
 
 
 def _neg_log(s):

@@ -6,7 +6,8 @@ module of it (api, engine, masks, quality, utils, the UNet, DiT, SD3,
 HiDream, HunyuanVideo, Z-Image, Wan, VAE, Wan VAE, TAESD, text-encoder and
 vision-tower models, the ControlNet and the LoRA merge, the checkpoint
 loader and its native reader, the tokenizers, text conditioning, the
-pipeline, the server, the web UI, the CLI, the kernel wrappers) import,
+pipeline, the server, the web UI, the CLI, the kernel wrappers, the
+parallel layer and the example scripts) import,
 and nothing of the JAX package (or triton) gets loaded along the way.
 """
 
@@ -55,7 +56,15 @@ import lanpaint_tpu_torch.__main__
 import lanpaint_tpu_torch.ops.attention
 import lanpaint_tpu_torch.ops.fused
 import lanpaint_tpu_torch.ops.norms
+import lanpaint_tpu_torch.parallel
+import lanpaint_tpu_torch.parallel.mesh
+import lanpaint_tpu_torch.parallel.ring
+import lanpaint_tpu_torch.examples.common
+import importlib
 import pkgutil
+import lanpaint_tpu_torch.examples
+for m in pkgutil.iter_modules(lanpaint_tpu_torch.examples.__path__, "lanpaint_tpu_torch.examples."):
+    importlib.import_module(m.name)  # the example scripts
 mods = {m.name for m in pkgutil.walk_packages(lanpaint_tpu_torch.__path__, "lanpaint_tpu_torch.")}
 missing = sorted(m for m in mods if m not in sys.modules)
 assert not missing, f"modules this probe does not import: {missing}"

@@ -145,10 +145,41 @@ def test_ti2v_5b_bridge_maps_every_key_without_allocating():
     assert 4.9e9 < n_port < 5.1e9, n_port
 
 
-def test_parallel_axes_are_not_ported():
-    for field in (dict(seq_axis="seq"), dict(tp_axis="tp", tp_size=2), dict(tp_size=2)):
-        with pytest.raises(NotImplementedError, match="A.19"):
-            twan.WanModel(dataclasses.replace(twan.TINY_WAN_CONFIG, **field))
+@pytest.mark.parametrize("field", [dict(seq_axis="seq"), dict(tp_axis="tp", tp_size=2),
+                                   dict(tp_size=2)], ids=["seq_axis", "tp_axis", "tp_size"])
+def test_parallel_axes_are_not_ported(field, tmp_path):
+    """The parallel axes, once refused (ROADMAP A.19), build and match JAX.
+    A mesh axis runs over two spawned gloo ranks on a mesh of its own name
+    (tests/test_torch_parallel.py), the frames or the weights split between
+    them, against JAX's one-device forward; tp_size alone (no axis: half the
+    heads and ffn width, no reduce) against JAX's WanModel of the same
+    config, in this process."""
+    from test_torch_parallel import _axes_ranks, run_ranks
+
+    jcfg, tcfg, tree, _ = tiny_pair()
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 4, 4, 8, 8)).astype(np.float32)  # 4 frames over 2 ranks
+    t = rng.uniform(0.05, 0.95, (2,)).astype(np.float32)
+    ctx = rng.standard_normal((2, 8, 32)).astype(np.float32)
+    if "tp_axis" not in field and "seq_axis" not in field:
+        jcfg = dataclasses.replace(jcfg, **field)
+        tree = _random_tree(_flax_shapes(jcfg), 7)
+    with jax.default_matmul_precision("highest"):
+        want = np.asarray(jwan.WanModel(jcfg).apply(tree, jnp.asarray(x), jnp.asarray(t),
+                                                    jnp.asarray(ctx)))
+    state = wan_params_from_flax(tree)
+    if "tp_axis" in field or "seq_axis" in field:
+        outs = [o.numpy() for o in run_ranks(tmp_path, 2, _axes_ranks, field, state,
+                                              *(torch.from_numpy(a) for a in (x, t, ctx)))]
+        np.testing.assert_array_equal(outs[0], outs[1])
+        got = outs[0]
+    else:
+        module = twan.WanModel(dataclasses.replace(tcfg, **field)).eval()
+        module.load_state_dict(state)
+        assert tuple(module.blocks[0].self_attn.q.weight.shape) == (32, 64)
+        with torch.no_grad():
+            got = module(*(torch.from_numpy(a) for a in (x, t, ctx))).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
 def test_wan_configs_match_jax():

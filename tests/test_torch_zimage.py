@@ -148,6 +148,27 @@ def test_attention_routes_by_shape_with_kv_repeated(monkeypatch):
     assert seen == [(refiner,) * 3] + [(main,) * 3] * tcfg.depth
 
 
+def test_rms_norm_routes_by_row_width(monkeypatch):
+    """The tiny config's head dim 12 is no multiple of the row-norm kernel's
+    8-element vector: its q / k norms take the plain RMSNorm (the kernel
+    would refuse a CUDA tensor of that width), the hidden-width norms (48)
+    the kernel's wrapper, as JAX routes by width."""
+    from lanpaint_tpu_torch.models import layers
+
+    widths = []
+
+    def spy(x, gamma=None, eps=1e-6):
+        widths.append(x.shape[-1])
+        return norms.rmsnorm_ref(x, gamma, eps)
+
+    monkeypatch.setattr(layers, "rmsnorm", spy)
+    _, module = tzoo.build_tiny_zimage(device="cpu", seed=1)
+    assert module.cfg.head_dim == 12
+    with torch.no_grad():
+        module(torch.randn(1, 4, 16, 16), torch.tensor([0.5]), torch.randn(1, 6, 24))
+    assert widths and 12 not in widths and all(w % norms.VEC == 0 for w in widths)
+
+
 def test_strided_qk_views_collapse_for_the_row_norm():
     """At full width the q and k views of the fused qkv (row stride
     (30 + 2 * 30) * 128 = 11,520) are (S, 30) rows of 128 the row-norm
