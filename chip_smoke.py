@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the root of the repository
 
-Sixteen main paths, each with random bf16 weights made on the card from a
+Seventeen main paths, each with random bf16 weights made on the card from a
 seed, the euler solver, 20 steps (Z-Image's 9, the parallel path's 4),
 outer early stop 1 and a centre mask; 5 think steps but for the video and
 parallel paths' 2:
@@ -92,10 +92,15 @@ parallel paths' 2:
 * the parallel path (`lanpaint_tpu_torch.parallel`) at a world of one over
   NCCL: TI2V-5B through `zoo.build_wan_seq_parallel(..., tp_axis="tensor")`
   on a (data, seq, tensor, expert) = (1, 1, 1, 1) mesh, ring self-attention
-  at S = 7,920, the video path's latent, euler "simple" 4 x 2 think, cfg 1:
-  10 forwards;
+  at S = 7,920, the video path's latent, euler "simple" 2 x 2 think, cfg 1:
+  4 forwards;
 * the 17 example scripts of `lanpaint_tpu_torch/examples/` in --smoke mode
-  on the card (tiny random models, each the twin of one of examples/).
+  on the card (tiny random models, each the twin of one of examples/);
+* the tensor-parallel path: two processes on the one card, a gloo world of
+  2 (CUDA tensors, collectives staged through the host), each holding its
+  tensor-2 shard of SDXL-1024 (`zoo.build_unet(..., mesh=..., tp_axis=
+  "tensor")`: every transformer block on half the heads), euler karras 4 x
+  2 think, cfg 1: 10 forwards a rank.
 
 Phases, one line of output each or more (any failure raises and the script
 exits non-zero without printing a result):
@@ -138,7 +143,7 @@ exits non-zero without printing a result):
    the small UNet with a ControlNet at strength 1, its zero convs drawn,
    a seeded hint in both conds;
 6. SDXL main path and 8. Flux main path: build, then LanPaintSampler twice
-   (for Flux the first run is a 2-step warm-up); the second run is timed
+   (the first a 2-step warm-up); the second run is timed
    and its kernel launches counted: the output is finite, the known region
    equals the latent, the repainted region moved, and every kernel ran
    exactly its expected number of times; then one Flux forward under
@@ -215,8 +220,9 @@ exits non-zero without printing a result):
    one forward of the pair at strength 0 bit-equal to its forward without
    a hint, one forward with the hint and one without under
    torch.profiler (idle share, device time by kernel class), then phase
-   6's run at strength 0 (the first run) and at 1 (timed and counted,
-   phase 6's checks), the two outputs different;
+   6's run at strength 1 after a 2-step warm-up (timed and counted, phase
+   6's checks), and one forward at strength 1 different from the forward
+   without a hint;
 21. serving path (phase 12's file, kept until then): the file read back
    with `load_safetensors` (numpy fp32), the LoRA merge timed on the host,
    a strength-0 merge bit-equal to the source, one merged weight against
@@ -249,19 +255,42 @@ exits non-zero without printing a result):
    mode: recorded while they run) is then made again on fresh inputs of its
    layout, held against its plain version at phase 3's tolerance and timed
    (median of 5, host-inclusive; device times not measured): these rows
-   join the kernels line with phase 23's launches.
+   join the kernels line with phase 23's launches;
+24. the tensor-, expert- and layer-parallel builders (`zoo.build_unet`,
+   `build_dit`, `build_sd3`, `build_hidream` with `mesh=`):
+   24a (inside phases 6, 8, 17 and 18, on their resident weights): a world
+   of one over NCCL, the family built from the phase's own state dict
+   (views: no second copy) with `tp_axis`, HiDream's `expert_axis` and a
+   layer axis, all of size 1; one forward against the phase's own (the
+   model term's relative L2 within TP_REL_L2 = 5e-2: the row-parallel
+   layers' bias after the reduce is one more bf16 rounding, bit-equal only
+   because the seeded biases are zero), exact launches; after Flux's, its fused 2-step run through
+   `with_data_parallel` bit-equal to the sampler's own run;
+   24b (after phase 6): the tensor-parallel path above, both ranks' samples
+   bit-equal, the first forward against the same weights in fp32 with
+   plain attention within twice the one-process bf16 forward's error,
+   exact launches a rank (70 attention at 5 and 10 heads, 210 LayerNorms
+   a forward), a forward's time (one shared card, host-staged collectives:
+   not a multi-card time);
+   24c (after phase 22): bf16 bytes per device under the port's rules (the
+   head rule included) for SDXL, Flux-dev, SD3.5-Large and HiDream-I1 at
+   tensor 1, 2, 4, 8 and HiDream-I1 at expert 1, 2, 4 (computed).
+   Phase 3 also holds the attention and strided RMS rows at the tensor-2
+   shapes and both fused kernels at element offsets 3,003 (no multiple of
+   4) and 16,384 against `philox_normals` at those offsets.
 
 Then, on lines of their own: the nvidia-smi line, one JSON line with the
 per-kernel numbers, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-In the kernels line, `launches` is the sixteen main paths' count (phase
-13's `inpaint_image` run, phase 16b's call, phase 20's strength-0 run and
-phase 22's forwards are checks and not counted; phase 21's two batches are
-one count, and phase 23's 17 scripts one), and
+In the kernels line, `launches` is the seventeen main paths' count (phase
+13's `inpaint_image` run, phase 16b's call, the warm-ups, phase 22's and
+phase 24a's forwards are checks and not counted; phase 21's two batches
+are one count, phase 23's 17 scripts one, and phase 24b's two ranks one),
+and
 `ms` /
 `plain_ms` / `library_ms` / `bound_ms` are the kernel's / plain version's /
 PyTorch call's per-launch times and the bound at each main-path shape times
-that shape's launches in the sixteen main paths, summed (`library_ms` null
+that shape's launches in the seventeen main paths, summed (`library_ms` null
 where a launched shape has no such call; each shape alone in `per_shape`,
 with its device times in us, null for phase 23's shapes).
 
@@ -286,8 +315,10 @@ import dataclasses
 import gc
 import io
 import itertools
+import datetime
 import json
 import math
+import multiprocessing
 import os
 import re
 import runpy
@@ -313,8 +344,8 @@ from lanpaint_tpu_torch import (LanPaintConfig, LanPaintPipeline, LanPaintSample
                                 edit_image, inpaint_image, inpaint_video)
 from lanpaint_tpu_torch.engine import lanpaint_update
 from lanpaint_tpu_torch import parallel, pipeline, samplers, serve, text, tokenizers
-from lanpaint_tpu_torch.models import (dit, hidream, hyvideo, load, lora, sd3, textenc, unet, vae,
-                                       video_vae, vision, wan, zimage, zoo)
+from lanpaint_tpu_torch.models import (dit, hidream, hyvideo, layers, load, lora, sd3, textenc,
+                                       unet, vae, video_vae, vision, wan, zimage, zoo)
 from lanpaint_tpu_torch.native import loader as native_loader
 from lanpaint_tpu_torch.ops import attention, cuda_build, fused, norms
 from lanpaint_tpu_torch.schedule import unify_times
@@ -348,9 +379,16 @@ FORWARDS = {"sdxl": 2 * PAIRS, "pixel": 2 * PAIRS, "flux": PAIRS,  # CFG 5 seq. 
 # a CFG pair
 SERVE_BATCHES = 2
 FORWARDS["serve"] = SERVE_BATCHES * PAIRS
-# the parallel path (phase 22, a world of one): 4 euler steps x 2 think, cfg 1
-SP_STEPS, SP_THINK = 4, 2
-FORWARDS["parallel"] = (SP_STEPS - EARLY_STOP) * (SP_THINK + 1) + EARLY_STOP  # 10
+# the parallel path (phase 22, a world of one): 2 euler steps x 2 think, cfg 1
+# (4 steps before phase 24 needed the time)
+SP_STEPS, SP_THINK = 2, 2
+FORWARDS["parallel"] = (SP_STEPS - EARLY_STOP) * (SP_THINK + 1) + EARLY_STOP  # 4
+# the tensor-parallel path (phase 24b): two ranks on the one card, each 4
+# euler steps x 2 think, cfg 1 over its tensor-2 shard of SDXL: the two
+# ranks' forwards together
+TP_RANKS, TP_STEPS = 2, 4
+TP_RANK_FORWARDS = (TP_STEPS - EARLY_STOP) * (SP_THINK + 1) + EARLY_STOP  # 10
+FORWARDS["tp"] = TP_RANKS * TP_RANK_FORWARDS  # 20
 PER_FORWARD = {  # kernel launches per model forward
     "sdxl": {"flash_attention": 70, "layernorm": 210, "rmsnorm": 0},
     # 19 double + 38 single blocks; adaLN norms 4 + 1 per block + 1 final;
@@ -366,6 +404,9 @@ PER_FORWARD = {  # kernel launches per model forward
 # hoist on the parallel path)
 PER_FORWARD["parallel"] = {"flash_attention": 0, "layernorm": 91, "rmsnorm": 120}
 PER_FORWARD["pixel"] = PER_FORWARD["pipeline"] = PER_FORWARD["serve"] = PER_FORWARD["sdxl"]
+# a rank's tensor-2 SDXL: every block on its half of the heads (10 and 20
+# heads: 5 and 10), the blocks' LayerNorms whole
+PER_FORWARD["tp"] = PER_FORWARD["sdxl"]
 # SDXL with its ControlNet: the UNet's 70 self-attention calls and 210
 # LayerNorms, and the ControlNet encoder's transformer_depth (0, 2, 10) and
 # middle 10: 4 blocks at S = 4,096 and 30 at S = 1,024, 3 LayerNorms each
@@ -410,7 +451,7 @@ PER_RUN["pipeline"] = PER_RUN["sd15"] = PER_RUN["zimage"] = PER_RUN["qwen_small"
 PER_RUN["qwen_edit"] = {"fused_half_step": 0, "fused_finish": 0, "wide_attention": 3}
 PER_RUN["sd35"] = PER_RUN["pixel"]  # the SD3 VAE's encode and decode
 PER_RUN["hidream"] = PER_RUN["hyvideo"] = PER_RUN["controlnet"] = PER_RUN["parallel"] = \
-    PER_RUN["sdxl"]  # latent paths
+    PER_RUN["tp"] = PER_RUN["sdxl"]  # latent paths
 # each serving batch: the SDXL VAE's encode and decode of the batch
 PER_RUN["serve"] = {"fused_half_step": 0, "fused_finish": 0, "wide_attention": 2 * SERVE_BATCHES}
 BLEND = 9  # MaskBlend overlap of the pixel and video paths
@@ -420,6 +461,9 @@ ATTN_SHAPES = [
     ((1, 4096, 10, 64), {"sdxl": 10, "pixel": 10, "pipeline": 10, "controlnet": 14}, SPLASH),
     ((1, 1024, 20, 64), {"sdxl": 60, "pixel": 60, "pipeline": 60, "controlnet": 90},
      "lanpaint_tpu/models/layers.py:238 (flash_attention)"),
+    ((1, 4096, 5, 64), {"tp": 10}, SPLASH),  # a tensor-2 rank's SDXL heads
+    ((1, 1024, 10, 64), {"tp": 60}, "lanpaint_tpu/models/layers.py:238 (flash_attention)"),
+    ((1, 4608, 12, 128), {}, SPLASH),  # Flux-dev's at tensor 2
     ((4, 4096, 10, 64), {"serve": 10}, SPLASH),  # batched CFG over two lanes
     ((4, 1024, 20, 64), {"serve": 60}, "lanpaint_tpu/models/layers.py:238 (flash_attention)"),
     ((1, 9216, 5, 64), {}, SPLASH),   # SD2.1-v at 768^2: the 96x96 level
@@ -449,9 +493,10 @@ WIDE_SHAPES = [
 # rmsnorm input is the strided q/k view of a fused projection, as the DiT
 # hands it over, a 3D one a dense projection's output (Wan's full-width norm)
 NORM_SHAPES = [
-    ((1, 4096, 640), "layernorm", {"sdxl": 30, "pixel": 30, "pipeline": 30, "controlnet": 42}),
+    ((1, 4096, 640), "layernorm", {"sdxl": 30, "pixel": 30, "pipeline": 30, "controlnet": 42,
+                                   "tp": 30}),
     ((1, 1024, 1280), "layernorm", {"sdxl": 180, "pixel": 180, "pipeline": 180,
-                                    "controlnet": 270}),
+                                    "controlnet": 270, "tp": 180}),
     ((4, 4096, 640), "layernorm", {"serve": 30}),  # batched CFG over two lanes
     ((4, 1024, 1280), "layernorm", {"serve": 180}),
     ((1, 4096, 320), "layernorm", {"sd15": 15}),  # SD1.5 at 512^2, by level
@@ -464,6 +509,7 @@ NORM_SHAPES = [
     ((1, 4096, 24, 128), "rmsnorm", {"flux": 38}),
     ((1, 512, 24, 128), "rmsnorm", {"flux": 38}),
     ((1, 4608, 24, 128), "rmsnorm", {"flux": 76}),
+    ((1, 4608, 12, 128), "rmsnorm", {}),  # Flux-dev's linear1 q / k at tensor 2
     ((1, 7920, 3072), "layernorm_na", {"video": 61, "parallel": 61}),
     ((1, 7920, 3072), "layernorm", {"video": 30, "parallel": 30}),
     ((1, 7920, 3072), "rmsnorm", {"video": 90, "parallel": 90}),
@@ -817,22 +863,23 @@ def _fused_case(b, m, gen, sigma=0.6):
     return tx, ty, x, v, c, c_new, mask
 
 
-def _fused_phases(tx, ty, nm, x, v, c, c_new, mask, seed, twin=False):
+def _fused_phases(tx, ty, nm, x, v, c, c_new, mask, seed, twin=False, offset=0):
     """(name, kernel outputs, plain outputs) of the three launches (the
-    half step at launch 0, the finishes at 1); the finishes take the kernel
-    half step's outputs on both sides.  The plain versions take zeros for
-    normals, or with `twin` the kernel's own draw made on the CPU
-    (`fused.philox_normals`)."""
+    half step at launch 0, the finishes at 1, all at element `offset`); the
+    finishes take the kernel half step's outputs on both sides.  The plain
+    versions take zeros for normals, or with `twin` the kernel's own draw
+    made on the CPU (`fused.philox_normals`)."""
     b, m = x.shape
     if twin:
-        draws = [fused.philox_normals(seed, launch, b, m).cuda() for launch in (0, 1)]
+        draws = [fused.philox_normals(seed, launch, b, m, offset).cuda() for launch in (0, 1)]
     else:
         draws = [torch.zeros((3, b, m), device="cuda")] * 2
-    half = fused.fused_half_step(tx, ty, nm, x, v, c, mask, seed=seed, launch=0)
+    half = fused.fused_half_step(tx, ty, nm, x, v, c, mask, seed=seed, launch=0, offset=offset)
     half_ref = fused.fused_half_step_ref(tx, ty, nm, x, v, c, mask, *draws[0])
     out = [("half", half, half_ref)]
     for warm in (True, False):
-        got = fused.fused_finish(tx, ty, nm, warm, x, *half, c, c_new, mask, seed=seed, launch=1)
+        got = fused.fused_finish(tx, ty, nm, warm, x, *half, c, c_new, mask, seed=seed, launch=1,
+                                 offset=offset)
         want = fused.fused_finish_ref(tx, ty, nm, warm, x, *half, c, c_new, mask, *draws[1])
         out.append(("warm finish" if warm else "cold finish", got, want))
     torch.cuda.synchronize()
@@ -851,10 +898,11 @@ def _offset_views(*arrays):
     return out
 
 
-def _check_fused_draw(label, tx, ty, x, v, c, c_new, mask, seed) -> None:
-    """Each phase at noise_mult 1 against its plain version fed the kernel's
-    draw (FUSED_NOISE_TOL)."""
-    for name, got, want in _fused_phases(tx, ty, 1.0, x, v, c, c_new, mask, seed, twin=True):
+def _check_fused_draw(label, tx, ty, x, v, c, c_new, mask, seed, offset=0) -> None:
+    """Each phase at noise_mult 1 (at element `offset`) against its plain
+    version fed the kernel's draw (FUSED_NOISE_TOL)."""
+    for name, got, want in _fused_phases(tx, ty, 1.0, x, v, c, c_new, mask, seed, twin=True,
+                                         offset=offset):
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
         if not all(torch.allclose(g, w, **FUSED_NOISE_TOL) for g, w in zip(got, want)):
             raise AssertionError(f"fused {name} {label} at noise_mult 1 disagrees with its plain "
@@ -917,6 +965,14 @@ def _kernel_fused(gen) -> tuple:
     # inputs 4 bytes off a 16-byte boundary: the scalar path
     tx, ty, *arrays = _fused_case(2, 1000, gen)
     _check_fused_draw("(2, 1000) unaligned", tx, ty, *_offset_views(*arrays), seed)
+    # a data-parallel rank's view: its rows start at element rows.start * M
+    # of the whole batch; 3 * 1001 is no multiple of 4 (two global quads a
+    # view quad), 4 * 4096 is
+    tx, ty, *arrays = _fused_case(2, 1001, gen)
+    _check_fused_draw("(2, 1001) at element offset 3003", tx, ty, *arrays, seed, offset=3 * 1001)
+    tx, ty, *arrays = _fused_case(1, 4096, gen)
+    _check_fused_draw("(1, 4096) at element offset 16384", tx, ty, *arrays, seed,
+                      offset=4 * 4096)
 
     # (b) a non-finite damped coefficient: the kernels select the OU branch
     tx, ty, x, v, c, c_new, mask = _fused_case(2, 1000, gen)
@@ -1325,13 +1381,16 @@ def phase_sdxl(smi: str) -> tuple:
     gen = torch.Generator(device="cuda").manual_seed(0)
     latent = torch.randn((1, 4, 128, 128), device="cuda", generator=gen)
     cond, uncond = _sdxl_conds(gen)
-    sigmas = calculate_sigmas(den.sigma_table, "karras", STEPS)
     sam = LanPaintSampler(den, config=LanPaintConfig(n_steps=THINK, outer_early_stop=EARLY_STOP),
                           sampler_name="euler", cfg=5.0, sequential_cfg=True)
-    run = lambda: sam(latent=latent, sigmas=sigmas, cond=cond, uncond=uncond,  # noqa: E731
-                      mask=_centre_mask(1024, 1024), seed=0)
+
+    def run(steps=STEPS):
+        return sam(latent=latent, sigmas=calculate_sigmas(den.sigma_table, "karras", steps),
+                   cond=cond, uncond=uncond, mask=_centre_mask(1024, 1024), seed=0)
+
     return _main_path(f"phase 6 SDXL main path: euler karras {STEPS} x think {THINK}, cfg 5 "
-                      "sequential", "sdxl", smi, den, module, t_init, run, run, latent), den
+                      "sequential (warm-up: 2 steps)", "sdxl", smi, den, module, t_init, run,
+                      lambda: run(2), latent), den
 
 
 def _vae_times(model, image) -> tuple:
@@ -1484,6 +1543,12 @@ def phase_flux(smi: str) -> dict:
     t_mid = torch.tensor([0.7], device="cuda")
     prof = profile_forward(lambda: den.apply(latent, t_mid, cond))
     say(f"phase 8 Flux forward at t = 0.7 under torch.profiler: {_profile_text(prof)}")
+    _tp_check("phase 24a Flux-dev", "flux", smi,
+              lambda st, **kw: zoo.build_flux_dev(st, tp_axis="tensor", layer_axis="data", **kw),
+              module.state_dict(), den, latent, t_mid, cond,
+              after=_dp_fused_check(smi, sam, latent,
+                                    calculate_sigmas(den.sigma_table, "simple", 2), cond,
+                                    _centre_mask(1024, 1024)))
     return launches
 
 
@@ -1896,10 +1961,11 @@ def phase_controlnet(smi: str, den) -> dict:
     (1, 3, 1024, 1024) hint in both conds.  Checks: the ControlNet's
     residuals (9 skips and the middle, finite); one forward of the same
     modules at strength 0 bit-equal to the forward without a hint; phase
-    6's run at strength 0 (the warm-up) and at 1 (timed and counted, 104
-    flash_attention and 312 layernorm launches a forward), the two outputs
-    different.  One forward with the hint and one without are profiled
-    (the card's idle share and device time by kernel class)."""
+    6's run at strength 1 after a 2-step warm-up (timed and counted, 104
+    flash_attention and 312 layernorm launches a forward); one forward at
+    strength 1 different from the forward without a hint.  One forward
+    with the hint and one without are profiled (the card's idle share and
+    device time by kernel class)."""
     t0 = time.perf_counter()
     cden, (c_unet, cn) = zoo.build_controlled_unet(unet.SDXL_CONFIG, den.module.state_dict(),
                                                    device="cuda", param_dtype=torch.bfloat16,
@@ -1958,13 +2024,19 @@ def phase_controlnet(smi: str, den) -> dict:
                                                 uncond=uncond, mask=_centre_mask(1024, 1024),
                                                 seed=0))
 
+    warm_up = lambda: LanPaintSampler(  # noqa: E731
+        cden, config=config, sampler_name="euler", cfg=5.0, sequential_cfg=True)(
+        latent=latent, sigmas=calculate_sigmas(cden.sigma_table, "karras", 2), cond=cond,
+        uncond=uncond, mask=_centre_mask(1024, 1024), seed=0)
     launches = _main_path(
         f"phase 20 SDXL + ControlNet main path: euler karras {STEPS} x think {THINK}, cfg 5 "
-        f"sequential, strength 1 (first run: the same at strength 0)", "controlnet", smi, cden,
-        cden.module, t_init, sampled(cden, "one"), sampled(zden, "zero"), latent)
-    change = float((outs["one"][0] - outs["zero"][0]).abs().mean())
-    say(f"phase 20 ControlNet: mean |strength 1 - strength 0| of the samples {change:.4g} "
-        f"{'ok' if change > 1e-3 else 'FAIL'}")
+        f"sequential, strength 1 (warm-up: 2 steps)", "controlnet", smi, cden, cden.module,
+        t_init, sampled(cden, "one"), warm_up, latent)
+    with torch.no_grad():
+        change = float((cden.apply(latent, sigma, cond) - cden.apply(latent, sigma, bare))
+                       .abs().mean())
+    say(f"phase 20 ControlNet: mean |strength 1 - no hint| of one forward at sigma 3 "
+        f"{change:.4g} {'ok' if change > 1e-3 else 'FAIL'}")
     if not change > 1e-3:
         raise AssertionError("phase 20: the control did not move the output")
     return launches
@@ -2628,6 +2700,8 @@ def add_a14_shapes(n_ll: int, n_hy: int) -> None:
         ((1, s3, 38, 64), {"sd35": 38}, SPLASH),     # the joint attention
         ((1, sh, 20, 128), {"hidream": 48}, SPLASH),  # double and single blocks
         ((1, sy, 24, 128), {"hyvideo": 60}, SPLASH),
+        ((1, s3, 19, 64), {}, SPLASH),   # SD3.5-Large's and HiDream-I1's at tensor 2
+        ((1, sh, 10, 128), {}, SPLASH),
     ])
     for shape, calls, _ in WIDE_SHAPES:
         if shape == (1, 16384, 1, 512):
@@ -2645,6 +2719,7 @@ def add_a14_shapes(n_ll: int, n_hy: int) -> None:
         ((1, 4096, 24, 128), "rmsnorm", {"hyvideo": 40}),
         ((1, n_hy, 24, 128), "rmsnorm", {"hyvideo": 40}),
         ((1, sy, 24, 128), "rmsnorm", {"hyvideo": 80}),  # linear1's q / k
+        ((1, 4096, 19, 64), "rmsnorm", {}),  # SD3.5-Large's x-stream ln_q at tensor 2
     ])
 
 
@@ -2788,6 +2863,12 @@ def phase_sd35(smi: str, clip_files) -> dict:
         f"think {THINK}, cfg 4.5 sequential, blend {BLEND}: {text_} on {smi}")
     if not ok:
         raise AssertionError("phase 17 SD3.5-Large path failed its checks")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    x = torch.randn(lat_shape, device="cuda", generator=gen)
+    _tp_check("phase 24a SD3.5-Large", "sd35", smi,
+              lambda st, **kw: zoo.build_sd35_large(st, tp_axis="tensor", layer_axis="data",
+                                                    **kw),
+              pipe.model.module.state_dict(), pipe.model, x, t_mid, cond)
     del pipe, loaded
     return launches
 
@@ -2833,11 +2914,12 @@ def _encode_phase(clip_files, llama_tok, names, encode) -> tuple:
     return cond, n, t_init, t_first, ms, peak
 
 
-def _latent_phase(label, path, smi, build, cond, enc_text) -> dict:
+def _latent_phase(label, path, smi, build, cond, enc_text, tp=None) -> dict:
     """Build the DiT (bf16, seed 5), one forward at t = 0.7 under
     torch.profiler, then `api.ksampler` (euler "simple", cfg 1, 20 steps x
     5 think, a centre mask) on a random (1, 16, 128, 128) latent after a
-    2-step warm-up: `_main_path`'s checks."""
+    2-step warm-up: `_main_path`'s checks; then `tp(den, module, latent,
+    t)` (phase 24a) while the weights are resident."""
     t0 = time.perf_counter()
     den, module = build(device="cuda", param_dtype=torch.bfloat16, seed=5)
     torch.cuda.synchronize()
@@ -2857,6 +2939,8 @@ def _latent_phase(label, path, smi, build, cond, enc_text) -> dict:
                           "(warm-up: 2 steps)", path, smi, den, module, t_init, run,
                           lambda: run(2), latent)
     api._SAMPLER_CACHE.clear()
+    if tp is not None:
+        tp(den, module, latent, t_mid)
     del den, module
     return launches
 
@@ -2879,8 +2963,14 @@ def phase_hidream(smi: str, clip_files, llama_tok, n_ll: int) -> dict:
                 f"{ {k: round(v / 1e9, 3) for k, v in n.items()} } B params, init {t_init:.1f} s, "
                 f"cond {shapes} finite, first call {t_first:.2f} s, then {ms:.2f} ms (median of "
                 f"3), encoders' peak {peak:.1f} GB, released")
+    def tp(den, module, latent, t):
+        _tp_check("phase 24a HiDream-I1", "hidream", smi,
+                  lambda st, **kw: zoo.build_hidream(None, st, tp_axis="tensor",
+                                                     expert_axis="expert", layer_axis="data", **kw),
+                  module.state_dict(), den, latent, t, cond)
+
     return _latent_phase("phase 18 HiDream-I1 path", "hidream", smi, zoo.build_hidream, cond,
-                         enc_text)
+                         enc_text, tp=tp)
 
 
 def phase_hyvideo(smi: str, clip_files, llama_tok, n_hy: int) -> dict:
@@ -2972,7 +3062,7 @@ def phase_parallel(smi: str) -> dict:
     bf16 weights, seed 0) at the video path's latent (1, 48, 9, 44, 80),
     S = 7,920, through `build_wan_seq_parallel(..., tp_axis="tensor")`: one
     forward held against `build_wan`'s on the same weights, then a counted
-    4-step, 2-think euler LanPaintSampler run (finite, the known region
+    2-step, 2-think euler LanPaintSampler run (finite, the known region
     equal to the latent), then the ring against the flash kernel; the A14B
     pair's bytes per device by tensor size, computed from a meta-device
     state."""
@@ -3040,6 +3130,248 @@ def phase_parallel(smi: str) -> dict:
     if dist.is_initialized():
         raise AssertionError("phase 22: the world of one outlived its context")
     return launches
+
+
+# phase 24a: a mesh build's forward at a world of one against the phase's
+# own forward on the same bf16 weights, the model term (x - x0 = s * eps or
+# t * v) compared: the row-parallel layers add their bias after the (here
+# empty) reduce, one more bf16 rounding than the fused addmm, so the two
+# need not be bit-equal (they are with the seeded weights' zero biases); a
+# fault in a layer's layout or a missed reduce is an error of order one
+TP_REL_L2 = 5e-2
+TP_JOIN_S = 600  # phase 24b: the two ranks, start to join
+
+
+def _model_term(den, x, t, cond):
+    """x - den.apply(x, t, cond) in fp32: s * eps, or t * v."""
+    return (x - den.apply(x, t, cond)).float()
+
+
+def _tp_check(label, path, smi, build, state, den, x, t, cond, after=None) -> None:
+    """Phase 24a inside a phase whose weights are resident: a world of one
+    over NCCL (`parallel.init_world("cuda")`, mesh (1, 1, 1, 1)), the
+    phase's family built through its zoo builder with `mesh=` from the
+    phase's own state dict (every parameter a view of it: no second copy),
+    one forward against the phase's own (the model term's relative L2 within
+    TP_REL_L2, finite), the kernels launched exactly as a forward of the
+    phase's path launches them; then `after(mesh)`."""
+    want = _model_term(den, x, t, cond)
+    with parallel.init_world("cuda"):
+        mesh = parallel.make_mesh(parallel.MeshSpec(), "cuda")
+        if tuple(mesh.shape) != (1, 1, 1, 1) or dist.get_backend() != "nccl":
+            raise AssertionError(f"{label}: mesh {mesh} on {dist.get_backend()}")
+        t0 = time.perf_counter()
+        tp_den, module = build(state, mesh=mesh, param_dtype=torch.bfloat16)
+        t_build = time.perf_counter() - t0
+        owned = {v.untyped_storage().data_ptr() for v in state.values()}
+        shared = all(p.untyped_storage().data_ptr() in owned for p in module.parameters())
+        _zero_counters()
+        got = _model_term(tp_den, x, t, cond)
+        torch.cuda.synchronize()
+        launches = {k: f.launches for k, f in COUNTERS.items()}
+        want_launches = {k: PER_FORWARD[path].get(k, 0) for k in COUNTERS}
+        err, finite = rel_l2(got, want), bool(torch.isfinite(got).all())
+        ms = median_ms(lambda: tp_den.apply(x, t, cond), n=3, warmup=1)
+        ok = finite and err <= TP_REL_L2 and launches == want_launches and shared
+        say(f"{label}: {type(module).__name__} through the builder's mesh= (world of one, "
+            f"{dist.get_backend()}), built in {t_build:.2f} s, every parameter a view of the "
+            f"phase's weights {shared} | one forward {ms:.2f} ms (median of 3) against the "
+            f"phase's own: model term rel_l2 {err:.3g} (limit {TP_REL_L2}), finite {finite} | "
+            f"launches {launches} (want {want_launches}) on {smi} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label} failed its checks")
+        del tp_den, module, got
+        if after is not None:
+            after(mesh)
+    if dist.is_initialized():
+        raise AssertionError(f"{label}: the world of one outlived its context")
+
+
+def _tp_inputs():
+    """Phase 24b's latent, sigma and cond, made from a seed on the card (the
+    same in every process)."""
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    latent = torch.randn((1, 4, 128, 128), device="cuda", generator=gen)
+    cond = {"context": torch.randn((1, 77, 2048), device="cuda", generator=gen),
+            "y": torch.randn((1, 2816), device="cuda", generator=gen)}
+    return latent, torch.tensor([3.0], device="cuda"), cond
+
+
+def _tp_rank(rank: int, store: str, out_dir: str) -> None:
+    """One rank of phase 24b: a gloo world of TP_RANKS processes on cuda:0,
+    SDXL-1024 built from seed 0 and cut to this rank's tensor shard (the
+    rest dropped), its first forward, then LanPaintSampler (euler karras
+    TP_STEPS x SP_THINK, cfg 1) timed and counted; the results saved."""
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=TP_RANKS, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = parallel.make_mesh(parallel.MeshSpec(tensor=TP_RANKS), "cuda")
+        t0 = time.perf_counter()
+        den, module = zoo.build_unet(unet.SDXL_CONFIG, mesh=mesh, tp_axis="tensor",
+                                     param_dtype=torch.bfloat16, seed=0)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        latent, sigma, cond = _tp_inputs()
+        first = _model_term(den, latent, sigma, cond)
+        sam = LanPaintSampler(den, config=LanPaintConfig(n_steps=SP_THINK), sampler_name="euler",
+                              cfg=1.0)
+        sigmas = calculate_sigmas(den.sigma_table, "karras", TP_STEPS)
+        _zero_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        samples, _ = sam(latent=latent, sigmas=sigmas, cond=cond, mask=_centre_mask(1024, 1024),
+                         seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        result = {"first": first.cpu(), "samples": samples.cpu(), "latent": latent.cpu(),
+                  "launches": {k: f.launches for k, f in COUNTERS.items()},
+                  "wall": wall, "t_init": t_init, "params": _params(module),
+                  "qkv": tuple(module.mid_attn.blocks[0].attn1.to_qkv.weight.shape),
+                  "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tp_sdxl(smi: str, den) -> dict:
+    """Phase 24a for SDXL (phase 6's weights) and phase 24b: TP_RANKS
+    spawned processes on the one card (a gloo world, CUDA tensors: gloo
+    stages each collective through the host), each running its tensor-2
+    shard of SDXL-1024 (`_tp_rank`).  Checks: both ranks' samples and first
+    forwards bit-equal; the first forward's model term against the same
+    weights in fp32 with plain attention in this process
+    (`_plain_attention` in place of layers.attention_bshd), its relative L2
+    within twice the one-process bf16 forward's; each rank's launches
+    exactly 70 attention (at 5 and 10 heads) and 210 LayerNorms a forward.
+    Returns the two ranks' launches together."""
+    latent, sigma, cond = _tp_inputs()
+    _tp_check("phase 24a SDXL", "sdxl", smi,
+              lambda st, **kw: zoo.build_unet(unet.SDXL_CONFIG, st, tp_axis="tensor",
+                                              layer_axis="data", **kw),
+              den.module.state_dict(), den, latent, sigma, cond)
+
+    directory = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_tp_rank, args=(r, os.path.join(directory, "store"), directory))
+             for r in range(TP_RANKS)]
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + TP_JOIN_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
+        codes = [p.exitcode for p in procs]
+        if hung or codes != [0] * TP_RANKS:
+            raise AssertionError(f"phase 24b: rank exit codes {codes}, {len(hung)} killed after "
+                                 f"{TP_JOIN_S} s")
+        ranks = [torch.load(os.path.join(directory, f"rank{r}.pt"), weights_only=False)
+                 for r in range(TP_RANKS)]
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    t_spawn = time.perf_counter() - t0
+
+    one = _model_term(den, latent, sigma, cond)
+    ref_den, _ = zoo.build_unet(dataclasses.replace(unet.SDXL_CONFIG, dtype=torch.float32),
+                                den.module.state_dict(), device="cuda",
+                                param_dtype=torch.float32)
+    routed = layers.attention_bshd
+    layers.attention_bshd = lambda q, k, v, scale=None: _plain_attention(q, k, v)
+    try:
+        want = _model_term(ref_den, latent, sigma, cond)
+    finally:
+        layers.attention_bshd = routed
+    del ref_den
+    gc.collect()
+    torch.cuda.empty_cache()
+    err_one = rel_l2(one, want)
+    err_tp = rel_l2(ranks[0]["first"].cuda(), want)
+    same = all(torch.equal(r["samples"], ranks[0]["samples"])
+               and torch.equal(r["first"], ranks[0]["first"]) for r in ranks)
+    per_rank = {k: n * TP_RANK_FORWARDS for k, n in PER_FORWARD["tp"].items()}
+    want_launches = {k: per_rank.get(k, 0) for k in COUNTERS}
+    launches_ok = all(r["launches"] == want_launches for r in ranks)
+    samples = ranks[0]["samples"].cuda()
+    lat = ranks[0]["latent"].cuda()
+    side = lat.shape[-1]  # the centre mask's known region at the latent's size
+    known = torch.ones((side, side), dtype=torch.bool, device="cuda")
+    known[side // 4:3 * side // 4, side // 4:3 * side // 4] = False
+    finite = bool(torch.isfinite(samples).all())
+    known_err = float((samples - lat)[..., known].abs().max())
+    moved = float((samples - lat)[..., ~known].abs().mean())
+    ok = (same and err_tp <= 2 * err_one and launches_ok and finite and known_err <= 1e-3
+          and moved > 1e-2)
+    fwd_ms = ", ".join(f"{1e3 * r['wall'] / TP_RANK_FORWARDS:.1f}" for r in ranks)
+    run_s = ", ".join(f"{r['wall']:.2f}" for r in ranks)
+    say(f"phase 24b tensor-parallel SDXL-1024: {TP_RANKS} ranks (gloo, CUDA tensors staged "
+        f"through the host) on the one card {smi}, each {ranks[0]['params'] / 1e9:.3f} B params "
+        f"bf16 (mid attn1 to_qkv {ranks[0]['qkv']}), built in "
+        f"{max(r['t_init'] for r in ranks):.1f} s, peak {max(r['peak_gb'] for r in ranks):.1f} "
+        f"GB a rank, {t_spawn:.1f} s spawn to join | {fwd_ms} ms a forward by rank (the "
+        f"run's; one shared card, host-staged collectives: not a multi-card time) | first "
+        f"forward against fp32 "
+        f"with plain attention: rel_l2 {err_tp:.4g}, the one-process bf16 forward's "
+        f"{err_one:.4g} (limit twice) | LanPaintSampler euler karras {TP_STEPS} x think "
+        f"{SP_THINK}, cfg 1: {run_s} s by rank, samples "
+        f"and first forwards bit-equal across ranks {same}, finite {finite} known-region max err "
+        f"{known_err:.3g} repainted mean change {moved:.3g} | launches a rank "
+        f"{ranks[0]['launches']} (want {want_launches}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 24b tensor-parallel SDXL failed its checks")
+    return {k: sum(r["launches"][k] for r in ranks) for k in COUNTERS}
+
+
+def phase_tp_plan(smi: str) -> None:
+    """Phase 24c: bf16 bytes per device under the port's rules (head rule
+    included), computed from meta-device state dicts (not measured): SDXL,
+    Flux-dev, SD3.5-Large and HiDream-I1 at tensor 1, 2, 4, 8, and
+    HiDream-I1 at expert 1, 2, 4 too."""
+    cases = [("SDXL", unet.UNetModel, unet.SDXL_CONFIG, parallel.unet_tp_rules),
+             ("Flux-dev", dit.MMDiT, dit.FLUX_DEV_CONFIG, parallel.dit_tp_rules),
+             ("SD3.5-Large", sd3.SD3MMDiT, sd3.SD35_LARGE_CONFIG, parallel.sd3_tp_rules),
+             ("HiDream-I1", hidream.HiDreamModel, hidream.HIDREAM_I1_CONFIG,
+              parallel.hidream_ep_rules)]
+    parts = []
+    for name, cls, cfg, rules in cases:
+        with torch.device("meta"):
+            state = cls(cfg).state_dict()
+        experts = (1, 2, 4) if cls is hidream.HiDreamModel else (1,)
+        sizes = [(t, e) for e in experts for t in (1, 2, 4, 8)]
+        gib = {(t, e): parallel.tp_plan_bytes(state, rules(cfg), {"tensor": t, "expert": e})
+               / 2**30 for t, e in sizes}
+        parts.append(f"{name}: " + ", ".join(
+            f"tensor {t}{f' expert {e}' if len(experts) > 1 else ''} {g:.3f}"
+            for (t, e), g in gib.items()))
+    say("phase 24c bf16 weights per device (GiB) under the port's tensor / expert rules, the "
+        "head rule included, computed (not measured): " + " | ".join(parts))
+
+
+def _dp_fused_check(smi, sam, latent, sigmas, cond, mask):
+    """After Flux's phase 24a, in its world of one: the fused path (the
+    kernels' element offset rows.start * M = 0) through
+    `parallel.with_data_parallel`, which no longer refuses it, bit-equal to
+    the sampler's own run with the same seed."""
+    def check(mesh):
+        kw = dict(latent=latent, sigmas=sigmas, cond=cond, mask=mask, seed=0)
+        dp = parallel.with_data_parallel(sam, mesh)
+        t0 = time.perf_counter()
+        got, _ = dp(**kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want, _ = sam(**kw)
+        same = torch.equal(got, want)
+        say(f"phase 24 data-parallel fused: Flux-dev's fused think step through "
+            f"with_data_parallel at a world of one, euler simple {len(sigmas) - 1} x think "
+            f"{THINK}: {wall:.2f} s, bit-equal to the sampler's own run {same} on {smi} "
+            f"{'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError("phase 24 data-parallel fused run differs")
+    return check
 
 
 EXAMPLES = ("sdxl_inpaint", "sdxl_single_file", "flux_inpaint", "flux2_dev_inpaint",
@@ -3290,6 +3622,7 @@ def main() -> int:
     phase_small_a14()
     launches = {}
     launches["sdxl"], den = phase_sdxl(smi)
+    launches["tp"] = phase_tp_sdxl(smi, den)
     single = tempfile.mkdtemp(prefix="chip_smoke_")  # phase 12's file, kept for phase 21
     try:
         pipe, sdxl_vae, conds = phase_single_file(smi, den, single)
@@ -3352,6 +3685,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launches["parallel"] = phase_parallel(smi)
+    phase_tp_plan(smi)
     launches["examples"], example_rows = phase_examples(smi)
     for name, extra in example_rows.items():
         rows[name] = rows[name] + extra

@@ -31,18 +31,28 @@
 //   * normals in registers, no noise tensor in device memory: a hand-written
 //     Philox4x32-10 (Random123's constants) and Box-Muller.  Stream j (0, 1,
 //     2 = ey, ev, vs in the half step; ey2, ev2, vs in the finish) of element
-//     e is lane e % 4 of Philox(counter (e >> 2, launch, j, 0), key (seed_lo,
-//     seed_hi)): one call gives four words, two Box-Muller pairs, the quad's
-//     four normals.  u1 = (w0 >> 8) * 2^-24 + 2^-25 (never 0), u2 = (w1 >>
-//     8) * 2^-24, r = sqrt(-2 ln u1), normals (r cos 2 pi u2, r sin 2 pi u2)
-//     as the TPU kernel maps its bits (lanpaint_tpu/ops/fused.py:95-99),
-//     with the accurate logf, sqrtf and sincospif.  The counter is a function
-//     of the flat index alone, so the draw does not depend on the block
-//     shape, and the launch index in it keeps launches' streams disjoint.
+//     e is lane g % 4 of Philox(counter (g >> 2, launch, j, 0), key (seed_lo,
+//     seed_hi)) with g = offset + e, the element's index in the whole batch
+//     (a data-parallel rank's view starts at its first row's, offset =
+//     rows.start * M; 0 in one process): one call gives four words, two
+//     Box-Muller pairs, a quad's four normals.  u1 = (w0 >> 8) * 2^-24 +
+//     2^-25 (never 0), u2 = (w1 >> 8) * 2^-24, r = sqrt(-2 ln u1), normals
+//     (r cos 2 pi u2, r sin 2 pi u2) as the TPU kernel maps its bits
+//     (lanpaint_tpu/ops/fused.py:95-99), with the accurate logf, sqrtf and
+//     sincospif.  Where the offset is not a multiple of 4 the view's quads no
+//     longer line up with the global ones: each thread then computes its
+//     quad's two global quads (g >> 2 and the next), draws both and takes
+//     its four lanes from the eight (two Philox calls a stream instead of
+//     one; the loads and stores keep their 16-byte path, which follows the
+//     view's own quads).  The counter is a function of the global index
+//     alone, so the draw depends neither on the block shape nor on how the
+//     batch is split over ranks, and the launch index in it keeps launches'
+//     streams disjoint.
 //     vs is drawn only where it is read: always in the cold finish (its
 //     stationary velocity); in the half step and the warm finish only for a
 //     quad with a non-finite damped result.  The CPU twin
-//     (ops/fused.py `philox_normals`) draws the same numbers;
+//     (ops/fused.py `philox_normals`, with the same offset) draws the same
+//     numbers;
 //   * one launch through a plain C function (ctypes).
 //
 // Interface: lp_fused_think (below); it launches on the caller's stream and
@@ -86,12 +96,30 @@ __device__ __forceinline__ void box_muller(unsigned w0, unsigned w1, float& n0, 
   n1 = r * s;
 }
 
-// stream j's normals of quad q, lane l for element 4q + l
-__device__ __forceinline__ void normals4(unsigned q, unsigned launch, unsigned j, uint2 key,
-                                         float (&n)[4]) {
+// the four normals of global quad q, lane l for element 4q + l
+__device__ __forceinline__ void quad_normals(unsigned q, unsigned launch, unsigned j, uint2 key,
+                                             float& n0, float& n1, float& n2, float& n3) {
   const uint4 w = philox4x32_10(make_uint4(q, launch, j, 0u), key);
-  box_muller(w.x, w.y, n[0], n[1]);
-  box_muller(w.z, w.w, n[2], n[3]);
+  box_muller(w.x, w.y, n0, n1);
+  box_muller(w.z, w.w, n2, n3);
+}
+
+// stream j's normals of global elements g .. g + 3: lane g % 4 of quad g >> 2
+// on; where g % 4 != 0 (uniform over the launch: the offset's) they span two
+// quads, drawn both, the lanes picked with constant indices (registers only)
+__device__ __forceinline__ void normals4(unsigned g, unsigned launch, unsigned j, uint2 key,
+                                         float (&n)[4]) {
+  float w[8];
+  quad_normals(g >> 2, launch, j, key, w[0], w[1], w[2], w[3]);
+  const unsigned shift = g & 3u;
+  if (shift == 0) {
+#pragma unroll
+    for (int l = 0; l < 4; ++l) n[l] = w[l];
+    return;
+  }
+  quad_normals((g >> 2) + 1, launch, j, key, w[4], w[5], w[6], w[7]);
+#pragma unroll
+  for (int l = 0; l < 4; ++l) n[l] = shift == 1 ? w[l + 1] : shift == 2 ? w[l + 2] : w[l + 3];
 }
 
 // The quad at flat index e: lanes inside [lo, hi) (this block's row), 16
@@ -125,8 +153,9 @@ __device__ __forceinline__ void store4(float* __restrict__ p, unsigned e, unsign
 template <int PHASE, int QUADS>
 __global__ void __launch_bounds__(kMaxThreads)
 fused_think_kernel(const unsigned long long* __restrict__ seed, unsigned launch,
-                   const float* __restrict__ coef_x, const float* __restrict__ coef_y,
-                   const float* __restrict__ x, const float* __restrict__ v,
+                   unsigned offset, const float* __restrict__ coef_x,
+                   const float* __restrict__ coef_y, const float* __restrict__ x,
+                   const float* __restrict__ v,
                    const float* __restrict__ x_od, const float* __restrict__ c_old,
                    const float* __restrict__ c_new, const float* __restrict__ mask,
                    float* __restrict__ out_x, float* __restrict__ out_v,
@@ -186,9 +215,9 @@ fused_think_kernel(const unsigned long long* __restrict__ seed, unsigned launch,
   float ey[QUADS][4], ev[QUADS][4], vs[QUADS][4] = {};
 #pragma unroll
   for (int k = 0; k < QUADS; ++k) {
-    normals4(e[k] >> 2, launch, 0u, key, ey[k]);
-    normals4(e[k] >> 2, launch, 1u, key, ev[k]);
-    if (PHASE == kCold) normals4(e[k] >> 2, launch, 2u, key, vs[k]);
+    normals4(offset + e[k], launch, 0u, key, ey[k]);
+    normals4(offset + e[k], launch, 1u, key, ev[k]);
+    if (PHASE == kCold) normals4(offset + e[k], launch, 2u, key, vs[k]);
   }
 
 #pragma unroll
@@ -224,7 +253,7 @@ fused_think_kernel(const unsigned long long* __restrict__ seed, unsigned launch,
       all_ok = all_ok && ok[l];
     }
     // vs is read only where a damped result is not finite (always when cold)
-    if (PHASE != kCold && !all_ok) normals4(e[k] >> 2, launch, 2u, key, vs[k]);
+    if (PHASE != kCold && !all_ok) normals4(offset + e[k], launch, 2u, key, vs[k]);
     float ox[4], ov[4];
 #pragma unroll
     for (int l = 0; l < 4; ++l) {
@@ -239,13 +268,13 @@ fused_think_kernel(const unsigned long long* __restrict__ seed, unsigned launch,
 
 template <int PHASE, int QUADS>
 cudaError_t launch(dim3 grid, int threads, cudaStream_t stream, const void* seed,
-                   unsigned launch_index, const float* coef_x, const float* coef_y,
-                   const float* x, const float* v, const float* x_od, const float* c_old,
-                   const float* c_new, const float* mask, float* out_x, float* out_v,
-                   float* out_x_od, unsigned m, float nm, bool vec) {
+                   unsigned launch_index, unsigned offset, const float* coef_x,
+                   const float* coef_y, const float* x, const float* v, const float* x_od,
+                   const float* c_old, const float* c_new, const float* mask, float* out_x,
+                   float* out_v, float* out_x_od, unsigned m, float nm, bool vec) {
   fused_think_kernel<PHASE, QUADS><<<grid, threads, 0, stream>>>(
-      static_cast<const unsigned long long*>(seed), launch_index, coef_x, coef_y, x, v, x_od,
-      c_old, c_new, mask, out_x, out_v, out_x_od, m, nm, vec);
+      static_cast<const unsigned long long*>(seed), launch_index, offset, coef_x, coef_y, x, v,
+      x_od, c_old, c_new, mask, out_x, out_v, out_x_od, m, nm, vec);
   return cudaGetLastError();
 }
 
@@ -255,17 +284,21 @@ cudaError_t launch(dim3 grid, int threads, cudaStream_t stream, const void* seed
 // half step, 1 the warm finish, 2 the cold finish (the pointers each reads
 // and writes: fused_think_kernel; the others may be null).  seed: one int64
 // on the card, the Philox key; launch: the counter's second word, 0 <=
-// launch < 2^32.  coef_x, coef_y: (rows, 24) fp32.  rows * cols < 2^31,
-// rows <= 65,535.  `threads` a block (64-256, a multiple of 32) and `quads`
-// a thread (1 or 2).  Returns a cudaError_t.
+// launch < 2^32.  offset: the view's first element's index in the whole
+// batch (a data-parallel rank's rows.start * cols), offset + rows * cols <
+// 2^31.  coef_x, coef_y: (rows, 24) fp32.  rows <= 65,535.  `threads` a
+// block (64-256, a multiple of 32) and `quads` a thread (1 or 2).  Returns a
+// cudaError_t.
 extern "C" int lp_fused_think(int phase, const void* seed, long long launch_index,
-                              const float* coef_x, const float* coef_y, const float* x,
-                              const float* v, const float* x_od, const float* c_old,
-                              const float* c_new, const float* mask, float* out_x,
-                              float* out_v, float* out_x_od, long long rows, long long cols,
-                              float noise_mult, int threads, int quads, void* stream) {
+                              long long offset, const float* coef_x, const float* coef_y,
+                              const float* x, const float* v, const float* x_od,
+                              const float* c_old, const float* c_new, const float* mask,
+                              float* out_x, float* out_v, float* out_x_od, long long rows,
+                              long long cols, float noise_mult, int threads, int quads,
+                              void* stream) {
   if (phase < kHalf || phase > kCold || rows <= 0 || rows > 65535 || cols <= 0 ||
-      rows * cols >= (1ll << 31) || launch_index < 0 || launch_index > 0xffffffffll ||
+      offset < 0 || offset + rows * cols >= (1ll << 31) || launch_index < 0 ||
+      launch_index > 0xffffffffll ||
       threads < 64 || threads > kMaxThreads || threads % 32 || (quads != 1 && quads != 2))
     return (int)cudaErrorInvalidValue;
   // the arrays this phase reads and writes (as the kernel's loads and
@@ -291,8 +324,8 @@ extern "C" int lp_fused_think(int phase, const void* seed, long long launch_inde
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned li = (unsigned)launch_index;
 #define LP_FUSED(P, Q)                                                                       \
-  return (int)launch<P, Q>(grid, threads, s, seed, li, coef_x, coef_y, x, v, x_od, c_old,  \
-                           c_new, mask, out_x, out_v, out_x_od, m, noise_mult, vec)
+  return (int)launch<P, Q>(grid, threads, s, seed, li, (unsigned)offset, coef_x, coef_y, x, v, \
+                           x_od, c_old, c_new, mask, out_x, out_v, out_x_od, m, noise_mult, vec)
   if (phase == kHalf) {
     if (quads == 1) LP_FUSED(kHalf, 1);
     LP_FUSED(kHalf, 2);

@@ -51,10 +51,12 @@ tables.  On a CUDA latent the kernels draw their own normals: step 2 is
 replaced by ONE int64 draw (a one-element tensor on the card) from the
 generator per call, the Philox4x32-10 key.  Launch 2i (half) and 2i + 1
 (finish) put their index in the counter: stream j of flat element e of
-the (B, M) view is lane e % 4 of Philox(counter (e >> 2, launch, j, 0),
-key (seed_lo, seed_hi)), so the streams of different launches are
-disjoint by construction, and `ops/fused.philox_normals` draws the same
-numbers on the CPU.  `noise_feed` is refused there.  On
+the (B, M) view is lane g % 4 of Philox(counter (g >> 2, launch, j, 0),
+key (seed_lo, seed_hi)) with g = offset + e its index in the whole batch
+(a data-parallel rank's `BatchRows` view starts at rows.start * M), so
+the streams of different launches are disjoint by construction, the ranks
+together draw the one-process stream, and `ops/fused.philox_normals`
+draws the same numbers on the CPU.  `noise_feed` is refused there.  On
 the CPU the plain fused versions take step 2's draws (or the feed's),
 mapped as half (eps_y1, eps_v1, v_stat), warm finish (eps_y2, eps_v2,
 v_stat) and cold finish (eps_y1, eps_v1, v_stat), which reproduces the
@@ -267,10 +269,12 @@ def lanpaint_update(
     x_t = to_vp(kind, xf, times, ndim).contiguous()
     flat = lambda t: t.reshape(b, -1)  # the fused kernels' (B, M) view, no copy
     # the kernels' Philox seed, drawn on the card: no host sync in the loop
-    # the seed is one number, the same on every data-parallel rank
+    # the seed is one number, the same on every data-parallel rank, and a
+    # rank's (B, M) view starts at element rows.start * M of the whole batch
     seed_gen = generator.generator if isinstance(generator, BatchRows) else generator
     seed = (torch.randint(0, 2**31 - 1, (1,), generator=seed_gen, device=device)
             if on_card else None)
+    offset = generator.rows.start * (x_t.numel() // b) if isinstance(generator, BatchRows) else 0
 
     def score_to_c(x_eval, x0, x0_big):
         """Bidirectional score -> drift C (lanpaint.py:125-141, 174-177)."""
@@ -328,7 +332,8 @@ def lanpaint_update(
         if fused and warm:
             xh, vh, xh_o = fused_ops.fused_half_step(
                 coef_x, coef_y, 1.0, flat(x_t), flat(v), flat(c_old), mask2, seed=seed,
-                launch=2 * i, normals=None if on_card else (eps_y1, eps_v1, eps_v0))
+                launch=2 * i, offset=offset,
+                normals=None if on_card else (eps_y1, eps_v1, eps_v0))
             x_eval = xh.view(shape)
         elif warm:
             xh_d, vh_d = sho_apply(params.sho_half, x_t, v, params.a, c_old, eps_y1, eps_v1)
@@ -351,7 +356,7 @@ def lanpaint_update(
                 (eps_y2, eps_v2, eps_v0) if warm else (eps_y1, eps_v1, eps_v0))
             x_new, v_new = (t.view(shape) for t in fused_ops.fused_finish(
                 coef_x, coef_y, 1.0, warm, flat(x_t), xh, vh, xh_o, flat(c_old), flat(c_new),
-                mask2, seed=seed, launch=2 * i + 1, normals=normals))
+                mask2, seed=seed, launch=2 * i + 1, offset=offset, normals=normals))
         elif warm:
             v_kick = vh + params.sqrt_gamma_dt * (c_new - c_old)
             xf_d, vf_d = sho_apply(params.sho_half, xh, v_kick, params.a, c_old, eps_y2, eps_v2)

@@ -14,18 +14,30 @@ Joint self-attention goes through `layers.attention_bshd` (the
 flash-attention kernel on CUDA at S >= 1024, D % 64 == 0), every
 `layernorm_na` and `QKNorm` through the row-norm kernel.  The JAX config's
 `attention_impl` knob is not carried over: the port routes by shape only.
+
+Tensor and layer parallelism (`MMDiT(cfg, mesh, tp_axis=..., layer_axis=
+...)`, the weights cut by `parallel.dit_tp_rules`): each block runs on this
+rank's heads where the axis divides their count (else whole): the img /
+txt `attn_qkv` and `mlp_0` and the single blocks' `linear1` column-parallel
+per part (layers.ColumnLinear, with the replicated bias's spans),
+`attn_proj`, `mlp_2` and `linear2` row-parallel (layers.RowLinear); the
+per-head QK RMS on the rank's heads takes the row-norm kernel as before;
+the modulation stays whole.  `layer_axis` depth-shards `double` and
+`single` (layers.LayerShards).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import NO_AXIS, Axis, axis_of
 from .layers import (
+    LayerShards,
     Linear,
     MLPEmbedder,
     QKNorm,
@@ -33,7 +45,10 @@ from .layers import (
     apply_rope,
     attention_bshd,
     layernorm_na,
+    column_linear,
+    head_rule,
     rope_freqs,
+    row_linear,
     timestep_embedding,
 )
 
@@ -131,21 +146,26 @@ def _gelu(x):
 
 
 class DoubleStreamBlock(nn.Module):
-    def __init__(self, cfg: DiTConfig):
+    def __init__(self, cfg: DiTConfig, tp: Axis = NO_AXIS):
         super().__init__()
         self.cfg = cfg
+        tp = head_rule(tp, cfg.num_heads)
+        n = tp.size
+        self.heads = cfg.num_heads // n  # this rank's
         h, dt = cfg.hidden, cfg.dtype
         mlp_h = int(h * cfg.mlp_ratio)
         for p in ("img", "txt"):
             self.add_module(f"{p}_mod", Modulation(h, True, dtype=dt))
-            self.add_module(f"{p}_attn_qkv", Linear(h, 3 * h, compute_dtype=dt))
+            self.add_module(f"{p}_attn_qkv", column_linear(h, (h, h, h), tp, whole_bias=True,
+                                                           dtype=dt))
             self.add_module(f"{p}_attn_qknorm", QKNorm(cfg.head_dim))
-            self.add_module(f"{p}_attn_proj", Linear(h, h, compute_dtype=dt))
-            self.add_module(f"{p}_mlp_0", Linear(h, mlp_h, compute_dtype=dt))
-            self.add_module(f"{p}_mlp_2", Linear(mlp_h, h, compute_dtype=dt))
+            self.add_module(f"{p}_attn_proj", row_linear(h // n, h, tp, dtype=dt))
+            self.add_module(f"{p}_mlp_0", column_linear(h, (mlp_h,), tp, whole_bias=True,
+                                                        dtype=dt))
+            self.add_module(f"{p}_mlp_2", row_linear(mlp_h // n, h, tp, dtype=dt))
 
     def _qkv(self, x, prefix):
-        heads = (self.cfg.num_heads, self.cfg.head_dim)
+        heads = (self.heads, self.cfg.head_dim)
         q, k, v = (t.unflatten(-1, heads)
                    for t in getattr(self, f"{prefix}_attn_qkv")(x).chunk(3, dim=-1))
         q, k = getattr(self, f"{prefix}_attn_qknorm")(q, k)
@@ -179,24 +199,28 @@ class DoubleStreamBlock(nn.Module):
 
 class SingleStreamBlock(nn.Module):
     """Fused single-stream block: parallel attention + MLP, one residual.
-    q, k and v are views of one `linear1` output (no split copy)."""
+    q, k and v are views of one `linear1` output (no split copy); under
+    tensor parallelism the rank's q | k | v | mlp blocks of it."""
 
-    def __init__(self, cfg: DiTConfig):
+    def __init__(self, cfg: DiTConfig, tp: Axis = NO_AXIS):
         super().__init__()
         self.cfg = cfg
+        tp = head_rule(tp, cfg.num_heads)
+        n = tp.size
+        self.heads, self.width = cfg.num_heads // n, cfg.hidden // n  # this rank's
         h, dt = cfg.hidden, cfg.dtype
         mlp_h = int(h * cfg.mlp_ratio)
         self.modulation = Modulation(h, False, dtype=dt)
-        self.linear1 = Linear(h, 3 * h + mlp_h, compute_dtype=dt)
+        self.linear1 = column_linear(h, (h, h, h, mlp_h), tp, whole_bias=True, dtype=dt)
         self.qknorm = QKNorm(cfg.head_dim)
-        self.linear2 = Linear(h + mlp_h, h, compute_dtype=dt)
+        self.linear2 = row_linear((h + mlp_h) // n, h, tp, dtype=dt)
 
     def forward(self, x, vec, pe):
         cfg = self.cfg
         shift, scale, gate = self.modulation(vec)
         fused = self.linear1(_modulate(layernorm_na(x), shift, scale).to(cfg.dtype))
-        qkv, mlp = fused[..., :3 * cfg.hidden], fused[..., 3 * cfg.hidden:]
-        q, k, v = (t.unflatten(-1, (cfg.num_heads, cfg.head_dim)) for t in qkv.chunk(3, dim=-1))
+        qkv, mlp = fused[..., :3 * self.width], fused[..., 3 * self.width:]
+        q, k, v = (t.unflatten(-1, (self.heads, cfg.head_dim)) for t in qkv.chunk(3, dim=-1))
         q, k = self.qknorm(q, k)
         attn = attention_bshd(apply_rope(q, pe), apply_rope(k, pe), v).flatten(2)
         return x + gate * self.linear2(torch.cat([attn, _gelu(mlp)], dim=-1))
@@ -238,11 +262,18 @@ def image_ids(b: int, h: int, w: int, patch: int = 2, device=None) -> torch.Tens
 
 
 class MMDiT(nn.Module):
-    """forward(x_nchw_latent, t, context, vec, guidance, extra_tokens) -> velocity."""
+    """forward(x_nchw_latent, t, context, vec, guidance, extra_tokens) -> velocity.
 
-    def __init__(self, cfg: DiTConfig):
+    `mesh` (a `parallel.make_mesh` DeviceMesh, or a `parallel.plan_mesh`)
+    resolves `tp_axis` (the blocks' tensor parallelism) and `layer_axis`
+    (`double` and `single` depth-sharded); without a mesh the model is
+    whole."""
+
+    def __init__(self, cfg: DiTConfig, mesh=None, tp_axis: Optional[str] = None,
+                 layer_axis: Optional[str] = None):
         super().__init__()
         self.cfg = cfg
+        tp, layers = axis_of(mesh, tp_axis), axis_of(mesh, layer_axis)
         h, dt = cfg.hidden, cfg.dtype
         self.img_in = Linear(cfg.in_channels, h, compute_dtype=dt)
         if cfg.txt_norm:
@@ -257,8 +288,10 @@ class MMDiT(nn.Module):
         # shadows the attribute, so both stacks live in and are read from
         # `_modules` directly
         self._modules["double"] = nn.ModuleList(
-            DoubleStreamBlock(cfg) for _ in range(cfg.depth_double))
-        self.single = nn.ModuleList(SingleStreamBlock(cfg) for _ in range(cfg.depth_single))
+            DoubleStreamBlock(cfg, tp) for _ in range(cfg.depth_double))
+        self.single = nn.ModuleList(SingleStreamBlock(cfg, tp) for _ in range(cfg.depth_single))
+        self.layers = {"double": LayerShards(cfg.depth_double, layers),
+                       "single": LayerShards(cfg.depth_single, layers)}
         self.final_layer = LastLayer(cfg)
 
     def forward(self, x, t, context, vec=None, guidance=None, extra_tokens=None):
@@ -297,11 +330,11 @@ class MMDiT(nn.Module):
             img_ids = torch.cat([img_ids, ref_ids], dim=1)
         pe = rope_freqs(torch.cat([txt_ids, img_ids], dim=1), cfg.axes_dim, cfg.theta)
 
-        for block in self._modules["double"]:
-            img, txt = block(img, txt, vec_emb, pe)
+        for i, block in enumerate(self._modules["double"]):
+            img, txt = self.layers["double"].run(block, i, img, txt, vec_emb, pe)
         xcat = torch.cat([txt, img], dim=1)
-        for block in self._modules["single"]:
-            xcat = block(xcat, vec_emb, pe)
+        for i, block in enumerate(self._modules["single"]):
+            xcat = self.layers["single"].run(block, i, xcat, vec_emb, pe)
         img = xcat[:, txt.shape[1]:]
         if n_extra:
             img = img[:, :-n_extra]

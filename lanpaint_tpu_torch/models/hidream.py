@@ -32,20 +32,36 @@ stack lives in `_modules` directly.
 Kernels on CUDA: the joint attention through `layers.attention_bshd` (H =
 20, D = 128), and the q / k RMS norms through the row-norm kernel at C =
 2,560.
+
+Expert, tensor and layer parallelism (`HiDreamModel(cfg, mesh, tp_axis=...,
+expert_axis=..., layer_axis=...)`, the weights cut by
+`parallel.hidream_ep_rules`): a rank holds E / expert of the routed experts
+and inner / tensor of their SwiGLU width; the router stays whole, each rank
+weights its experts' outputs by their columns of the gate, and the sum is
+all-reduced over "expert" and then, with the shared expert's partial
+product, over "tensor".  The shared expert and the text SwiGLU are column /
+row parallel, to_q / to_k / to_v (and the _t ones) column, to_out (and
+to_out_t) row; the full-width q / k RMS norms all-reduce their sum of
+squares over the tensor axis (layers.ShardedRMSNorm; the row-norm kernel on
+one rank).  A block whose head count the tensor axis does not divide keeps
+its attention and feed-forward widths whole.  `layer_axis` depth-shards
+`double` and `single` (layers.LayerShards).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import NO_AXIS, Axis, axis_of
 from .dit import _modulate, image_ids, pack_latent, unpack_latent
-from .layers import (Linear, MLPEmbedder, RMSNorm, apply_rope, attention_bshd, layernorm_centred,
-                     rope_freqs, timestep_embedding)
+from .layers import (LayerShards, Linear, MLPEmbedder, ShardedRMSNorm, all_reduce, apply_rope,
+                     attention_bshd, column_linear, head_rule, layernorm_centred, rope_freqs,
+                     row_linear, timestep_embedding)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,16 +98,21 @@ TINY_HIDREAM_CONFIG = HiDreamConfig(
 
 
 class SwiGLU(nn.Module):
-    """w2(silu(w1 x) * w3 x): the shared expert and the text-stream FF."""
+    """w2(silu(w1 x) * w3 x): the shared expert and the text-stream FF;
+    w1 / w3 column- and w2 row-parallel over `tp`."""
 
-    def __init__(self, inner: int, hidden: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, inner: int, hidden: int, dtype: torch.dtype = torch.float32,
+                 tp: Axis = NO_AXIS):
         super().__init__()
-        self.w1 = Linear(hidden, inner, bias=False, compute_dtype=dtype)
-        self.w3 = Linear(hidden, inner, bias=False, compute_dtype=dtype)
-        self.w2 = Linear(inner, hidden, bias=False, compute_dtype=dtype)
+        self.w1 = column_linear(hidden, (inner,), tp, bias=False, dtype=dtype)
+        self.w3 = column_linear(hidden, (inner,), tp, bias=False, dtype=dtype)
+        self.w2 = row_linear(inner // tp.size, hidden, tp, bias=False, dtype=dtype)
+
+    def hidden_act(self, x):
+        return F.silu(self.w1(x)) * self.w3(x)
 
     def forward(self, x):
-        return self.w2(F.silu(self.w1(x)) * self.w3(x))
+        return self.w2(self.hidden_act(x))
 
 
 def top_k_lower_first(probs: torch.Tensor, k: int) -> tuple:
@@ -113,29 +134,44 @@ def route(logits: torch.Tensor, k: int) -> torch.Tensor:
 class MoEFeedForward(nn.Module):
     """The shared expert plus the top-k of `num_experts` routed SwiGLU
     experts, the routed ones stacked (E, in, out) and run for every token
-    as one batched product, then weighted by the dense gate."""
+    as one batched product, then weighted by the dense gate.
 
-    def __init__(self, cfg: HiDreamConfig):
+    Under expert parallelism (`ep`, where its size divides E) a rank holds
+    its E / size experts and weights their outputs by its columns of the
+    gate; under tensor parallelism (`tp`) it holds inner / size of every
+    expert's width and of the shared expert's.  The routed sum is
+    all-reduced over "expert", then with the shared expert's partial
+    product over "tensor"."""
+
+    def __init__(self, cfg: HiDreamConfig, tp: Axis = NO_AXIS, ep: Axis = NO_AXIS):
         super().__init__()
         self.cfg = cfg
         e, inner, h = cfg.num_experts, cfg.ffn_dim, cfg.hidden
-        self.shared = SwiGLU(inner, h, dtype=cfg.dtype)
+        self.tp = tp
+        self.ep = ep if e % ep.size == 0 else NO_AXIS
+        n_e, inner_r = e // self.ep.size, inner // tp.size  # this rank's
+        self.shared = SwiGLU(inner, h, dtype=cfg.dtype, tp=tp)
         self.gate = Linear(h, e, bias=False, compute_dtype=torch.float32)
-        self.experts_w1 = nn.Parameter(torch.empty(e, h, inner))
-        self.experts_w3 = nn.Parameter(torch.empty(e, h, inner))
-        self.experts_w2 = nn.Parameter(torch.empty(e, inner, h))
+        self.experts_w1 = nn.Parameter(torch.empty(n_e, h, inner_r))
+        self.experts_w3 = nn.Parameter(torch.empty(n_e, h, inner_r))
+        self.experts_w2 = nn.Parameter(torch.empty(n_e, inner_r, h))
 
     def forward(self, x):
         cfg, dt = self.cfg, self.cfg.dtype
-        shared = self.shared(x)
         weights = route(self.gate(x.float()), cfg.num_activated)  # (B, S, E)
         b, s, h = x.shape
+        n_e = self.experts_w1.shape[0]
+        weights = weights.narrow(-1, self.ep.index * n_e, n_e)  # this rank's experts
         xe = x.to(dt).reshape(1, b * s, h)
         a = torch.matmul(xe, self.experts_w1.to(dt))              # (E, BS, inner)
         g = torch.matmul(xe, self.experts_w3.to(dt))
         out = torch.matmul(F.silu(a) * g, self.experts_w2.to(dt))  # (E, BS, h)
         routed = torch.einsum("enh,ne->nh", out, weights.to(dt).reshape(b * s, -1))
-        return shared + routed.reshape(b, s, h)
+        routed = all_reduce(routed, self.ep).reshape(b, s, h)
+        # the shared expert's w2 product (a rank's partial sum under tensor
+        # parallelism; its w2 has no bias) joins the routed sum's reduce
+        shared = F.linear(self.shared.hidden_act(x), self.shared.w2.weight.to(dt))
+        return all_reduce(shared + routed, self.tp)
 
 
 class _Modulation(nn.Module):
@@ -151,21 +187,22 @@ class _Modulation(nn.Module):
         return self.lin(F.silu(vec))[:, None, :].chunk(self.n, dim=-1)
 
 
-def _add_attention(block: nn.Module, cfg: HiDreamConfig, suffix: str) -> None:
+def _add_attention(block: nn.Module, cfg: HiDreamConfig, suffix: str, tp: Axis) -> None:
     h, dt = cfg.hidden, cfg.dtype
-    for name in ("to_q", "to_k", "to_v", "to_out"):
-        block.add_module(name + suffix, Linear(h, h, compute_dtype=dt))
-    block.add_module("q_rms_norm" + suffix, RMSNorm(h))
-    block.add_module("k_rms_norm" + suffix, RMSNorm(h))
+    for name in ("to_q", "to_k", "to_v"):
+        block.add_module(name + suffix, column_linear(h, (h,), tp, whole_bias=True, dtype=dt))
+    block.add_module("to_out" + suffix, row_linear(h // tp.size, h, tp, dtype=dt))
+    block.add_module("q_rms_norm" + suffix, ShardedRMSNorm(h, 1e-6, tp, whole_weight=True))
+    block.add_module("k_rms_norm" + suffix, ShardedRMSNorm(h, 1e-6, tp, whole_weight=True))
 
 
 def _qkv(block: nn.Module, cfg: HiDreamConfig, x, suffix: str):
-    """(q, k, v) BSHD of one stream, q and k RMS-normalized over the full
-    width before the head split."""
+    """(q, k, v) BSHD of one stream (the block's rank's heads), q and k
+    RMS-normalized over the full width before the head split."""
     q = getattr(block, "q_rms_norm" + suffix)(getattr(block, "to_q" + suffix)(x))
     k = getattr(block, "k_rms_norm" + suffix)(getattr(block, "to_k" + suffix)(x))
     v = getattr(block, "to_v" + suffix)(x)
-    return (t.unflatten(-1, (cfg.num_heads, cfg.head_dim)) for t in (q, k, v))
+    return (t.unflatten(-1, (block.heads, cfg.head_dim)) for t in (q, k, v))
 
 
 class HiDreamDoubleBlock(nn.Module):
@@ -173,14 +210,16 @@ class HiDreamDoubleBlock(nn.Module):
     image stream.  `llama` arrives projected to the hidden width; it joins
     the text stream for this block only."""
 
-    def __init__(self, cfg: HiDreamConfig):
+    def __init__(self, cfg: HiDreamConfig, tp: Axis = NO_AXIS, ep: Axis = NO_AXIS):
         super().__init__()
         self.cfg = cfg
+        tp = head_rule(tp, cfg.num_heads)
+        self.heads = cfg.num_heads // tp.size
         self.adaLN_modulation = _Modulation(cfg.hidden, 12, dtype=cfg.dtype)
-        _add_attention(self, cfg, "")
-        _add_attention(self, cfg, "_t")
-        self.ff_i = MoEFeedForward(cfg)
-        self.ff_t = SwiGLU(cfg.ffn_dim, cfg.hidden, dtype=cfg.dtype)
+        _add_attention(self, cfg, "", tp)
+        _add_attention(self, cfg, "_t", tp)
+        self.ff_i = MoEFeedForward(cfg, tp, ep)
+        self.ff_t = SwiGLU(cfg.ffn_dim, cfg.hidden, dtype=cfg.dtype, tp=tp)
 
     def forward(self, img, txt, vec, pe, llama):
         cfg, dt = self.cfg, self.cfg.dtype
@@ -210,12 +249,14 @@ class HiDreamSingleBlock(nn.Module):
     """Single-stream block: the projected Llama tokens appended before the
     block and stripped after it, the MoE FF."""
 
-    def __init__(self, cfg: HiDreamConfig):
+    def __init__(self, cfg: HiDreamConfig, tp: Axis = NO_AXIS, ep: Axis = NO_AXIS):
         super().__init__()
         self.cfg = cfg
+        tp = head_rule(tp, cfg.num_heads)
+        self.heads = cfg.num_heads // tp.size
         self.adaLN_modulation = _Modulation(cfg.hidden, 6, dtype=cfg.dtype)
-        _add_attention(self, cfg, "")
-        self.ff_i = MoEFeedForward(cfg)
+        _add_attention(self, cfg, "", tp)
+        self.ff_i = MoEFeedForward(cfg, tp, ep)
 
     def forward(self, x, vec, pe, llama):
         cfg, dt = self.cfg, self.cfg.dtype
@@ -236,11 +277,18 @@ class HiDreamModel(nn.Module):
                `txt_in`, the public last caption projection).
     `llama`:   (L, B, S_ll, llama_dim) per-layer Llama features; block i
                (double blocks first, then single ones) takes slice i % L
-               through its own caption projection."""
+               through its own caption projection.
 
-    def __init__(self, cfg: HiDreamConfig):
+    `mesh` (a `parallel.make_mesh` DeviceMesh, or a `parallel.plan_mesh`)
+    resolves `tp_axis`, `expert_axis` and `layer_axis` (`double` and
+    `single` depth-sharded); without a mesh the model is whole."""
+
+    def __init__(self, cfg: HiDreamConfig, mesh=None, tp_axis: Optional[str] = None,
+                 expert_axis: Optional[str] = None, layer_axis: Optional[str] = None):
         super().__init__()
         self.cfg = cfg
+        tp, ep = axis_of(mesh, tp_axis), axis_of(mesh, expert_axis)
+        layers = axis_of(mesh, layer_axis)
         h, dt = cfg.hidden, cfg.dtype
         self.x_embedder = Linear(cfg.in_channels, h, compute_dtype=dt)
         self.txt_in = Linear(cfg.context_dim, h, bias=False, compute_dtype=dt)
@@ -250,8 +298,11 @@ class HiDreamModel(nn.Module):
         self.cap_proj_double = nn.Parameter(torch.empty(cfg.depth_double, cfg.llama_dim, h))
         self.cap_proj_single = nn.Parameter(torch.empty(cfg.depth_single, cfg.llama_dim, h))
         self._modules["double"] = nn.ModuleList(
-            HiDreamDoubleBlock(cfg) for _ in range(cfg.depth_double))
-        self.single = nn.ModuleList(HiDreamSingleBlock(cfg) for _ in range(cfg.depth_single))
+            HiDreamDoubleBlock(cfg, tp, ep) for _ in range(cfg.depth_double))
+        self.single = nn.ModuleList(HiDreamSingleBlock(cfg, tp, ep)
+                                    for _ in range(cfg.depth_single))
+        self.layers = {"double": LayerShards(cfg.depth_double, layers),
+                       "single": LayerShards(cfg.depth_single, layers)}
         self.final_mod = Linear(h, 2 * h, compute_dtype=dt)
         self.final_linear = Linear(h, cfg.out_channels, compute_dtype=torch.float32)
 
@@ -290,7 +341,7 @@ class HiDreamModel(nn.Module):
         zeros = lambda n: torch.zeros((b, n, 3), dtype=torch.long, device=x.device)  # noqa: E731
         pe = rope_freqs(torch.cat([zeros(n_t5 + n_ll), im_ids], dim=1), cfg.axes_dim, cfg.theta)
         for i, block in enumerate(self._modules["double"]):
-            img, txt = block(img, txt, v, pe, lp_d[i])
+            img, txt = self.layers["double"].run(block, i, img, txt, v, pe, lp_d[i])
 
         xcat = torch.cat([txt, img], dim=1)
         # single-stream pe: the carried txt, img, and the per-block llama
@@ -298,7 +349,7 @@ class HiDreamModel(nn.Module):
         pe_s = rope_freqs(torch.cat([zeros(n_t5), im_ids, zeros(n_ll)], dim=1), cfg.axes_dim,
                           cfg.theta)
         for i, block in enumerate(self.single):
-            xcat = block(xcat, v, pe_s, lp_s[i])
+            xcat = self.layers["single"].run(block, i, xcat, v, pe_s, lp_s[i])
         img = xcat[:, n_t5:]
 
         shift, scale = self.final_mod(F.silu(v))[:, None, :].chunk(2, dim=-1)

@@ -14,6 +14,17 @@ kernels, and every transformer LayerNorm and RMSNorm through the row-norm
 kernel (ops/norms.py); the 77-token cross-attention, and self-attention
 the JAX package leaves to XLA (S < 1024, or SD1.5's head dims), stay plain
 PyTorch.
+
+Tensor and layer parallelism (Megatron style, over the process groups of a
+`parallel.make_mesh` mesh, the weights cut by `parallel.shard_params_tp`):
+`column_linear` / `ColumnLinear` (a rank's rows of a weight cut per fused
+part), `row_linear` / `RowLinear` (a rank's input features, the partial
+products all-reduced and the bias added once after), `ShardedRMSNorm`
+(RMS over a full width split over the tensor axis, the sum of squares
+all-reduced) and `LayerShards` (a block list depth-sharded over an axis,
+each block's weights broadcast by their owner before it runs).  The UNet's
+spatial transformer runs on a rank's heads where the axis divides their
+count, else whole.
 """
 
 from __future__ import annotations
@@ -22,11 +33,13 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import WIDE_HEAD_DIMS, attention_ref, flash_attention, wide_attention
 from ..ops.norms import VEC, layernorm, rmsnorm, rmsnorm_ref
+from ..parallel.mesh import NO_AXIS, Axis, all_gather
 
 
 def attention_bshd(q, k, v, scale: Optional[float] = None):
@@ -90,6 +103,135 @@ class Linear(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
+# --------------------------------------------------------------------------
+# tensor and layer parallelism
+
+
+def all_reduce(x, axis: Axis):
+    """Sum `x` over the axis's group, in place.  Without a group (no mesh, a
+    planned mesh, or Wan's tp_size without an axis, where the JAX package
+    reduces nothing either) `x` is left as it is."""
+    if axis.group is not None and axis.size > 1:
+        dist.all_reduce(x, group=axis.group)
+    return x
+
+
+def head_rule(tp: Axis, num_heads: int) -> Axis:
+    """The tensor axis a block of `num_heads` heads runs on: `tp` where its
+    size divides the head count, else none (the block whole on every rank;
+    `parallel.Cut.heads` makes the rules agree)."""
+    return tp if num_heads % tp.size == 0 else NO_AXIS
+
+
+def gather_features(x, axis: Axis):
+    """The ranks' feature slices of `x` (last dim) concatenated in axis
+    order."""
+    if axis.group is None or axis.size == 1:
+        return x
+    return all_gather(x, axis.group, x.ndim - 1)
+
+
+class ColumnLinear(Linear):
+    """Column-parallel Linear: this rank's rows of a full (out, in) weight
+    whose out dim is `parts` (a fused projection's parts, e.g. q | k | v),
+    each part cut in `axis.size` blocks (`parallel.Cut`), so the output is
+    the rank's block of every part, in order.  Its bias is the rank's cut,
+    or with `whole_bias` the full bias (the rules keep it replicated, as the
+    JAX package's do), of which the forward takes the rank's spans."""
+
+    def __init__(self, in_features: int, parts: tuple, axis: Axis, bias: bool = True,
+                 whole_bias: bool = False, compute_dtype: torch.dtype = torch.float32):
+        n = axis.size
+        super().__init__(in_features, sum(parts) // n, bias=bias and not whole_bias,
+                         compute_dtype=compute_dtype)
+        if bias and whole_bias:
+            self.bias = nn.Parameter(torch.empty(sum(parts)))
+        offsets = [sum(parts[:j]) for j in range(len(parts))]
+        self.spans = [(o + axis.index * (p // n), p // n) for o, p in zip(offsets, parts)]
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        b = self.bias
+        if b is not None and b.shape[0] != self.out_features:
+            b = torch.cat([b.narrow(0, start, n) for start, n in self.spans])
+        return F.linear(x.to(dt), self.weight.to(dt), None if b is None else b.to(dt))
+
+
+def column_linear(in_features: int, parts: tuple, axis: Axis, *, bias: bool = True,
+                  whole_bias: bool = False, dtype: torch.dtype = torch.float32) -> Linear:
+    """A ColumnLinear over `axis`, or a Linear of the full width where the
+    axis has one rank."""
+    if axis.size == 1:
+        return Linear(in_features, sum(parts), bias=bias, compute_dtype=dtype)
+    return ColumnLinear(in_features, parts, axis, bias=bias, whole_bias=whole_bias,
+                        compute_dtype=dtype)
+
+
+class RowLinear(Linear):
+    """Row-parallel Linear: the input features are split over the axis, the
+    partial products are all-reduced over its group, and the bias is added
+    once after the reduce.  The state dict is a Linear's."""
+
+    def __init__(self, in_features: int, out_features: int, axis: Axis,
+                 compute_dtype: torch.dtype, bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias, compute_dtype=compute_dtype)
+        self.axis = axis
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        y = all_reduce(F.linear(x.to(dt), self.weight.to(dt)), self.axis)
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+def row_linear(in_features: int, out_features: int, axis: Axis, *, bias: bool = True,
+               dtype: torch.dtype = torch.float32) -> Linear:
+    """A RowLinear where the axis has a process group (of any size: the
+    bias then comes after the reduce), else a plain Linear."""
+    if axis.group is None:
+        return Linear(in_features, out_features, bias=bias, compute_dtype=dtype)
+    return RowLinear(in_features, out_features, axis, dtype, bias=bias)
+
+
+class LayerShards:
+    """A block list depth-sharded over a layer axis
+    (`parallel.layer_shard_rules`).  With n blocks and an axis of d ranks
+    where d divides n, the rank at index r holds blocks [r n / d, (r + 1)
+    n / d) and the others' parameters stay on the meta device; `run` runs
+    block i: its owner broadcasts the block's weights (its tensor shard),
+    one flat buffer, over the axis's group, and every other rank runs the
+    block on the buffer and drops it.  Where d is 1 or does not divide n,
+    every rank holds every block (JAX's `_divisible_spec`)."""
+
+    def __init__(self, n: int, axis: Axis = NO_AXIS):
+        self.axis = axis
+        self.per = n // axis.size if axis.size > 1 and n % axis.size == 0 else None
+
+    def holds(self, i: int) -> bool:
+        return self.per is None or i // self.per == self.axis.index
+
+    def run(self, block: nn.Module, i: int, *args, **kwargs):
+        if self.per is None:
+            return block(*args, **kwargs)
+        params = list(block.named_parameters())
+        dtypes = {p.dtype for _, p in params}
+        if len(dtypes) != 1:
+            raise ValueError(f"LayerShards: block {i} mixes parameter dtypes {dtypes}")
+        if self.holds(i):
+            flat = torch.cat([p.detach().reshape(-1) for _, p in params])
+        else:
+            flat = torch.empty(sum(p.numel() for _, p in params), dtype=dtypes.pop(),
+                               device=args[0].device)
+        owner = dist.get_global_rank(self.axis.group, i // self.per)
+        dist.broadcast(flat, src=owner, group=self.axis.group)
+        if self.holds(i):
+            return block(*args, **kwargs)
+        views, offset = {}, 0
+        for name, p in params:
+            views[name] = flat[offset:offset + p.numel()].view(p.shape)
+            offset += p.numel()
+        return torch.func.functional_call(block, views, args, kwargs)
+
+
 class Conv2d(nn.Conv2d):
     """flax-style Conv: computes in `compute_dtype` (inputs and weights cast)."""
 
@@ -150,6 +292,36 @@ class RMSNorm(nn.Module):
         return rmsnorm(x, self.weight, self.eps)
 
 
+class ShardedRMSNorm(nn.Module):
+    """RMSNorm over the full width `dim` before the head split (Wan's and
+    HiDream's q / k norms), fp32 statistics, output in the input dtype.  On
+    one rank of the axis: the row-norm kernel on CUDA (`RMSNorm`'s routing).
+    Where the features are split over a tensor axis, a rank holds
+    dim / size of them: the sum of squares is all-reduced over the axis and
+    divided by the full `dim`, in plain PyTorch.  The scale is the rank's
+    slice, or with `whole_weight` the full scale (replicated by the rules),
+    of which the forward takes the rank's slice."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, axis: Axis = NO_AXIS,
+                 whole_weight: bool = False):
+        super().__init__()
+        self.eps = eps
+        self.dim = dim
+        self.axis = axis
+        self.local = dim // axis.size
+        self.weight = nn.Parameter(torch.ones(dim if whole_weight else self.local))
+
+    def forward(self, x):
+        w = self.weight
+        if w.shape[0] != x.shape[-1]:
+            w = w.narrow(0, self.axis.index * self.local, self.local)
+        if self.axis.size == 1:
+            return rmsnorm_ref(x, w, self.eps) if x.shape[-1] % VEC else rmsnorm(x, w, self.eps)
+        xf = x.float()
+        ss = all_reduce(torch.sum(xf * xf, dim=-1, keepdim=True), self.axis)
+        return (xf * torch.rsqrt(ss / self.dim + self.eps) * w.float()).to(x.dtype)
+
+
 class QKNorm(nn.Module):
     """Per-head RMS normalization of q and k (Flux/SD3-style)."""
 
@@ -174,17 +346,17 @@ class CrossAttention(nn.Module):
     """
 
     def __init__(self, query_dim: int, context_dim: Optional[int], num_heads: int,
-                 head_dim: int, dtype: torch.dtype = torch.float32):
+                 head_dim: int, dtype: torch.dtype = torch.float32, tp: Axis = NO_AXIS):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads = num_heads // tp.size  # this rank's heads
         self.head_dim = head_dim
         self.is_self = context_dim is None
         inner = num_heads * head_dim
         if self.is_self:
-            self.to_qkv = Linear(query_dim, inner * 3, bias=False, compute_dtype=dtype)
+            self.to_qkv = column_linear(query_dim, (inner,) * 3, tp, bias=False, dtype=dtype)
         else:
-            self.to_q = Linear(query_dim, inner, bias=False, compute_dtype=dtype)
-        self.to_out = Linear(inner, query_dim, compute_dtype=dtype)
+            self.to_q = column_linear(query_dim, (inner,), tp, bias=False, dtype=dtype)
+        self.to_out = row_linear(inner // tp.size, query_dim, tp, dtype=dtype)
 
     def forward(self, x, kv=None):
         b, s, _ = x.shape
@@ -200,9 +372,10 @@ class CrossAttention(nn.Module):
 
 
 class GEGLU(nn.Module):
-    def __init__(self, dim_in: int, dim_out: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, dim_in: int, dim_out: int, dtype: torch.dtype = torch.float32,
+                 tp: Axis = NO_AXIS):
         super().__init__()
-        self.proj = Linear(dim_in, dim_out * 2, compute_dtype=dtype)
+        self.proj = column_linear(dim_in, (dim_out, dim_out), tp, dtype=dtype)  # a | gate
 
     def forward(self, x):
         a, g = self.proj(x).chunk(2, dim=-1)
@@ -211,27 +384,29 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
-    def __init__(self, dim: int, mult: int = 4, dtype: torch.dtype = torch.float32):
+    def __init__(self, dim: int, mult: int = 4, dtype: torch.dtype = torch.float32,
+                 tp: Axis = NO_AXIS):
         super().__init__()
-        self.net_0 = GEGLU(dim, dim * mult, dtype=dtype)
-        self.net_2 = Linear(dim * mult, dim, compute_dtype=dtype)
+        self.net_0 = GEGLU(dim, dim * mult, dtype=dtype, tp=tp)
+        self.net_2 = row_linear(dim * mult // tp.size, dim, tp, dtype=dtype)
 
     def forward(self, x):
         return self.net_2(self.net_0(x))
 
 
 class BasicTransformerBlock(nn.Module):
-    """LDM transformer block: self-attn -> cross-attn -> GEGLU FF."""
+    """LDM transformer block: self-attn -> cross-attn -> GEGLU FF, on this
+    rank's heads and GEGLU width under `tp` (x whole on every rank)."""
 
     def __init__(self, dim: int, context_dim: int, num_heads: int, head_dim: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, tp: Axis = NO_AXIS):
         super().__init__()
         self.norm1 = LayerNormF32(dim)
-        self.attn1 = CrossAttention(dim, None, num_heads, head_dim, dtype=dtype)
+        self.attn1 = CrossAttention(dim, None, num_heads, head_dim, dtype=dtype, tp=tp)
         self.norm2 = LayerNormF32(dim)
-        self.attn2 = CrossAttention(dim, context_dim, num_heads, head_dim, dtype=dtype)
+        self.attn2 = CrossAttention(dim, context_dim, num_heads, head_dim, dtype=dtype, tp=tp)
         self.norm3 = LayerNormF32(dim)
-        self.ff = FeedForward(dim, dtype=dtype)
+        self.ff = FeedForward(dim, dtype=dtype, tp=tp)
 
     def forward(self, x, kv):
         x = x + self.attn1(self.norm1(x))
@@ -246,20 +421,31 @@ class SpatialTransformer(nn.Module):
     parameter `kv_cross` (depth, context_dim, 2*channels), contracted
     against the text context in one einsum — or taken precomputed
     (`kv_pre`, batch-major (B, depth, T, 2c)) from zoo.unet_precompute_kv,
-    which the sampler runs once per call."""
+    which the sampler runs once per call.
+
+    Under tensor parallelism (`tp`, where its size divides `num_heads`; a
+    transformer it does not divide stays whole on every rank) the blocks
+    run on this rank's heads: `proj_in` is column-parallel and its output
+    is all-gathered over the axis before the blocks' LayerNorm, `kv_cross`
+    holds the rank's k and v columns, and `proj_out` is row-parallel on the
+    rank's channel slice (all-reduced, its bias added once).  `layers`
+    depth-shards the blocks (`LayerShards`)."""
 
     def __init__(self, channels: int, context_dim: int, num_heads: int, depth: int = 1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, tp: Axis = NO_AXIS,
+                 layers: Axis = NO_AXIS):
         super().__init__()
+        tp = self.tp = head_rule(tp, num_heads)
         self.dtype = dtype
         self.norm = GroupNorm32(channels)
-        self.proj_in = Linear(channels, channels, compute_dtype=dtype)
+        self.proj_in = column_linear(channels, (channels,), tp, dtype=dtype)
         head_dim = channels // num_heads
         self.blocks = nn.ModuleList(
-            BasicTransformerBlock(channels, context_dim, num_heads, head_dim, dtype=dtype)
+            BasicTransformerBlock(channels, context_dim, num_heads, head_dim, dtype=dtype, tp=tp)
             for _ in range(depth))
-        self.kv_cross = nn.Parameter(torch.empty(depth, context_dim, 2 * channels))
-        self.proj_out = Linear(channels, channels, compute_dtype=dtype)
+        self.layers = LayerShards(depth, layers)
+        self.kv_cross = nn.Parameter(torch.empty(depth, context_dim, 2 * channels // tp.size))
+        self.proj_out = row_linear(channels // tp.size, channels, tp, dtype=dtype)
 
     def cross_kv(self, context):
         """Batch-major cross-attention k|v of every block: (B, depth, T, 2c)."""
@@ -270,10 +456,12 @@ class SpatialTransformer(nn.Module):
         b, c, h, w = x.shape
         residual = x
         x = self.norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
-        x = self.proj_in(x)
+        x = gather_features(self.proj_in(x), self.tp)
         kv_all = (self.cross_kv(context) if kv_pre is None else kv_pre).to(self.dtype)
         for i, block in enumerate(self.blocks):
-            x = block(x, kv_all[:, i])
+            x = self.layers.run(block, i, x, kv_all[:, i])
+        if self.tp.size > 1:  # the rank's channels into the row-parallel proj_out
+            x = x.narrow(-1, self.tp.index * (c // self.tp.size), c // self.tp.size)
         x = self.proj_out(x)
         return x.reshape(b, h, w, c).permute(0, 3, 1, 2) + residual
 

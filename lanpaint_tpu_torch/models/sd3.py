@@ -22,20 +22,31 @@ Kernels on CUDA: the joint and the dual self-attention through
 D = 64), and `ln_q` / `ln_k` through the row-norm kernel, in place on the
 strided q / k column views of the fused `qkv` projection (rows (B*S, H),
 row stride 3 * hidden).
+
+Tensor and layer parallelism (`SD3MMDiT(cfg, mesh, tp_axis=...,
+layer_axis=...)`, the weights cut by `parallel.sd3_tp_rules`): each joint
+block runs on this rank's heads where the axis divides their count (else
+whole): `qkv` (the dual attention's too) and `mlp_fc1` column-parallel
+(layers.ColumnLinear, `qkv` per q | k | v part, the replicated biases'
+spans), `attn_proj`, `attn2_proj` and `mlp_fc2` row-parallel, in
+`joint_last` too (its context block is pre-only); `ln_q` / `ln_k` on the
+rank's heads; the modulation stays whole.  `layer_axis` depth-shards
+`joint_dual` and `joint` (layers.LayerShards).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import NO_AXIS, Axis, axis_of
 from .dit import _gelu, _modulate
-from .layers import (Conv2d, Linear, MLPEmbedder, RMSNorm, attention_bshd, layernorm_centred,
-                     timestep_embedding)
+from .layers import (Conv2d, LayerShards, Linear, MLPEmbedder, RMSNorm, attention_bshd,
+                     column_linear, head_rule, layernorm_centred, row_linear, timestep_embedding)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,19 +85,22 @@ TINY_SD3_CONFIG = SD3Config(
 
 class _SelfAttnPre(nn.Module):
     """qkv projection and the optional per-head RMS q/k norm -> (q, k, v)
-    BSHD, q and k normalized in place of the fused projection's columns."""
+    BSHD, q and k normalized in place of the fused projection's columns;
+    under tensor parallelism the rank's heads."""
 
-    def __init__(self, cfg: SD3Config):
+    def __init__(self, cfg: SD3Config, tp: Axis = NO_AXIS):
         super().__init__()
         self.cfg = cfg
-        self.qkv = Linear(cfg.hidden, 3 * cfg.hidden, compute_dtype=cfg.dtype)
+        self.heads = cfg.num_heads // tp.size
+        h = cfg.hidden
+        self.qkv = column_linear(h, (h, h, h), tp, whole_bias=True, dtype=cfg.dtype)
         if cfg.qk_norm:
             self.ln_q = RMSNorm(cfg.head_dim)
             self.ln_k = RMSNorm(cfg.head_dim)
 
     def forward(self, x):
         cfg = self.cfg
-        q, k, v = (t.unflatten(-1, (cfg.num_heads, cfg.head_dim))
+        q, k, v = (t.unflatten(-1, (self.heads, cfg.head_dim))
                    for t in self.qkv(x).chunk(3, dim=-1))
         if cfg.qk_norm:
             q, k = self.ln_q(q), self.ln_k(k)
@@ -96,25 +110,28 @@ class _SelfAttnPre(nn.Module):
 class DismantledBlock(nn.Module):
     """One stream of a joint block: AdaLN modulation, the attention's pre
     and post halves, the MLP.  `pre_only` is the last context block (k/v
-    only); `dual_attn` adds the MMDiT-X second self-attention over x."""
+    only); `dual_attn` adds the MMDiT-X second self-attention over x.
+    `tp`: the block's tensor axis (already through the head rule)."""
 
-    def __init__(self, cfg: SD3Config, pre_only: bool = False, dual_attn: bool = False):
+    def __init__(self, cfg: SD3Config, pre_only: bool = False, dual_attn: bool = False,
+                 tp: Axis = NO_AXIS):
         super().__init__()
         self.cfg = cfg
         self.pre_only = pre_only
         self.dual_attn = dual_attn
         h, dt = cfg.hidden, cfg.dtype
+        t = tp.size
         n = 2 if pre_only else (9 if dual_attn else 6)
         self.adaLN_modulation = Linear(h, n * h, compute_dtype=dt)
-        self.attn = _SelfAttnPre(cfg)
+        self.attn = _SelfAttnPre(cfg, tp)
         if dual_attn:
-            self.attn2 = _SelfAttnPre(cfg)
-            self.attn2_proj = Linear(h, h, compute_dtype=dt)
+            self.attn2 = _SelfAttnPre(cfg, tp)
+            self.attn2_proj = row_linear(h // t, h, tp, dtype=dt)
         if not pre_only:
-            self.attn_proj = Linear(h, h, compute_dtype=dt)
+            self.attn_proj = row_linear(h // t, h, tp, dtype=dt)
             mlp_h = int(h * cfg.mlp_ratio)
-            self.mlp_fc1 = Linear(h, mlp_h, compute_dtype=dt)
-            self.mlp_fc2 = Linear(mlp_h, h, compute_dtype=dt)
+            self.mlp_fc1 = column_linear(h, (mlp_h,), tp, whole_bias=True, dtype=dt)
+            self.mlp_fc2 = row_linear(mlp_h // t, h, tp, dtype=dt)
 
     def pre(self, x, c):
         """-> (q, k, v) and the state for `post`."""
@@ -140,11 +157,13 @@ class JointBlock(nn.Module):
     """A context / x pair of dismantled blocks with one joint attention
     over [ctx; x]."""
 
-    def __init__(self, cfg: SD3Config, pre_only_ctx: bool = False, dual_attn: bool = False):
+    def __init__(self, cfg: SD3Config, pre_only_ctx: bool = False, dual_attn: bool = False,
+                 tp: Axis = NO_AXIS):
         super().__init__()
+        tp = head_rule(tp, cfg.num_heads)
         self.pre_only_ctx = pre_only_ctx
-        self.context_block = DismantledBlock(cfg, pre_only=pre_only_ctx)
-        self.x_block = DismantledBlock(cfg, dual_attn=dual_attn)
+        self.context_block = DismantledBlock(cfg, pre_only=pre_only_ctx, tp=tp)
+        self.x_block = DismantledBlock(cfg, dual_attn=dual_attn, tp=tp)
 
     def forward(self, x, ctx, c):
         (cq, ck, cv), cstate = self.context_block.pre(ctx, c)
@@ -171,12 +190,19 @@ class SD3FinalLayer(nn.Module):
 
 
 class SD3MMDiT(nn.Module):
-    """forward(x_nchw_latent, t, context, vec) -> velocity prediction."""
+    """forward(x_nchw_latent, t, context, vec) -> velocity prediction.
 
-    def __init__(self, cfg: SD3Config):
+    `mesh` (a `parallel.make_mesh` DeviceMesh, or a `parallel.plan_mesh`)
+    resolves `tp_axis` (the joint blocks' tensor parallelism) and
+    `layer_axis` (`joint_dual` and `joint` depth-sharded); without a mesh
+    the model is whole."""
+
+    def __init__(self, cfg: SD3Config, mesh=None, tp_axis: Optional[str] = None,
+                 layer_axis: Optional[str] = None):
         super().__init__()
         self.cfg = cfg
         h, dt = cfg.hidden, cfg.dtype
+        tp, layers = axis_of(mesh, tp_axis), axis_of(mesh, layer_axis)
         n_dual = len(cfg.dual_attn_layers)
         if cfg.dual_attn_layers != tuple(range(n_dual)):
             raise ValueError("only a contiguous dual-attention prefix is supported (the "
@@ -188,9 +214,12 @@ class SD3MMDiT(nn.Module):
         if cfg.vec_dim > 0:
             self.y_embedder = MLPEmbedder(cfg.vec_dim, h, dtype=dt)
         self.context_embedder = Linear(cfg.context_dim, h, compute_dtype=dt)
-        self.joint_dual = nn.ModuleList(JointBlock(cfg, dual_attn=True) for _ in range(n_dual))
-        self.joint = nn.ModuleList(JointBlock(cfg) for _ in range(cfg.depth - 1 - n_dual))
-        self.joint_last = JointBlock(cfg, pre_only_ctx=True)
+        self.joint_dual = nn.ModuleList(JointBlock(cfg, dual_attn=True, tp=tp)
+                                        for _ in range(n_dual))
+        self.joint = nn.ModuleList(JointBlock(cfg, tp=tp) for _ in range(cfg.depth - 1 - n_dual))
+        self.joint_last = JointBlock(cfg, pre_only_ctx=True, tp=tp)
+        self.layers = {"joint_dual": LayerShards(n_dual, layers),
+                       "joint": LayerShards(cfg.depth - 1 - n_dual, layers)}
         self.final_layer = SD3FinalLayer(cfg)
 
     def cropped_pos_embed(self, gh: int, gw: int) -> torch.Tensor:
@@ -214,8 +243,9 @@ class SD3MMDiT(nn.Module):
             c = c + self.y_embedder(vec.to(dt))
         ctx = self.context_embedder(context.to(dt))
 
-        for block in (*self.joint_dual, *self.joint):
-            img, ctx = block(img, ctx, c)
+        for name in ("joint_dual", "joint"):
+            for i, block in enumerate(getattr(self, name)):
+                img, ctx = self.layers[name].run(block, i, img, ctx, c)
         img, _ = self.joint_last(img, ctx, c)
 
         out = self.final_layer(img, c)

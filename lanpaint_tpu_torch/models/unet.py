@@ -5,6 +5,14 @@ NCHW layout, compute in `config.dtype` (bf16 by default), GroupNorm in
 fp32, the output convolution in fp32.  Submodule names follow the flax
 module names (`down_1_0_attn`, `mid_res1`, ...) so models/bridge.py maps a
 flax parameter tree onto this module's state_dict one to one.
+
+Tensor and layer parallelism (`UNetModel(cfg, mesh, tp_axis=...,
+layer_axis=...)`, over the process groups of a `parallel.make_mesh` mesh,
+the weights cut by `parallel.unet_tp_rules`): the spatial transformers run
+on a rank's heads (layers.SpatialTransformer), each whole where the axis
+does not divide its head count; convolutions, GroupNorm and the time
+embedding stay whole, as in the JAX package.  `zoo.build_unet(...,
+mesh=...)` builds the denoiser.
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import NO_AXIS, Axis, axis_of
 from .layers import (
     Conv2d,
     Downsample,
@@ -68,12 +77,15 @@ TINY_UNET_CONFIG = UNetConfig(  # test-size config
 )
 
 
-def _transformer(cfg: UNetConfig, ch: int, depth: int) -> SpatialTransformer:
+def _transformer(cfg: UNetConfig, ch: int, depth: int, tp: Axis = NO_AXIS,
+                 layers: Axis = NO_AXIS) -> SpatialTransformer:
     heads = ch // cfg.head_dim if cfg.head_dim is not None else cfg.num_heads
-    return SpatialTransformer(ch, cfg.context_dim, heads, depth=depth, dtype=cfg.dtype)
+    return SpatialTransformer(ch, cfg.context_dim, heads, depth=depth, dtype=cfg.dtype, tp=tp,
+                              layers=layers)
 
 
-def build_encoder(module: nn.Module, cfg: UNetConfig) -> tuple:
+def build_encoder(module: nn.Module, cfg: UNetConfig, tp: Axis = NO_AXIS,
+                  layers: Axis = NO_AXIS) -> tuple:
     """Register the encoder half that the UNet and its ControlNet share on
     `module`, under the flax module names: the time (and label) embedding,
     the input conv, the down path's blocks and the middle block.  Returns
@@ -99,7 +111,8 @@ def build_encoder(module: nn.Module, cfg: UNetConfig) -> tuple:
             attn = None
             if cfg.transformer_depth[level] > 0:
                 attn = f"down_{level}_{i}_attn"
-                module.add_module(attn, _transformer(cfg, ch, cfg.transformer_depth[level]))
+                module.add_module(attn, _transformer(cfg, ch, cfg.transformer_depth[level], tp,
+                                                     layers))
             plan.append((f"down_{level}_{i}_res", attn, None))
             ch_in = ch
             skip_chs.append(ch)
@@ -110,7 +123,7 @@ def build_encoder(module: nn.Module, cfg: UNetConfig) -> tuple:
 
     ch = mc * cfg.channel_mult[-1]
     module.mid_res1 = ResBlock(ch_in, ch, emb_dim, dtype=dt)
-    module.mid_attn = (_transformer(cfg, ch, cfg.transformer_depth_middle)
+    module.mid_attn = (_transformer(cfg, ch, cfg.transformer_depth_middle, tp, layers)
                        if cfg.transformer_depth_middle > 0 else None)
     module.mid_res2 = ResBlock(ch, ch, emb_dim, dtype=dt)
     return plan, skip_chs
@@ -128,15 +141,22 @@ def embed(module: nn.Module, timesteps, y):
 
 
 class UNetModel(nn.Module):
-    """SD UNet.  forward(x_nchw, timesteps, context, y, control, kv_cache) -> eps."""
+    """SD UNet.  forward(x_nchw, timesteps, context, y, control, kv_cache) -> eps.
 
-    def __init__(self, cfg: UNetConfig):
+    `mesh` (a `parallel.make_mesh` DeviceMesh, or a `parallel.plan_mesh`
+    to lay out one rank's state on the meta device) resolves `tp_axis`
+    (the spatial transformers' tensor parallelism) and `layer_axis` (their
+    blocks depth-sharded); without a mesh the model is whole."""
+
+    def __init__(self, cfg: UNetConfig, mesh=None, tp_axis: Optional[str] = None,
+                 layer_axis: Optional[str] = None):
         super().__init__()
         self.cfg = cfg
         dt = cfg.dtype
         mc = cfg.model_channels
         emb_dim = mc * 4
-        self.down_plan, skip_chs = build_encoder(self, cfg)
+        tp, layers = axis_of(mesh, tp_axis), axis_of(mesh, layer_axis)
+        self.down_plan, skip_chs = build_encoder(self, cfg, tp, layers)
 
         ch_in = mc * cfg.channel_mult[-1]
         self.up_plan = []
@@ -148,7 +168,8 @@ class UNetModel(nn.Module):
                 attn = None
                 if cfg.transformer_depth[level] > 0:
                     attn = f"up_{level}_{i}_attn"
-                    self.add_module(attn, _transformer(cfg, ch, cfg.transformer_depth[level]))
+                    self.add_module(attn, _transformer(cfg, ch, cfg.transformer_depth[level],
+                                                       tp, layers))
                 self.up_plan.append((name, attn))
                 ch_in = ch
             if level != 0:

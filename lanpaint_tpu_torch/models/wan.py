@@ -28,11 +28,13 @@ ids are offset by its position along the axis times the local frame count,
 and self-attention is `parallel.ring_attention` over the axis's group.
 With `cfg.tp_size` > 1 the heads and the ffn width are split tp_size ways
 (`parallel.wan_tp_param_specs` cuts the weights): `o` and `ffn_2` are
-row-parallel (`_RowLinear`: an all-reduce over the `tp_axis` group, the bias
-added once after it), and `_WanQKNorm`'s sum of squares over the local
+row-parallel (layers.RowLinear: an all-reduce over the `tp_axis` group, the
+bias added once after it), and `_WanQKNorm`'s sum of squares over the local
 features is all-reduced before the rsqrt, so the statistics are the full
-width's (plain PyTorch; at tp_size 1 the row-norm kernel, as without a
-mesh).  `zoo.build_wan_seq_parallel` builds the denoiser.
+width's (layers.ShardedRMSNorm: plain PyTorch; at tp_size 1 the row-norm
+kernel, as without a mesh).  `layer_axis` depth-shards the blocks.
+`zoo.build_wan_seq_parallel` and `zoo.build_wan(..., mesh=...)` build the
+denoiser.
 """
 
 from __future__ import annotations
@@ -45,16 +47,19 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.norms import rmsnorm
+from ..parallel.mesh import NO_AXIS, Axis, axis_of
 from ..parallel.ring import ring_attention
 from .layers import (
     LayerNormF32,
+    LayerShards,
     Linear,
     MLPEmbedder,
+    ShardedRMSNorm,
     apply_rope,
     attention_bshd,
     layernorm_na,
     rope_freqs,
+    row_linear,
     timestep_embedding,
 )
 
@@ -97,82 +102,37 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")  # flax nn.gelu's default
 
 
-def _all_reduce(x, group):
-    """Sum `x` over `group` (in place); no group, or a group of one, leaves
-    it as it is."""
-    if group is not None and dist.get_world_size(group) > 1:
-        dist.all_reduce(x, group=group)
-    return x
-
-
-class _RowLinear(Linear):
-    """Row-parallel Linear: the input features are split over the tensor
-    group, the partial products are all-reduced over it, and the bias is
-    added once after the reduce.  The state dict is a Linear's."""
-
-    def __init__(self, in_features: int, out_features: int, group, compute_dtype):
-        super().__init__(in_features, out_features, compute_dtype=compute_dtype)
-        self.group = group
-
-    def forward(self, x):
-        dt = self.compute_dtype
-        y = _all_reduce(F.linear(x.to(dt), self.weight.to(dt)), self.group)
-        return y + self.bias.to(dt)
-
-
-def _out_linear(cfg: WanConfig, in_features: int, group):
+def _out_linear(cfg: WanConfig, in_features: int, tp: Axis):
     """An output projection to the hidden width: row-parallel where the
     input is split over a tensor group, else a plain Linear."""
-    if group is None:
-        return Linear(in_features, cfg.hidden, compute_dtype=cfg.dtype)
-    return _RowLinear(in_features, cfg.hidden, group, cfg.dtype)
+    return row_linear(in_features, cfg.hidden, tp, dtype=cfg.dtype)
 
 
-class _WanQKNorm(nn.Module):
-    """RMSNorm over the FULL projection width, before the head reshape
-    (public Wan semantics; checkpoint weight shape (dim,)): fp32
-    statistics, output in the input dtype, through the row-norm kernel on
-    CUDA.  The flax leaf `scale` maps to `weight`.
-
-    Under tensor parallelism (tp_size > 1) a rank holds dim / tp_size
-    features and its slice of the scale: the sum of squares is all-reduced
-    over `group` and divided by the full `dim`, in plain PyTorch."""
-
-    def __init__(self, dim: int, eps: float = 1e-6, tp_size: int = 1, group=None):
-        super().__init__()
-        self.eps = eps
-        self.dim = dim
-        self.tp_size = tp_size
-        self.group = group
-        self.weight = nn.Parameter(torch.ones(dim // tp_size))
-
-    def forward(self, x):
-        if self.tp_size == 1:
-            return rmsnorm(x, self.weight, self.eps)
-        xf = x.float()
-        ss = _all_reduce(torch.sum(xf * xf, dim=-1, keepdim=True), self.group)
-        return (xf * torch.rsqrt(ss / self.dim + self.eps) * self.weight.float()).to(x.dtype)
+# RMS over the full projection width before the head reshape (public Wan
+# semantics; checkpoint weight shape (dim,)): the row-norm kernel on one
+# rank, the sum of squares all-reduced over the tensor group on several
+_WanQKNorm = ShardedRMSNorm
 
 
 class _WanAttention(nn.Module):
     """q / k / v (column-parallel under tensor parallelism), the full-width
     q / k norms and the output projection of one Wan attention."""
 
-    def __init__(self, cfg: WanConfig, tp_group=None):
+    def __init__(self, cfg: WanConfig, tp: Axis = NO_AXIS):
         super().__init__()
         self.cfg = cfg
         h, dt = cfg.hidden, cfg.dtype
         inner = h // cfg.tp_size
         self.heads = (cfg.num_heads // cfg.tp_size, cfg.head_dim)
         self.q, self.k, self.v = (Linear(h, inner, compute_dtype=dt) for _ in range(3))
-        self.o = _out_linear(cfg, inner, tp_group)
-        self.norm_q = _WanQKNorm(h, cfg.eps, cfg.tp_size, tp_group)
-        self.norm_k = _WanQKNorm(h, cfg.eps, cfg.tp_size, tp_group)
+        self.o = _out_linear(cfg, inner, tp)
+        self.norm_q = _WanQKNorm(h, cfg.eps, tp)
+        self.norm_k = _WanQKNorm(h, cfg.eps, tp)
 
 
 class WanSelfAttention(_WanAttention):
-    def __init__(self, cfg: WanConfig, tp_group=None, seq_group=None):
-        super().__init__(cfg, tp_group)
+    def __init__(self, cfg: WanConfig, tp: Axis = NO_AXIS, seq_group=None):
+        super().__init__(cfg, tp)
         self.seq_group = seq_group
 
     def forward(self, x, pe):
@@ -205,16 +165,16 @@ class WanCrossAttention(_WanAttention):
 
 
 class WanBlock(nn.Module):
-    def __init__(self, cfg: WanConfig, tp_group=None, seq_group=None):
+    def __init__(self, cfg: WanConfig, tp: Axis = NO_AXIS, seq_group=None):
         super().__init__()
         self.cfg = cfg
         h, dt = cfg.hidden, cfg.dtype
         self.modulation = nn.Parameter(torch.zeros(1, 6, h))
-        self.self_attn = WanSelfAttention(cfg, tp_group, seq_group)
+        self.self_attn = WanSelfAttention(cfg, tp, seq_group)
         self.norm3 = LayerNormF32(h, cfg.eps)
-        self.cross_attn = WanCrossAttention(cfg, tp_group)
+        self.cross_attn = WanCrossAttention(cfg, tp)
         self.ffn_0 = Linear(h, cfg.ffn_dim // cfg.tp_size, compute_dtype=dt)
-        self.ffn_2 = _out_linear(cfg, cfg.ffn_dim // cfg.tp_size, tp_group)
+        self.ffn_2 = _out_linear(cfg, cfg.ffn_dim // cfg.tp_size, tp)
 
     def forward(self, x, e, context, pe, kv_pre=None):
         """e: (B, 6, hidden) time modulation; the block's learned offset is
@@ -244,20 +204,23 @@ class WanModel(nn.Module):
     `mesh` (a `parallel.make_mesh` DeviceMesh) resolves `cfg.seq_axis` and
     `cfg.tp_axis` to its process groups; either axis set needs one, and
     `cfg.tp_size` must be the tensor axis's size.  Under `seq_axis`, x is
-    this rank's block of frames."""
+    this rank's block of frames.  `layer_axis` (a mesh axis) depth-shards
+    the blocks (`parallel.layer_shard_rules`, layers.LayerShards)."""
 
-    def __init__(self, cfg: WanConfig, mesh=None):
+    def __init__(self, cfg: WanConfig, mesh=None, layer_axis: Optional[str] = None):
         super().__init__()
-        axes = [a for a in (cfg.seq_axis, cfg.tp_axis) if a is not None]
+        axes = [a for a in (cfg.seq_axis, cfg.tp_axis, layer_axis) if a is not None]
         if axes and mesh is None:
             raise ValueError(f"WanModel: {axes} need a mesh (parallel.make_mesh)")
-        tp_group = seq_group = None
+        seq_group = None
         self.seq_rank = 0
+        # without an axis, tp_size alone splits the heads with no reduce, as in JAX
+        tp = Axis(None, cfg.tp_size, 0)
         if cfg.tp_axis is not None:
-            tp_group = mesh.get_group(cfg.tp_axis)
-            if dist.get_world_size(tp_group) != cfg.tp_size:
+            tp = axis_of(mesh, cfg.tp_axis)
+            if tp.size != cfg.tp_size:
                 raise ValueError(f"WanModel: tp_size {cfg.tp_size} but the {cfg.tp_axis!r} "
-                                 f"axis has {dist.get_world_size(tp_group)} ranks")
+                                 f"axis has {tp.size} ranks")
         if cfg.seq_axis is not None:
             seq_group = mesh.get_group(cfg.seq_axis)
             self.seq_rank = dist.get_rank(seq_group)
@@ -269,7 +232,8 @@ class WanModel(nn.Module):
         self.text_embedding_2 = Linear(h, h, compute_dtype=dt)
         self.time_embedding = MLPEmbedder(256, h, dtype=dt)
         self.time_projection = Linear(h, 6 * h, compute_dtype=dt)
-        self.blocks = nn.ModuleList(WanBlock(cfg, tp_group, seq_group) for _ in range(cfg.depth))
+        self.blocks = nn.ModuleList(WanBlock(cfg, tp, seq_group) for _ in range(cfg.depth))
+        self.layers = LayerShards(cfg.depth, axis_of(mesh, layer_axis))
         self.head_modulation = nn.Parameter(torch.zeros(1, 2, h))
         self.head = Linear(h, cfg.out_channels * pf * ph * pw, compute_dtype=torch.float32)
 
@@ -283,7 +247,9 @@ class WanModel(nn.Module):
         sampler call with the same submodules as the forward (so the values
         are bit-identical to the in-forward path).  Returns {"k", "v"}, each
         (B, depth, T_text, hidden), batch-major so a batched-CFG cond concat
-        composes."""
+        composes.  Not under a layer axis (a rank holds only its blocks)."""
+        if self.layers.per is not None:
+            raise ValueError("WanModel.precompute_kv: the blocks are depth-sharded")
         ctx = self.embed_text(context)
         kvs = [block.cross_attn.kv(ctx) for block in self.blocks]
         return {"k": torch.stack([k for k, _ in kvs], dim=1),
@@ -306,7 +272,7 @@ class WanModel(nn.Module):
         ctx = None if kv_cache is not None else self.embed_text(context)
         for i, block in enumerate(self.blocks):
             kv_pre = None if kv_cache is None else (kv_cache["k"][:, i], kv_cache["v"][:, i])
-            tokens = block(tokens, e6, ctx, pe, kv_pre=kv_pre).to(tokens.dtype)
+            tokens = self.layers.run(block, i, tokens, e6, ctx, pe, kv_pre=kv_pre).to(tokens.dtype)
 
         he = self.head_modulation.float() + te.float()[:, None]
         sh, sc = he[:, 0][:, None], he[:, 1][:, None]

@@ -11,6 +11,11 @@ ControlNet-conditioned UNet
 (`switching_denoiser`, the Wan2.2 high/low-noise expert pair, and
 `dual_model_denoiser`) and the checkpoint key census
 (`family_expected_keys`, `family_census`).
+`build_unet`, `build_dit`, `build_sd3`, `build_hidream` and `build_wan`
+also build one rank's share of a tensor-, expert- or layer-parallel model
+on a `parallel.make_mesh` mesh (`mesh=`, `tp_axis=`, HiDream's
+`expert_axis=`, `layer_axis=`; `_parallel_module`), whose Denoiser returns
+the whole output on every rank, the batch rows split over "data".
 `build_unet`, `build_dit`, `build_sd3`, `build_hidream`, `build_hyvideo`,
 `build_zimage` and `build_wan` return (Denoiser, module),
 `build_controlled_unet` (Denoiser, (unet, controlnet)); `build_vae`,
@@ -36,6 +41,10 @@ import torch
 from torch import nn
 
 from ..config import ModelKind
+from ..parallel.mesh import (all_gather, axis_index, axis_of, axis_size, block, dit_tp_rules,
+                             hidream_ep_rules, layer_shard_rules, mesh_device, sd3_tp_rules,
+                             shard_params_tp, unet_tp_rules, wan_layout_rules,
+                             wan_tp_param_specs)
 from ..schedule import bcast_to
 from ..sigmas import EpsSigmaTable, FlowSigmaTable
 from ..utils import resolve_device
@@ -43,14 +52,14 @@ from .base import Denoiser
 from .dit import (ANIMA_CONFIG, FLUX2_DEV_CONFIG, FLUX2_KLEIN_CONFIG, FLUX_DEV_CONFIG,
                   FLUX_SCHNELL_CONFIG, KREA2_CONFIG, QWEN_IMAGE_CONFIG, TINY_DIT_CONFIG, DiTConfig,
                   MMDiT)
-from .layers import GroupNorm32, LayerNormF32, RMSNorm
+from .layers import GroupNorm32, LayerNormF32, RMSNorm, ShardedRMSNorm
 from . import textenc
 from .textenc import (CLIP_L_CONFIG, QWEN3_4B_CONFIG, T5_XXL_CONFIG, CLIPTextConfig,
                       CLIPTextEncoder, LlamaConfig, LlamaEncoder, T5Config, T5Encoder)
 from .unet import SD15_CONFIG, SD21_CONFIG, SDXL_CONFIG, TINY_UNET_CONFIG, UNetConfig, UNetModel
 from .vae import SDXL_VAE_CONFIG, VAE, VAEConfig
 from .video_vae import WAN22_VAE_CONFIG, RMSNorm3d, WanVAE, WanVAEConfig
-from .wan import TINY_WAN_CONFIG, WanConfig, WanModel, _WanQKNorm
+from .wan import TINY_WAN_CONFIG, WanConfig, WanModel
 
 
 def _interp(x, xp, fp):
@@ -72,7 +81,7 @@ def init_params_(module: torch.nn.Module, seed: int = 0, scale: float = 0.02):
     device = next(module.parameters()).device
     gen = torch.Generator(device=device).manual_seed(seed)
     for mod in module.modules():
-        is_norm = isinstance(mod, (GroupNorm32, LayerNormF32, RMSNorm, RMSNorm3d, _WanQKNorm,
+        is_norm = isinstance(mod, (GroupNorm32, LayerNormF32, RMSNorm, RMSNorm3d, ShardedRMSNorm,
                                    textenc.LayerNorm, textenc.RMSNorm))
         # raw RMS-scale parameters of a module (the vision tower's)
         norm_params = getattr(mod, "_NORM_PARAMS", ())
@@ -99,6 +108,85 @@ def _materialize(cls, config, state_dict, device, param_dtype, seed):
     return module.eval().requires_grad_(False)
 
 
+def _parallel_module(cls, config, state_dict, mesh, rules, param_dtype, seed, **axes):
+    """This rank's `cls(config, mesh, **axes)` on its device
+    (`parallel.mesh_device`), holding its `parallel.shard_params_tp` shard
+    of `state_dict` under `rules`: views of the caller's tensors where they
+    already have the device and dtype (no second copy), the block tensors a
+    layer axis gives other ranks left on the meta device.  Without a
+    state_dict the full model is drawn from `seed` on the device, cut, and
+    dropped."""
+    device = mesh_device(mesh)
+    if state_dict is None:
+        full = _materialize(cls, config, None, device, param_dtype, seed)
+        keys = set(full.state_dict())
+        shard = {k: v.clone() for k, v in shard_params_tp(mesh, full.state_dict(),
+                                                          rules).items()}
+        del full
+    else:
+        keys = set(state_dict)
+        shard = {k: v.to(device=device, dtype=param_dtype)
+                 for k, v in shard_params_tp(mesh, state_dict, rules).items()}
+    with torch.device("meta"):
+        module = cls(config, mesh, **axes).to(param_dtype)
+    # the keys left out are the blocks a layer axis gives other ranks: they
+    # stay on the meta device
+    missing, unexpected = module.load_state_dict(shard, strict=False, assign=True)
+    if unexpected or set(missing) != keys - set(shard):
+        raise ValueError(f"{cls.__name__}: the rank's shard does not fit its module "
+                         f"(missing {sorted(missing)[:4]}, unexpected {unexpected[:4]})")
+    return module.eval().requires_grad_(False)
+
+
+def _tensor_rows(value, rows: slice, b: int, dim: int):
+    if isinstance(value, torch.Tensor) and value.ndim > dim and value.shape[dim] == b:
+        return value.narrow(dim, rows.start, rows.stop - rows.start)
+    return value
+
+
+def _data_rows(mesh, apply, batch_dims=None):
+    """`apply(x, t, cond)` run on this rank's rows of the batch (its block
+    of the "data" axis: x, t and every cond tensor whose batch dim,
+    `batch_dims[key]` or 0, is the batch) and all-gathered over "data", so
+    every rank returns the whole output; a "data" axis of one runs it
+    whole.  The batch must divide over the axis."""
+    data = axis_of(mesh, "data")
+    if data.size == 1:
+        return apply
+    batch_dims = batch_dims or {}
+
+    def run(x, t, cond):
+        b = x.shape[0]
+        if b % data.size:
+            raise ValueError(f"batch {b} over {data.size} data ranks")
+        rows = block(b, data.size, data.index)
+        tb = torch.broadcast_to(torch.as_tensor(t, device=x.device).reshape(-1), (b,))
+        if isinstance(cond, dict):
+            cond = {k: _tensor_rows(v, rows, b, batch_dims.get(k, 0)) for k, v in cond.items()}
+        else:
+            cond = _tensor_rows(cond, rows, b, 0)
+        return all_gather(apply(x[rows], tb[rows], cond), data.group, 0)
+
+    return run
+
+
+def _module_for(cls, config, state_dict, device, param_dtype, seed, mesh, rules, **axes):
+    """The whole module without a mesh, else this rank's `_parallel_module`."""
+    if mesh is None:
+        if any(axes.values()):
+            raise ValueError(f"{cls.__name__}: {sorted(k for k, v in axes.items() if v)} need a "
+                             "mesh (parallel.make_mesh)")
+        return _materialize(cls, config, state_dict, resolve_device(device), param_dtype, seed)
+    if device is not None:
+        raise ValueError("a mesh build runs on the mesh's device (parallel.mesh_device); "
+                         "pass no device")
+    return _parallel_module(cls, config, state_dict, mesh, rules, param_dtype, seed, **axes)
+
+
+def _layered(rules, layer_axis):
+    return rules if layer_axis is None else layer_shard_rules(rules, axis=layer_axis)
+
+
 def build_unet(
     config: UNetConfig,
     state_dict: Optional[dict] = None,
@@ -108,12 +196,23 @@ def build_unet(
     param_dtype: torch.dtype = torch.float32,
     seed: int = 0,
     name: str = "unet",
+    mesh=None,
+    tp_axis: Optional[str] = None,
+    layer_axis: Optional[str] = None,
 ):
     """Build the UNet Denoiser on `device` (the CUDA card when None) with
     `param_dtype` parameters.  `v_prediction` reads the model's output as
-    v (SD2.x-v): x0 = x / (1 + s^2) - s / sqrt(1 + s^2) * v."""
-    device = resolve_device(device)
-    module = _materialize(UNetModel, config, state_dict, device, param_dtype, seed)
+    v (SD2.x-v): x0 = x / (1 + s^2) - s / sqrt(1 + s^2) * v.
+
+    With a `mesh` (`parallel.make_mesh`), this rank's share on its device:
+    the spatial transformers tensor-parallel over `tp_axis`
+    (`parallel.unet_tp_rules`), their blocks depth-sharded over
+    `layer_axis`; the batch rows over "data", the output all-gathered.  The
+    cross-attention k/v are then computed in each forward (no hoist)."""
+    rules = _layered(unet_tp_rules(config, tp_axis), layer_axis)
+    module = _module_for(UNetModel, config, state_dict, device, param_dtype, seed, mesh, rules,
+                         tp_axis=tp_axis, layer_axis=layer_axis)
+    device = next(module.parameters()).device
     table = EpsSigmaTable()
     sigma_to_timestep = _discrete_timestep(table, device)
 
@@ -129,9 +228,10 @@ def build_unet(
         eps = module(x_in, sigma_to_timestep(sigma), ctx, y, kv_cache=kvc)
         return _eps_to_x0(x, s, eps, v_prediction)
 
-    den = Denoiser(apply=apply, kind=ModelKind.EPS, sigma_table=table, name=name,
-                   latent_channels=config.in_channels, module=module,
-                   precompute=lambda cond: unet_precompute_kv(module, cond))
+    precompute = None if mesh is not None else (lambda cond: unet_precompute_kv(module, cond))
+    den = Denoiser(apply=_data_rows(mesh, apply), kind=ModelKind.EPS, sigma_table=table,
+                   name=name, latent_channels=config.in_channels, module=module,
+                   precompute=precompute)
     return den, module
 
 
@@ -258,14 +358,22 @@ def build_dit(
     param_dtype: torch.dtype = torch.float32,
     seed: int = 0,
     name: str = "dit",
+    mesh=None,
+    tp_axis: Optional[str] = None,
+    layer_axis: Optional[str] = None,
 ):
     """Build the MMDiT Denoiser on `device` (the CUDA card when None) with
     `param_dtype` parameters.
 
     The model predicts the flow velocity v = noise - x0, so x0 = x - t * v.
     `cond` is {"context", "vec", "guidance", "ref_tokens"} (all but the
-    context optional)."""
-    module = _materialize(MMDiT, config, state_dict, resolve_device(device), param_dtype, seed)
+    context optional).  With a `mesh`, this rank's share on its device: the
+    blocks tensor-parallel over `tp_axis` (`parallel.dit_tp_rules`),
+    `double` and `single` depth-sharded over `layer_axis`, the batch rows
+    over "data", the output all-gathered."""
+    rules = _layered(dit_tp_rules(config, tp_axis), layer_axis)
+    module = _module_for(MMDiT, config, state_dict, device, param_dtype, seed, mesh, rules,
+                         tp_axis=tp_axis, layer_axis=layer_axis)
 
     @torch.no_grad()
     def apply(x, t, cond):
@@ -275,7 +383,8 @@ def build_dit(
         vel = module(x, t, ctx, *extras)
         return x - bcast_to(t, x.ndim) * vel
 
-    den = Denoiser(apply=apply, kind=ModelKind.FLOW, sigma_table=FlowSigmaTable(shift=shift),
+    den = Denoiser(apply=_data_rows(mesh, apply), kind=ModelKind.FLOW,
+                   sigma_table=FlowSigmaTable(shift=shift),
                    is_flux=is_flux, name=name, latent_channels=config.latent_channels,
                    module=module)
     return den, module
@@ -430,16 +539,25 @@ def build_hidream(
     param_dtype: torch.dtype = torch.float32,
     seed: int = 0,
     name: str = "hidream",
+    mesh=None,
+    tp_axis: Optional[str] = None,
+    expert_axis: Optional[str] = None,
+    layer_axis: Optional[str] = None,
 ):
     """Build the HiDream-I1 Denoiser (models/hidream.py) on `device` (the
     CUDA card when None) with `param_dtype` parameters.  `config` defaults
     to HIDREAM_I1_CONFIG; x0 = x - t * v; `cond` is {"context", "vec",
-    "llama"} (`text.hidream_cond`)."""
+    "llama"} (`text.hidream_cond`).  With a `mesh`, this rank's share on
+    its device: the routed experts over `expert_axis`, the attention and
+    feed-forward widths over `tp_axis` (`parallel.hidream_ep_rules`),
+    `double` and `single` depth-sharded over `layer_axis`, the batch rows
+    over "data" (the Llama states' dim 1), the output all-gathered."""
     from .hidream import HIDREAM_I1_CONFIG, HiDreamModel
 
     config = HIDREAM_I1_CONFIG if config is None else config
-    module = _materialize(HiDreamModel, config, state_dict, resolve_device(device), param_dtype,
-                          seed)
+    rules = _layered(hidream_ep_rules(config, tp_axis, expert_axis), layer_axis)
+    module = _module_for(HiDreamModel, config, state_dict, device, param_dtype, seed, mesh,
+                         rules, tp_axis=tp_axis, expert_axis=expert_axis, layer_axis=layer_axis)
 
     @torch.no_grad()
     def apply(x, t, cond):
@@ -448,7 +566,8 @@ def build_hidream(
         vec, llama = (cond.get(k) if is_dict else None for k in ("vec", "llama"))
         return x - bcast_to(t, x.ndim) * module(x, t, ctx, vec, llama)
 
-    den = Denoiser(apply=apply, kind=ModelKind.FLOW, sigma_table=FlowSigmaTable(shift=shift),
+    den = Denoiser(apply=_data_rows(mesh, apply, {"llama": 1}), kind=ModelKind.FLOW,
+                   sigma_table=FlowSigmaTable(shift=shift),
                    is_flux=False, name=name, latent_channels=config.latent_channels,
                    module=module)
     return den, module
@@ -473,14 +592,22 @@ def build_sd3(
     param_dtype: torch.dtype = torch.float32,
     seed: int = 0,
     name: str = "sd3",
+    mesh=None,
+    tp_axis: Optional[str] = None,
+    layer_axis: Optional[str] = None,
 ):
     """Build the SD3 / SD3.5 MMDiT Denoiser (models/sd3.py) of `config` on
     `device` (the CUDA card when None) with `param_dtype` parameters.
     x0 = x - t * v on the shift-3 flow ladder; `cond` is {"context", "vec"}
-    (`text.sd3_cond`)."""
+    (`text.sd3_cond`).  With a `mesh`, this rank's share on its device: the
+    joint blocks tensor-parallel over `tp_axis` (`parallel.sd3_tp_rules`),
+    `joint_dual` and `joint` depth-sharded over `layer_axis`, the batch rows
+    over "data", the output all-gathered."""
     from .sd3 import SD3MMDiT
 
-    module = _materialize(SD3MMDiT, config, state_dict, resolve_device(device), param_dtype, seed)
+    rules = _layered(sd3_tp_rules(config, tp_axis), layer_axis)
+    module = _module_for(SD3MMDiT, config, state_dict, device, param_dtype, seed, mesh, rules,
+                         tp_axis=tp_axis, layer_axis=layer_axis)
 
     @torch.no_grad()
     def apply(x, t, cond):
@@ -489,7 +616,8 @@ def build_sd3(
         vec = cond.get("vec") if is_dict else None
         return x - bcast_to(t, x.ndim) * module(x, t, ctx, vec)
 
-    den = Denoiser(apply=apply, kind=ModelKind.FLOW, sigma_table=FlowSigmaTable(shift=shift),
+    den = Denoiser(apply=_data_rows(mesh, apply), kind=ModelKind.FLOW,
+                   sigma_table=FlowSigmaTable(shift=shift),
                    is_flux=False, name=name, latent_channels=config.in_channels, module=module)
     return den, module
 
@@ -593,6 +721,9 @@ def build_wan(
     param_dtype: torch.dtype = torch.float32,
     seed: int = 0,
     name: str = "wan",
+    mesh=None,
+    tp_axis: Optional[str] = None,
+    layer_axis: Optional[str] = None,
 ):
     """Build the Wan Denoiser on `device` (the CUDA card when None) with
     `param_dtype` parameters.
@@ -600,9 +731,17 @@ def build_wan(
     The model predicts the flow velocity, so x0 = x - t * v, on the
     `FlowSigmaTable(shift)` ladder.  `cond` is {"context"} (T5 features);
     the `precompute` hook adds "kv_cache", every block's cross-attention
-    k/v, once per sampler call (`WanModel.precompute_kv`)."""
-    module = _materialize(WanModel, config, state_dict, resolve_device(device), param_dtype,
-                          seed)
+    k/v, once per sampler call (`WanModel.precompute_kv`).  With a `mesh`,
+    this rank's share on its device: Megatron tensor parallelism over
+    `tp_axis` (`parallel.wan_tp_param_specs`'s layout), `blocks`
+    depth-sharded over `layer_axis`, the batch rows over "data", the output
+    all-gathered; no hoist (as `build_wan_seq_parallel`)."""
+    if mesh is not None and tp_axis is not None:
+        config = dataclasses.replace(config, tp_axis=tp_axis,
+                                     tp_size=axis_of(mesh, tp_axis).size)
+    rules = _layered(wan_layout_rules(tp_axis), layer_axis)
+    module = _module_for(WanModel, config, state_dict, device, param_dtype, seed, mesh, rules,
+                         layer_axis=layer_axis)
 
     @torch.no_grad()
     def apply(x, t, cond):
@@ -618,9 +757,10 @@ def build_wan(
             return cond
         return dict(cond, kv_cache=module.precompute_kv(cond["context"]))
 
-    den = Denoiser(apply=apply, kind=ModelKind.FLOW, sigma_table=FlowSigmaTable(shift=shift),
-                   name=name, latent_channels=config.in_channels, module=module,
-                   precompute=precompute)
+    den = Denoiser(apply=_data_rows(mesh, apply), kind=ModelKind.FLOW,
+                   sigma_table=FlowSigmaTable(shift=shift), name=name,
+                   latent_channels=config.in_channels, module=module,
+                   precompute=precompute if mesh is None else None)
     return den, module
 
 
@@ -652,9 +792,6 @@ def build_wan_seq_parallel(
     latent after every step.  The cross-attention k/v hoist stays off, as
     in the JAX package.  The frame count must divide over `seq_axis`, the
     batch over "data".  Returns (Denoiser, module)."""
-    from ..parallel.mesh import (all_gather, axis_index, axis_size, block, mesh_device,
-                                 wan_tp_param_specs)
-
     tp_size = axis_size(mesh, tp_axis) if tp_axis else 1
     sp_cfg = dataclasses.replace(config, seq_axis=seq_axis, tp_axis=tp_axis, tp_size=tp_size)
     if tp_axis:

@@ -43,10 +43,11 @@ SOURCES = {
     #  x / params / out bf16 flags, rms, eps, threads a block, threads a row, stream)
     "row_norm": (CSRC / "row_norm.cu", "lp_row_norm",
                  [_PTR] * 4 + [_I64] * 4 + [_INT] * 5 + [ctypes.c_float, _INT, _INT, _PTR]),
-    # (phase, seed, launch, coef_x, coef_y, x, v, x_od, c_old, c_new, mask,
-    #  out_x, out_v, out_x_od, rows, cols, noise_mult, threads, quads a thread, stream)
+    # (phase, seed, launch, element offset, coef_x, coef_y, x, v, x_od, c_old, c_new,
+    #  mask, out_x, out_v, out_x_od, rows, cols, noise_mult, threads, quads a thread, stream)
     "fused": (CSRC / "fused.cu", "lp_fused_think",
-              [_INT, _PTR, _I64] + [_PTR] * 11 + [_I64] * 2 + [ctypes.c_float, _INT, _INT, _PTR]),
+              [_INT, _PTR, _I64, _I64] + [_PTR] * 11 + [_I64] * 2
+              + [ctypes.c_float, _INT, _INT, _PTR]),
 }
 
 _ENTRIES: dict = {}

@@ -25,11 +25,14 @@ so no latent-sized noise tensor reaches device memory; and a launch is one
 ctypes call.  Its block shape is `BLOCK_SHAPE`, from
 `scripts/measure_torch_fused.py`.
 
-The draw.  Stream j of element e (flat index in (B, M)) is lane e % 4 of
-Philox4x32-10 with counter (e >> 2, launch, j, 0) and key (seed_lo,
-seed_hi), the 64 bits of a one-element int64 tensor on the card (drawn
-from the run's generator, so the loop needs no host sync); launch is the
-wrapper's `launch` argument.  Streams 0, 1, 2 are (ey, ev, vs) in the half
+The draw.  Stream j of element e (flat index in (B, M)) is lane g % 4 of
+Philox4x32-10 with counter (g >> 2, launch, j, 0) and key (seed_lo,
+seed_hi), where g = offset + e is the element's index in the whole batch
+(the wrapper's `offset`: a data-parallel rank's rows.start * M, 0 in one
+process, so the ranks together draw the one-process stream), the key the
+64 bits of a one-element int64 tensor on the card (drawn from the run's
+generator, so the loop needs no host sync); launch is the wrapper's
+`launch` argument.  Streams 0, 1, 2 are (ey, ev, vs) in the half
 step and (ey2, ev2, vs) in the finish.  A call's four words give two
 Box-Muller pairs: u1 = (w >> 8) * 2^-24 + 2^-25, u2 = (w' >> 8) * 2^-24,
 normals (r cos 2 pi u2, r sin 2 pi u2) with r = sqrt(-2 ln u1), as the TPU
@@ -173,26 +176,29 @@ def box_muller(w0, w1):
     return r * np.cos(turn).astype(np.float32), r * np.sin(turn).astype(np.float32)
 
 
-def philox_normals(seed, launch: int, b: int, m: int) -> torch.Tensor:
+def philox_normals(seed, launch: int, b: int, m: int, offset: int = 0) -> torch.Tensor:
     """The three (b, m) fp32 normals streams the kernel draws on a (b, m)
     view with `seed` (an int, or a one-element int64 tensor: its 64 bits
-    are the key) at `launch`, on the CPU: (3, b, m), streams 0, 1, 2."""
+    are the key) at `launch` and element `offset` (the view's first
+    element's index in the whole batch), on the CPU: (3, b, m), streams 0,
+    1, 2."""
     bits = int(seed) & 0xFFFFFFFFFFFFFFFF
     key = (bits & 0xFFFFFFFF, bits >> 32)
     n = b * m
-    quads = np.arange((n + 3) // 4, dtype=np.uint64)
+    first, lane = divmod(offset, 4)
+    quads = np.arange(first, (offset + n + 3) // 4, dtype=np.uint64)
     out = np.empty((3, quads.size, 4), np.float32)
     for j in range(3):
         w = philox4x32_10((quads, launch, j, 0), key)
         out[j, :, 0], out[j, :, 1] = box_muller(w[0], w[1])
         out[j, :, 2], out[j, :, 3] = box_muller(w[2], w[3])
-    return torch.from_numpy(out.reshape(3, -1)[:, :n].reshape(3, b, m).copy())
+    return torch.from_numpy(out.reshape(3, -1)[:, lane:lane + n].reshape(3, b, m).copy())
 
 
 # ---------------------------------------------------------------- the kernel
 
 
-def _check_cuda(name, seed, coef_x, coef_y, arrays):
+def _check_cuda(name, seed, coef_x, coef_y, arrays, offset=0):
     if any(t is None for t in arrays):
         raise ValueError(f"{name}: a latent array is missing")
     if arrays[0].dim() != 2:
@@ -211,9 +217,9 @@ def _check_cuda(name, seed, coef_x, coef_y, arrays):
     if (not isinstance(seed, torch.Tensor) or seed.device != arrays[0].device
             or seed.dtype != torch.int64 or seed.numel() != 1):
         raise ValueError(f"{name}: seed must be a one-element int64 tensor on {arrays[0].device}")
-    if b * m >= 2**31 or b > MAX_ROWS:
-        raise ValueError(f"{name}: {b} x {m} elements exceed the kernel's int32 indexing or "
-                         f"its {MAX_ROWS} rows")
+    if offset < 0 or offset + b * m >= 2**31 or b > MAX_ROWS:
+        raise ValueError(f"{name}: {b} x {m} elements at offset {offset} exceed the kernel's "
+                         f"int32 indexing or its {MAX_ROWS} rows")
 
 
 def _route(name, x, normals):
@@ -230,8 +236,8 @@ def _route(name, x, normals):
     return "cuda"
 
 
-def _launch(wrapper, phase, seed, launch, coef_x, coef_y, noise_mult, x, v=None, x_od=None,
-            c_old=None, c_new=None, mask=None, n_out=2, config=None):
+def _launch(wrapper, phase, seed, launch, offset, coef_x, coef_y, noise_mult, x, v=None,
+            x_od=None, c_old=None, c_new=None, mask=None, n_out=2, config=None):
     """Launch one phase and add one to `wrapper.launches`; `config`
     overrides `BLOCK_SHAPE` (a sweep).  Returns the n_out outputs."""
     b, m = x.shape
@@ -241,7 +247,7 @@ def _launch(wrapper, phase, seed, launch, coef_x, coef_y, noise_mult, x, v=None,
     threads, quads = config or BLOCK_SHAPE
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = cuda_build.entry("fused")(
-        phase, seed.data_ptr(), launch, coef_x.data_ptr(), coef_y.data_ptr(), x.data_ptr(),
+        phase, seed.data_ptr(), launch, offset, coef_x.data_ptr(), coef_y.data_ptr(), x.data_ptr(),
         ptr(v), ptr(x_od), ptr(c_old), ptr(c_new), mask.data_ptr(), outs[0].data_ptr(),
         outs[1].data_ptr(), ptr(outs[2] if n_out == 3 else None), b, m, noise_mult, threads,
         quads, cuda_build.stream_handle(x.device))
@@ -252,45 +258,48 @@ def _launch(wrapper, phase, seed, launch, coef_x, coef_y, noise_mult, x, v=None,
 
 
 def fused_half_step(coef_x, coef_y, noise_mult, x, v, c, mask, *, seed=None, launch: int = 0,
-                    normals=None):
+                    offset: int = 0, normals=None):
     """Pre-model phase of a think step on (B, M) fp32 tensors.
 
     A CPU tensor takes `fused_half_step_ref` with `normals` = (ey, ev, vs).
     A CUDA tensor launches the kernel, which draws its normals with Philox
-    (counter (e >> 2, `launch`, stream, 0), key `seed`, a one-element int64
-    tensor on the card; `philox_normals` is its CPU twin), or raises.  Each
-    launch adds one to `fused_half_step.launches`.  Returns (x_half,
-    v_half, x_half_overdamped)."""
+    (counter ((offset + e) >> 2, `launch`, stream, 0), lane (offset + e) %
+    4, key `seed`, a one-element int64 tensor on the card;
+    `philox_normals` is its CPU twin), or raises.  `offset`: the view's
+    first element's index in the whole batch (a data-parallel rank's
+    rows.start * M).  Each launch adds one to `fused_half_step.launches`.
+    Returns (x_half, v_half, x_half_overdamped)."""
     if _route("fused_half_step", x, normals) == "cpu":
         return fused_half_step_ref(coef_x, coef_y, noise_mult, x, v, c, mask, *normals)
-    _check_cuda("fused_half_step", seed, coef_x, coef_y, (x, v, c, mask))
-    return _launch(fused_half_step, HALF, seed, int(launch), coef_x, coef_y, float(noise_mult),
-                   x, v=v, c_old=c, mask=mask, n_out=3)
+    _check_cuda("fused_half_step", seed, coef_x, coef_y, (x, v, c, mask), int(offset))
+    return _launch(fused_half_step, HALF, seed, int(launch), int(offset), coef_x, coef_y,
+                   float(noise_mult), x, v=v, c_old=c, mask=mask, n_out=3)
 
 
 def fused_finish(coef_x, coef_y, noise_mult, warm: bool, x_in, x_half, v_half, x_half_od,
-                 c_old, c_new, mask, *, seed=None, launch: int = 0, normals=None):
+                 c_old, c_new, mask, *, seed=None, launch: int = 0, offset: int = 0,
+                 normals=None):
     """Post-model phase of a think step on (B, M) fp32 tensors; `warm` is
     a host bool (a compile-time flag of the kernel).  When cold, x_half,
     v_half, x_half_od and c_old are not read and may be None; when warm,
     x_in is not read.
 
     A CPU tensor takes `fused_finish_ref` with `normals` = (ey2, ev2, vs);
-    a CUDA tensor launches the kernel (normals from Philox, as in
-    `fused_half_step`) or raises.  Each launch adds one to
+    a CUDA tensor launches the kernel (normals from Philox at `offset`, as
+    in `fused_half_step`) or raises.  Each launch adds one to
     `fused_finish.launches`.  Returns (x, v)."""
     if _route("fused_finish", x_in, normals) == "cpu":
         return fused_finish_ref(coef_x, coef_y, noise_mult, warm, x_in, x_half, v_half,
                                 x_half_od, c_old, c_new, mask, *normals)
     if warm:
         _check_cuda("fused_finish", seed, coef_x, coef_y,
-                    (x_half, v_half, x_half_od, c_old, c_new, mask))
-        return _launch(fused_finish, WARM, seed, int(launch), coef_x, coef_y,
+                    (x_half, v_half, x_half_od, c_old, c_new, mask), int(offset))
+        return _launch(fused_finish, WARM, seed, int(launch), int(offset), coef_x, coef_y,
                        float(noise_mult), x_half, v=v_half, x_od=x_half_od, c_old=c_old,
                        c_new=c_new, mask=mask)
-    _check_cuda("fused_finish", seed, coef_x, coef_y, (x_in, c_new, mask))
-    return _launch(fused_finish, COLD, seed, int(launch), coef_x, coef_y, float(noise_mult),
-                   x_in, c_new=c_new, mask=mask)
+    _check_cuda("fused_finish", seed, coef_x, coef_y, (x_in, c_new, mask), int(offset))
+    return _launch(fused_finish, COLD, seed, int(launch), int(offset), coef_x, coef_y,
+                   float(noise_mult), x_in, c_new=c_new, mask=mask)
 
 
 fused_half_step.launches = 0

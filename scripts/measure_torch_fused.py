@@ -47,14 +47,14 @@ def cases(b, m, gen, seed) -> dict:
     xh, vh, xho = fused.fused_half_step(tx, ty, 1.0, x, v, c, mask, seed=seed, launch=0)
     launch = fused._launch
     return {
-        "half": (lambda cfg: launch(fused.fused_half_step, fused.HALF, seed, 0, tx, ty, 1.0, x,
+        "half": (lambda cfg: launch(fused.fused_half_step, fused.HALF, seed, 0, 0, tx, ty, 1.0, x,
                                     v=v, c_old=c, mask=mask, n_out=3, config=cfg),
                  lambda: fused.fused_half_step_ref(tx, ty, 1.0, x, v, c, mask, *d0)),
-        "warm": (lambda cfg: launch(fused.fused_finish, fused.WARM, seed, 1, tx, ty, 1.0, xh,
+        "warm": (lambda cfg: launch(fused.fused_finish, fused.WARM, seed, 1, 0, tx, ty, 1.0, xh,
                                     v=vh, x_od=xho, c_old=c, c_new=c_new, mask=mask, config=cfg),
                  lambda: fused.fused_finish_ref(tx, ty, 1.0, True, x, xh, vh, xho, c, c_new,
                                                 mask, *d1)),
-        "cold": (lambda cfg: launch(fused.fused_finish, fused.COLD, seed, 1, tx, ty, 1.0, x,
+        "cold": (lambda cfg: launch(fused.fused_finish, fused.COLD, seed, 1, 0, tx, ty, 1.0, x,
                                     c_new=c_new, mask=mask, config=cfg),
                  lambda: fused.fused_finish_ref(tx, ty, 1.0, False, x, None, None, None, None,
                                                 c_new, mask, *d1)),

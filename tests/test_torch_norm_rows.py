@@ -151,7 +151,8 @@ def test_launch_config_meets_the_kernel_contract(c):
 @pytest.fixture
 def recorded(monkeypatch):
     """Every row-norm call of a model forward: (name, shape, strides), each
-    checked by `row_geometry` on the way."""
+    checked by `row_geometry` on the way (every model reaches the kernels
+    through models/layers.py, Wan's full-width q / k norm too)."""
     calls = []
 
     def wrap(name, plain):
@@ -163,7 +164,6 @@ def recorded(monkeypatch):
 
     monkeypatch.setattr(layers, "layernorm", wrap("layernorm", tnorms.layernorm))
     monkeypatch.setattr(layers, "rmsnorm", wrap("rmsnorm", tnorms.rmsnorm))
-    monkeypatch.setattr(wan, "rmsnorm", wrap("rmsnorm", tnorms.rmsnorm))
     return calls
 
 

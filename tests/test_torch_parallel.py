@@ -18,7 +18,9 @@ Tolerances (those of tests/test_parallel.py):
 * the full sampler over the seq-parallel tiny Wan against JAX's
   one-device run through `noise_feed`: 3e-4;
 * data parallelism against the port's one-process run with the same seed
-  and against JAX through `noise_feed`: 1e-5;
+  (the fused think step too) and against JAX through `noise_feed`: 1e-5;
+* the fused kernels' draw at a rank's element offset against the
+  one-process draw's rows: bit for bit;
 * `tp_plan_bytes`: exactly JAX's.
 """
 
@@ -102,9 +104,10 @@ def _toy_apply(x, t, cond):
     return torch.broadcast_to(c_hat, x.shape)
 
 
-def _toy_sampler():
+def _toy_sampler(fused=False):
     toy = Denoiser(apply=_toy_apply, kind=ModelKind.EPS, sigma_table=EpsSigmaTable())
-    return LanPaintSampler(toy, config=LanPaintConfig(n_steps=2), sampler_name="euler", cfg=1.0)
+    return LanPaintSampler(toy, config=LanPaintConfig(n_steps=2, use_fused_kernels=fused),
+                           sampler_name="euler", cfg=1.0)
 
 
 def _wan_cfg():
@@ -150,6 +153,7 @@ def _four_ranks(rank, data):
               mask=t["dp_mask"])
     out["dp_seed"] = dp(seed=3, **kw)
     out["dp_feed"] = dp(seed=0, noise=t["dp_noise"], noise_feed=t["dp_feed"], **kw)
+    out["dp_fused"] = with_data_parallel(_toy_sampler(fused=True), mesh22)(seed=3, **kw)
     return out
 
 
@@ -384,6 +388,19 @@ def test_data_parallel_matches_one_process(four):
     np.testing.assert_allclose(fed.numpy(), want["dp_feed"], rtol=1e-5, atol=1e-5)
 
 
+def test_data_parallel_fused_matches_one_process(four):
+    """The fused think step (its plain versions on the CPU, each rank's
+    normals its rows of the whole batch's draw) under `with_data_parallel`
+    gives the one-process run with the same seed."""
+    data, _, got = four
+    kw = dict(latent=torch.from_numpy(data["dp_latent"]), sigmas=data["dp_sigmas"],
+              cond=torch.from_numpy(data["dp_cond"]), mask=torch.from_numpy(data["dp_mask"]))
+    samples, history = _toy_sampler(fused=True)(seed=3, **kw)
+    got_samples, got_history = _same_on_every_rank(got, "dp_fused")
+    np.testing.assert_allclose(got_samples.numpy(), samples.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got_history.numpy(), history.numpy(), rtol=1e-5, atol=1e-5)
+
+
 def test_data_parallel_refuses_the_semantic_stop():
     toy = Denoiser(apply=_toy_apply, kind=ModelKind.EPS, sigma_table=EpsSigmaTable())
     sam = LanPaintSampler(toy, config=LanPaintConfig(n_steps=2, inner_threshold=0.1))
@@ -391,13 +408,31 @@ def test_data_parallel_refuses_the_semantic_stop():
         with_data_parallel(sam, mesh=None)
 
 
-def test_data_parallel_refuses_fused_kernels_on_the_card():
-    """The fused kernels key their normals by the element's index in a
-    rank's rows: on a CUDA mesh every rank would draw rank 0's noise."""
+@pytest.mark.parametrize("b, m, ranks", [(4, 1000, 2), (4, 1001, 2), (3, 1001, 3),
+                                         (6, 7, 3), (4, 4 * 128 * 128, 4)])
+def test_data_parallel_fused_draw_is_the_one_process_draw(b, m, ranks):
+    """The fused kernels key their normals by the element's index in the
+    whole batch: the draw of each rank's rows at element offset rows.start
+    * M (what the engine passes for a `BatchRows` generator) is the
+    one-process draw's rows, offsets that are not multiples of 4 (M = 1001,
+    7) included, so `with_data_parallel` takes `use_fused_kernels`."""
+    from lanpaint_tpu_torch.ops.fused import philox_normals
+    from lanpaint_tpu_torch.parallel.mesh import block
+
+    seed = torch.tensor([0x1234_5678_9ABC], dtype=torch.int64)
+    whole = philox_normals(seed, 5, b, m)
+    offsets = []
+    for r in range(ranks):
+        rows = block(b, ranks, r)
+        offsets.append(rows.start * m)
+        got = philox_normals(seed, 5, rows.stop - rows.start, m, offset=rows.start * m)
+        assert torch.equal(got, whole[:, rows]), (r, rows)
+    assert any(o % 4 for o in offsets) == (m % 4 != 0)
     toy = Denoiser(apply=_toy_apply, kind=ModelKind.EPS, sigma_table=EpsSigmaTable())
     sam = LanPaintSampler(toy, config=LanPaintConfig(n_steps=2, use_fused_kernels=True))
-    with pytest.raises(ValueError, match="fused kernels"):
-        with_data_parallel(sam, mesh=types.SimpleNamespace(device_type="cuda"))
+    mesh = types.SimpleNamespace(device_type="cpu", mesh_dim_names=("data",), size=lambda d: 1,
+                                 get_group=lambda axis: None)
+    assert callable(with_data_parallel(sam, mesh))
 
 
 def test_init_world_cleans_up(tmp_path, monkeypatch):
