@@ -34,7 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import samplers
+from . import samplers, telemetry
 from .config import LanPaintConfig, ModelKind
 from .engine import BatchRows, ThinkAux, lanpaint_update, randn
 from .guidance import make_cfg_double_denoiser, resolve_cfg_big
@@ -160,96 +160,102 @@ class LanPaintSampler:
         RNG order: one `torch.Generator` on the latent's device, seeded with
         the seed's low 32 bits, draws the initial noise (unless `noise` is
         given or add_noise is off), then serves every think loop in
-        outer-step order (engine.py documents its draws)."""
+        outer-step order (engine.py documents its draws).
+
+        The call is a `sampler.job` span and each model-function call of
+        the solver a `sampler.step` span (`telemetry`)."""
         latent = torch.as_tensor(latent)
         device = latent.device
         sig_host = np.asarray(sigmas, dtype=np.float32)
         kind = self.model.kind
         total = int(sig_host.shape[0]) - 1
-        seed = _seed32(seed)
-        gen = torch.Generator(device=device).manual_seed(seed)
-        if batch_rows is not None:
-            gen = BatchRows(gen, *batch_rows)
-
-        if noise is not None:
-            noise = torch.as_tensor(noise, device=device, dtype=torch.float32)
-        elif add_noise:
-            noise = randn(latent.shape, gen, device)
-        else:
-            noise = torch.zeros(latent.shape, dtype=torch.float32, device=device)
-        think_noise = noise
-        if decoupled_noise:
-            think_gen = torch.Generator(device=device).manual_seed((seed + 1) & 0xFFFFFFFF)
+        with telemetry.span("sampler.job", device=device, sampler=self.sampler_name,
+                            steps=total, batch=int(latent.shape[0])):
+            seed = _seed32(seed)
+            gen = torch.Generator(device=device).manual_seed(seed)
             if batch_rows is not None:
-                think_gen = BatchRows(think_gen, *batch_rows)
-            think_noise = randn(latent.shape, think_gen, device)
-        b = latent.shape[0]
-        x_init = noise_scaling(
-            kind, torch.full((b,), float(sig_host[0]), device=device), noise, latent,
-            max_denoise=_max_denoise(sig_host, self.model.sigma_table))
-        sig_last = torch.as_tensor(sig_host[-1:], device=device)
-        if total <= 0:
-            out = (inverse_noise_scaling(kind, sig_last, x_init),
-                   x_init.new_zeros((0,) + tuple(x_init.shape)))
-            return out + (None,) if self.return_aux else out
+                gen = BatchRows(gen, *batch_rows)
 
-        cond = _to_device(cond, device)
-        uncond = None if uncond is None else _to_device(uncond, device)
-        if self.model.precompute is not None:
-            cond = self.model.precompute(cond)
-            if uncond is not None:
-                uncond = self.model.precompute(uncond)
-        denoise_at = self._denoise_at(cond, uncond)
+            if noise is not None:
+                noise = torch.as_tensor(noise, device=device, dtype=torch.float32)
+            elif add_noise:
+                noise = randn(latent.shape, gen, device)
+            else:
+                noise = torch.zeros(latent.shape, dtype=torch.float32, device=device)
+            think_noise = noise
+            if decoupled_noise:
+                think_gen = torch.Generator(device=device).manual_seed((seed + 1) & 0xFFFFFFFF)
+                if batch_rows is not None:
+                    think_gen = BatchRows(think_gen, *batch_rows)
+                think_noise = randn(latent.shape, think_gen, device)
+            b = latent.shape[0]
+            x_init = noise_scaling(
+                kind, torch.full((b,), float(sig_host[0]), device=device), noise, latent,
+                max_denoise=_max_denoise(sig_host, self.model.sigma_table))
+            sig_last = torch.as_tensor(sig_host[-1:], device=device)
+            if total <= 0:
+                out = (inverse_noise_scaling(kind, sig_last, x_init),
+                       x_init.new_zeros((0,) + tuple(x_init.shape)))
+                return out + (None,) if self.return_aux else out
 
-        def host_times(sigma):
-            # unified times on the CPU from the host sigma: the engine decides
-            # its loop length, and the sampler the expert, there without a
-            # device sync
-            return unify_times(torch.full((b,), float(sigma), dtype=torch.float32), kind)
+            cond = _to_device(cond, device)
+            uncond = None if uncond is None else _to_device(uncond, device)
+            if self.model.precompute is not None:
+                cond = self.model.precompute(cond)
+                if uncond is not None:
+                    uncond = self.model.precompute(uncond)
+            denoise_at = self._denoise_at(cond, uncond)
 
-        if mask is None:
-            def wrapped(x, sigma, step):
-                times = host_times(sigma)
-                t = times.flow_t if kind is ModelKind.FLOW else times.ve_sigma
-                out, _ = denoise_at(times)(x, t.to(device))
-                return out, x
-        else:
-            wrapped = self._inpaint_step(
-                denoise_at, host_times, prepare_mask(torch.as_tensor(mask, device=device),
-                                                     latent.shape, video),
-                latent, think_noise, total, gen, noise_feed)
+            def host_times(sigma):
+                # unified times on the CPU from the host sigma: the engine decides
+                # its loop length, and the sampler the expert, there without a
+                # device sync
+                return unify_times(torch.full((b,), float(sigma), dtype=torch.float32), kind)
 
-        collect = self.return_aux and mask is not None
-        chunk = total if not chunk_steps else max(1, int(chunk_steps))
-        if self.sampler_name == "dpm_fast":
-            # every launch sees the full ladder; its group range picks its share
-            segments = [(sig_host, None, 0, r) for r in _dpm_fast_ranges(total, chunk)]
-        else:
-            full_tables = samplers.prepare_tables(self.sampler_name, sig_host)
-            segments = [(sig_host[start:start + chunk + 1],
-                         {k: v[start:start + chunk] for k, v in full_tables.items()}, start, None)
-                        for start in range(0, total, chunk)]
-        x, carry = x_init, samplers.init_carry(x_init)
-        den_parts, auxs = [], []
-        for seg, tables, start, g_range in segments:
-            x, den, carry = samplers.sample(
-                wrapped, x, seg, sampler=self.sampler_name, generator=gen,
-                callback=self.callback, tables=tables, step_offset=start, carry_in=carry,
-                return_carry=True, collect_aux=collect, dpm_fast_range=g_range)
+            if mask is None:
+                def wrapped(x, sigma, step):
+                    with telemetry.span("sampler.step", step=step):
+                        times = host_times(sigma)
+                        t = times.flow_t if kind is ModelKind.FLOW else times.ve_sigma
+                        out, _ = denoise_at(times)(x, t.to(device))
+                    return out, x
+            else:
+                wrapped = self._inpaint_step(
+                    denoise_at, host_times, prepare_mask(torch.as_tensor(mask, device=device),
+                                                         latent.shape, video),
+                    latent, think_noise, total, gen, noise_feed)
+
+            collect = self.return_aux and mask is not None
+            chunk = total if not chunk_steps else max(1, int(chunk_steps))
+            if self.sampler_name == "dpm_fast":
+                # every launch sees the full ladder; its group range picks its share
+                segments = [(sig_host, None, 0, r) for r in _dpm_fast_ranges(total, chunk)]
+            else:
+                full_tables = samplers.prepare_tables(self.sampler_name, sig_host)
+                segments = [(sig_host[start:start + chunk + 1],
+                             {k: v[start:start + chunk] for k, v in full_tables.items()}, start,
+                             None) for start in range(0, total, chunk)]
+            x, carry = x_init, samplers.init_carry(x_init)
+            den_parts, auxs = [], []
+            for seg, tables, start, g_range in segments:
+                x, den, carry = samplers.sample(
+                    wrapped, x, seg, sampler=self.sampler_name, generator=gen,
+                    callback=self.callback, tables=tables, step_offset=start, carry_in=carry,
+                    return_carry=True, collect_aux=collect, dpm_fast_range=g_range)
+                if collect:
+                    den, seg_auxs = den
+                    auxs += seg_auxs
+                den_parts.append(den)
+            samples = inverse_noise_scaling(kind, sig_last, x)
+            den_all = den_parts[0] if len(den_parts) == 1 else torch.cat(den_parts)
+            if not self.return_aux:
+                return samples, den_all
+            aux = None
             if collect:
-                den, seg_auxs = den
-                auxs += seg_auxs
-            den_parts.append(den)
-        samples = inverse_noise_scaling(kind, sig_last, x)
-        den_all = den_parts[0] if len(den_parts) == 1 else torch.cat(den_parts)
-        if not self.return_aux:
-            return samples, den_all
-        aux = None
-        if collect:
-            aux = ThinkAux(steps_done=torch.tensor([a.steps_done for a in auxs],
-                                                   dtype=torch.int32),
-                           trace=torch.stack([a.trace for a in auxs]))
-        return samples, den_all, aux
+                aux = ThinkAux(steps_done=torch.tensor([a.steps_done for a in auxs],
+                                                       dtype=torch.int32),
+                               trace=torch.stack([a.trace for a in auxs]))
+            return samples, den_all, aux
 
     def _denoise_at(self, cond, uncond):
         """`denoise_at(times)`: the CFG double denoiser over the model, or
@@ -285,20 +291,21 @@ class LanPaintSampler:
                       else 1.0 - (denoise_mask > 0.5).float())
 
         def wrapped(x, sigma, step):
-            latent_mask = fixed_mask
-            if latent_mask is None:
-                dm = self.denoise_mask_fn(torch.tensor(float(sigma), device=device),
-                                          denoise_mask)
-                latent_mask = 1.0 - (dm > 0.5).float()
-            # Outer early stop: zero think steps in the tail (nodes.py:177-183).
-            n = 0 if total - step <= cfg_.outer_early_stop else cfg_.n_steps
-            times = host_times(sigma)
-            out, x_new, aux = lanpaint_update(
-                denoise_at(times), x, latent_image=latent, noise=think_noise,
-                latent_mask=latent_mask, times=times, n_steps=n, config=cfg_, kind=kind,
-                generator=gen,
-                noise_feed=None if noise_feed is None
-                else noise_feed[min(step, noise_feed.shape[0] - 1)])
+            with telemetry.span("sampler.step", step=step):
+                latent_mask = fixed_mask
+                if latent_mask is None:
+                    dm = self.denoise_mask_fn(torch.tensor(float(sigma), device=device),
+                                              denoise_mask)
+                    latent_mask = 1.0 - (dm > 0.5).float()
+                # Outer early stop: zero think steps in the tail (nodes.py:177-183).
+                n = 0 if total - step <= cfg_.outer_early_stop else cfg_.n_steps
+                times = host_times(sigma)
+                out, x_new, aux = lanpaint_update(
+                    denoise_at(times), x, latent_image=latent, noise=think_noise,
+                    latent_mask=latent_mask, times=times, n_steps=n, config=cfg_, kind=kind,
+                    generator=gen,
+                    noise_feed=None if noise_feed is None
+                    else noise_feed[min(step, noise_feed.shape[0] - 1)])
             return (out, x_new, aux) if self.return_aux else (out, x_new)
 
         return wrapped

@@ -20,6 +20,9 @@ whose exit reads device values.  Here the loop is a Python loop, and:
 * with the semantic stop on, the loop reads the device-side `stopped` flag
   once per inner step (one sync per step, as the reference's `.item()`).
 
+Each Langevin iteration (not the final denoise) is an `engine.think_iter`
+span (`telemetry`).
+
 The per-branch SHO/OU coefficients are computed on [B] scalars on the
 device of `times` and moved to the latent's device in ONE copy, then
 mixed by mask; the per-element work is pure multiply-add.
@@ -73,6 +76,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from . import telemetry
 from .config import LanPaintConfig, ModelKind
 from .ops import fused as fused_ops
 from .ops.sho import OUCoeffs, SHOCoeffs, ou_apply, ou_coeffs, sho_apply, sho_coeffs
@@ -300,6 +304,10 @@ def lanpaint_update(
     anchor = torch.zeros_like(x_t)
     anchor_valid = torch.zeros((), dtype=torch.bool, device=device)
     stopped = torch.zeros((), dtype=torch.bool, device=device)
+    # made on the device: a CPU scalar copied in would sync the stream each iteration
+    threshold_custom = (torch.full((), config.inner_threshold, dtype=torch.float32,
+                                   device=device)
+                        if semantic and config.distance_fn is not None else None)
 
     n_max = max(config.n_steps, 1)
     trace = torch.zeros((n_max, TRACE_WIDTH), dtype=torch.float32, device=device)
@@ -313,107 +321,109 @@ def lanpaint_update(
         # The only data-dependent exit reads the stop flag (semantic stop on).
         if i >= n_run or (config.semantic_stop_possible and bool(stopped)):
             break
-        warm = i > 0
-        if not on_card:  # on the card the kernels draw their own normals
-            if noise_feed is not None:
-                eps = noise_feed[min(i, noise_feed.shape[0] - 1)].to(device=device,
-                                                                      dtype=torch.float32)
-            else:
-                eps = randn((5,) + shape, generator, device, batch_dim=1)
-            eps_y1, eps_v1, eps_y2, eps_v2, eps_v0 = (eps.reshape(5, b, -1) if fused
-                                                      else eps).unbind(0)
-        if not fused:
-            # Stationary velocity ~ N(0, D^2/2) (reference utils.py:253-254); the
-            # cold-start velocity and the fallback where the damped step NaN'd.
-            v_stat = eps_v0 * params.d / math.sqrt(2.0)
-
-        # pre-model phase: the warm half step with the old C (the cold step
-        # evaluates the model at x_t)
-        if fused and warm:
-            xh, vh, xh_o = fused_ops.fused_half_step(
-                coef_x, coef_y, 1.0, flat(x_t), flat(v), flat(c_old), mask2, seed=seed,
-                launch=2 * i, offset=offset,
-                normals=None if on_card else (eps_y1, eps_v1, eps_v0))
-            x_eval = xh.view(shape)
-        elif warm:
-            xh_d, vh_d = sho_apply(params.sho_half, x_t, v, params.a, c_old, eps_y1, eps_v1)
-            xh_o = ou_apply(params.ou_half, x_t, c_old, eps_y1)
-            bad_h = ~(torch.isfinite(xh_d) & torch.isfinite(vh_d))
-            xh = torch.where(bad_h, xh_o, xh_d)
-            vh = torch.where(bad_h, v_stat, vh_d)
-            x_eval = xh
-        else:
-            xh = vh = xh_o = None
-            x_eval = x_t
-
-        x_model, t_model = vp_to_model_coords(kind, x_eval, times, ndim)
-        x0_raw, x0_big = denoise(x_model, t_model)
-        c_new, x0_eff = score_to_c(x_eval, x0_raw, x0_big)
-
-        # post-model phase
-        if fused:
-            normals = None if on_card else (
-                (eps_y2, eps_v2, eps_v0) if warm else (eps_y1, eps_v1, eps_v0))
-            x_new, v_new = (t.view(shape) for t in fused_ops.fused_finish(
-                coef_x, coef_y, 1.0, warm, flat(x_t), xh, vh, xh_o, flat(c_old), flat(c_new),
-                mask2, seed=seed, launch=2 * i + 1, offset=offset, normals=normals))
-        elif warm:
-            v_kick = vh + params.sqrt_gamma_dt * (c_new - c_old)
-            xf_d, vf_d = sho_apply(params.sho_half, xh, v_kick, params.a, c_old, eps_y2, eps_v2)
-            xk_o = xh_o + (c_new - c_old) * params.dt
-            xf_o = ou_apply(params.ou_half, xk_o, c_old, eps_y2)
-            bad_f = bad_h | ~(torch.isfinite(xf_d) & torch.isfinite(vf_d))
-            x_new = torch.where(bad_f, xf_o, xf_d)
-            v_new = torch.where(bad_f, v_stat, vf_d)
-        else:
-            # cold start: one full step with the freshly evaluated C
-            xc_d, vc_d = sho_apply(params.sho_full, x_t, v_stat, params.a, c_new, eps_y1, eps_v1)
-            xc_o = ou_apply(params.ou_full, x_t, c_new, eps_y1)
-            bad_c = ~(torch.isfinite(xc_d) & torch.isfinite(vc_d))
-            x_new = torch.where(bad_c, xc_o, xc_d)
-            v_new = torch.where(bad_c, v_stat, vc_d)
-
-        # ---- semantic early stop (earlystop.py:238-313) ----
-        if semantic:
-            if config.distance_fn is not None:
-                ctx = {"step": i, "n_steps": n_steps, "mask": mask,
-                       "latent_image": latent_f, "times": times}
-                dist = torch.as_tensor(config.distance_fn(x_t, x_new, ctx),
-                                       dtype=torch.float32, device=device)
-                threshold_used = torch.tensor(config.inner_threshold, dtype=torch.float32,
-                                              device=device)
-                d_in = d_ring = d_drift = zero_f
-                # custom metric: no drift guard
-                below = dist <= threshold_used
-                patience = torch.where(below, patience + 1, 0).to(torch.int32)
-            else:
-                if warm:
-                    d_in = _wmse(x0_eff, x0_prev, w_inpaint)
-                    d_ring = _wmse(x0_eff, x0_prev, w_ring) if w_ring is not None else d_in
-                    dist = torch.maximum(d_in, d_ring)
+        with telemetry.span("engine.think_iter", device=device, i=i):
+            warm = i > 0
+            if not on_card:  # on the card the kernels draw their own normals
+                if noise_feed is not None:
+                    eps = noise_feed[min(i, noise_feed.shape[0] - 1)].to(device=device,
+                                                                          dtype=torch.float32)
                 else:
-                    d_ring = (_wmse(x0_eff, x0_prev, w_ring) if w_ring is not None
-                              else _wmse(x0_eff, x0_prev, w_inpaint))
-                    dist = d_in = _wmse(x_new, x_t, w_inpaint)
-                threshold_used = threshold_eff
-                below0 = dist <= threshold_used
-                # Drift anchor (earlystop.py:295-305): on the first stable
-                # step record x0; afterwards fold in drift-from-anchor.
-                drift_in = _wmse(x0_eff, anchor, w_inpaint)
-                drift_ring = _wmse(x0_eff, anchor, w_ring) if w_ring is not None else drift_in
-                d_drift = torch.maximum(drift_in, drift_ring)
-                dist = torch.where(below0 & anchor_valid, torch.maximum(dist, d_drift), dist)
-                anchor = torch.where(below0 & ~anchor_valid, x0_eff, anchor)
-                anchor_valid0 = below0 & (anchor_valid | below0)
-                below = dist <= threshold_used
-                patience = torch.where(below, patience + 1, 0).to(torch.int32)
-                anchor_valid = below & anchor_valid0
-            stopped = stop_enabled & (patience >= patience_eff)
-            patience = torch.where(stop_enabled, patience, 0).to(torch.int32)
-            trace[i] = torch.stack([
-                torch.tensor(float(i + 1), device=device), dist.float(), d_in.float(),
-                d_ring.float(), d_drift.float(), torch.as_tensor(threshold_used).float(),
-                patience.float(), stopped.float()])
+                    eps = randn((5,) + shape, generator, device, batch_dim=1)
+                eps_y1, eps_v1, eps_y2, eps_v2, eps_v0 = (eps.reshape(5, b, -1) if fused
+                                                          else eps).unbind(0)
+            if not fused:
+                # Stationary velocity ~ N(0, D^2/2) (reference utils.py:253-254); the
+                # cold-start velocity and the fallback where the damped step NaN'd.
+                v_stat = eps_v0 * params.d / math.sqrt(2.0)
+
+            # pre-model phase: the warm half step with the old C (the cold step
+            # evaluates the model at x_t)
+            if fused and warm:
+                xh, vh, xh_o = fused_ops.fused_half_step(
+                    coef_x, coef_y, 1.0, flat(x_t), flat(v), flat(c_old), mask2, seed=seed,
+                    launch=2 * i, offset=offset,
+                    normals=None if on_card else (eps_y1, eps_v1, eps_v0))
+                x_eval = xh.view(shape)
+            elif warm:
+                xh_d, vh_d = sho_apply(params.sho_half, x_t, v, params.a, c_old, eps_y1, eps_v1)
+                xh_o = ou_apply(params.ou_half, x_t, c_old, eps_y1)
+                bad_h = ~(torch.isfinite(xh_d) & torch.isfinite(vh_d))
+                xh = torch.where(bad_h, xh_o, xh_d)
+                vh = torch.where(bad_h, v_stat, vh_d)
+                x_eval = xh
+            else:
+                xh = vh = xh_o = None
+                x_eval = x_t
+
+            x_model, t_model = vp_to_model_coords(kind, x_eval, times, ndim)
+            x0_raw, x0_big = denoise(x_model, t_model)
+            c_new, x0_eff = score_to_c(x_eval, x0_raw, x0_big)
+
+            # post-model phase
+            if fused:
+                normals = None if on_card else (
+                    (eps_y2, eps_v2, eps_v0) if warm else (eps_y1, eps_v1, eps_v0))
+                x_new, v_new = (t.view(shape) for t in fused_ops.fused_finish(
+                    coef_x, coef_y, 1.0, warm, flat(x_t), xh, vh, xh_o, flat(c_old), flat(c_new),
+                    mask2, seed=seed, launch=2 * i + 1, offset=offset, normals=normals))
+            elif warm:
+                v_kick = vh + params.sqrt_gamma_dt * (c_new - c_old)
+                xf_d, vf_d = sho_apply(params.sho_half, xh, v_kick, params.a, c_old, eps_y2, eps_v2)
+                xk_o = xh_o + (c_new - c_old) * params.dt
+                xf_o = ou_apply(params.ou_half, xk_o, c_old, eps_y2)
+                bad_f = bad_h | ~(torch.isfinite(xf_d) & torch.isfinite(vf_d))
+                x_new = torch.where(bad_f, xf_o, xf_d)
+                v_new = torch.where(bad_f, v_stat, vf_d)
+            else:
+                # cold start: one full step with the freshly evaluated C
+                xc_d, vc_d = sho_apply(params.sho_full, x_t, v_stat, params.a, c_new, eps_y1,
+                                       eps_v1)
+                xc_o = ou_apply(params.ou_full, x_t, c_new, eps_y1)
+                bad_c = ~(torch.isfinite(xc_d) & torch.isfinite(vc_d))
+                x_new = torch.where(bad_c, xc_o, xc_d)
+                v_new = torch.where(bad_c, v_stat, vc_d)
+
+            # ---- semantic early stop (earlystop.py:238-313) ----
+            if semantic:
+                if config.distance_fn is not None:
+                    ctx = {"step": i, "n_steps": n_steps, "mask": mask,
+                           "latent_image": latent_f, "times": times}
+                    dist = torch.as_tensor(config.distance_fn(x_t, x_new, ctx),
+                                           dtype=torch.float32, device=device)
+                    threshold_used = threshold_custom
+                    d_in = d_ring = d_drift = zero_f
+                    # custom metric: no drift guard
+                    below = dist <= threshold_used
+                    patience = torch.where(below, patience + 1, 0).to(torch.int32)
+                else:
+                    if warm:
+                        d_in = _wmse(x0_eff, x0_prev, w_inpaint)
+                        d_ring = _wmse(x0_eff, x0_prev, w_ring) if w_ring is not None else d_in
+                        dist = torch.maximum(d_in, d_ring)
+                    else:
+                        d_ring = (_wmse(x0_eff, x0_prev, w_ring) if w_ring is not None
+                                  else _wmse(x0_eff, x0_prev, w_inpaint))
+                        dist = d_in = _wmse(x_new, x_t, w_inpaint)
+                    threshold_used = threshold_eff
+                    below0 = dist <= threshold_used
+                    # Drift anchor (earlystop.py:295-305): on the first stable
+                    # step record x0; afterwards fold in drift-from-anchor.
+                    drift_in = _wmse(x0_eff, anchor, w_inpaint)
+                    drift_ring = (_wmse(x0_eff, anchor, w_ring) if w_ring is not None
+                                  else drift_in)
+                    d_drift = torch.maximum(drift_in, drift_ring)
+                    dist = torch.where(below0 & anchor_valid, torch.maximum(dist, d_drift), dist)
+                    anchor = torch.where(below0 & ~anchor_valid, x0_eff, anchor)
+                    anchor_valid0 = below0 & (anchor_valid | below0)
+                    below = dist <= threshold_used
+                    patience = torch.where(below, patience + 1, 0).to(torch.int32)
+                    anchor_valid = below & anchor_valid0
+                stopped = stop_enabled & (patience >= patience_eff)
+                patience = torch.where(stop_enabled, patience, 0).to(torch.int32)
+                trace[i] = torch.stack([
+                    torch.full((), float(i + 1), device=device), dist.float(), d_in.float(),
+                    d_ring.float(), d_drift.float(), torch.as_tensor(threshold_used).float(),
+                    patience.float(), stopped.float()])
 
         x_t, v, c_old, x0_prev = x_new, v_new, c_new, x0_eff
         i += 1

@@ -13,6 +13,8 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from . import telemetry
+
 # A "model x0 function": (x, t, cond) -> x0 prediction; cond is a tensor or
 # a (nested) dict / list / tuple of tensors batched along axis 0.
 ModelX0Fn = Callable[[torch.Tensor, torch.Tensor, Any], torch.Tensor]
@@ -65,7 +67,8 @@ def make_cfg_double_denoiser(
     With cfg == 1 (and the optimization not disabled) the uncond pass is
     skipped and BOTH outputs equal the cond prediction (nodes.py:86-89).
     `sequential` runs two B-sized passes instead of one 2B-sized pass (same
-    math, half the peak activation memory).  `pre_cfg_fns` see
+    math, half the peak activation memory).  Each model call is a
+    `model.forward` span (`telemetry`).  `pre_cfg_fns` see
     {"conds_out": [cond_pred, uncond_pred], "cond_scale", "input", "sigma"}
     and return the new conds_out list (nodes.py:94-97).
     """
@@ -76,7 +79,8 @@ def make_cfg_double_denoiser(
     if skip_uncond:
 
         def denoise_single(x, t):
-            x0_c = model_x0(x, t, cond)
+            with telemetry.span("model.forward", device=x.device, batch=x.shape[0]):
+                x0_c = model_x0(x, t, cond)
             return x0_c, x0_c
 
         return denoise_single
@@ -85,11 +89,15 @@ def make_cfg_double_denoiser(
         b = x.shape[0]
         tb = torch.broadcast_to(torch.as_tensor(t, device=x.device), (b,))
         if sequential:
-            x0_c = model_x0(x, tb, cond)
-            x0_u = model_x0(x, tb, uncond)
+            with telemetry.span("model.forward", device=x.device, batch=b):
+                x0_c = model_x0(x, tb, cond)
+            with telemetry.span("model.forward", device=x.device, batch=b):
+                x0_u = model_x0(x, tb, uncond)
         else:
-            out = model_x0(torch.cat([x, x], dim=0), torch.cat([tb, tb], dim=0),
-                           _concat_tree(cond, uncond))
+            args = (torch.cat([x, x], dim=0), torch.cat([tb, tb], dim=0),
+                    _concat_tree(cond, uncond))
+            with telemetry.span("model.forward", device=x.device, batch=2 * b):
+                out = model_x0(*args)
             x0_c, x0_u = out[:b], out[b:]
         for fn in (pre_cfg_fns or []):
             x0_c, x0_u = fn({"conds_out": [x0_c, x0_u], "cond_scale": cfg,
