@@ -144,9 +144,11 @@ exits non-zero without printing a result):
    a seeded hint in both conds;
 6. SDXL main path and 8. Flux main path: build, then LanPaintSampler twice
    (the first a 2-step warm-up); the second run is timed
-   and its kernel launches counted: the output is finite, the known region
-   equals the latent, the repainted region moved, and every kernel ran
-   exactly its expected number of times; then one Flux forward under
+   and its kernels counted in the card's trace (`telemetry.card_kernels`,
+   a UNet's graph replays among them): the output is finite, the known
+   region equals the latent, the repainted region moved, and every kernel
+   ran exactly its expected number of times (and where the run replayed
+   no graph, the wrappers issued exactly that); then one Flux forward under
    torch.profiler (kernel time against wall clock, the largest kernels);
 7. pixel path (phase 6's UNet, the SDXL VAE): the VAE's encode and decode
    timed alone, then one `api.inpaint_image` run, timed and counted: the
@@ -343,7 +345,7 @@ from torch.nn.attention import SDPBackend, sdpa_kernel
 from lanpaint_tpu_torch import (LanPaintConfig, LanPaintPipeline, LanPaintSampler, ModelKind, api,
                                 edit_image, inpaint_image, inpaint_video)
 from lanpaint_tpu_torch.engine import lanpaint_update
-from lanpaint_tpu_torch import parallel, pipeline, samplers, serve, text, tokenizers
+from lanpaint_tpu_torch import parallel, pipeline, samplers, serve, telemetry, text, tokenizers
 from lanpaint_tpu_torch.models import (dit, hidream, hyvideo, layers, load, lora, sd3, textenc,
                                        unet, vae, video_vae, vision, wan, zimage, zoo)
 from lanpaint_tpu_torch.native import loader as native_loader
@@ -1318,6 +1320,40 @@ def _want(path: str) -> dict:
     return want
 
 
+def _graph_replays() -> int:
+    return telemetry.summary()["graphs"]["replays"]
+
+
+@contextlib.contextmanager
+def _timed_and_counted():
+    """Time a block and count its kernels: yields a dict that holds, when
+    the block ends, `wall` (seconds to a synchronize), `card` (the port's
+    kernels the card ran, by family, from its trace, started before and
+    read after the timed span), `host` (the wrappers' launches, what the
+    host issued: a replayed graph's kernels pass no wrapper) and
+    `replays` (the graphs replayed)."""
+    result = {}
+    _zero_counters()
+    replays = _graph_replays()
+    with telemetry.card_kernels() as card:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield result
+        torch.cuda.synchronize()
+        result["wall"] = time.perf_counter() - t0
+    result.update(card=card, host={k: f.launches for k, f in COUNTERS.items()},
+                  replays=_graph_replays() - replays)
+
+
+def _launches_ok(counted: dict, want: dict) -> bool:
+    """The card ran every kernel `want` times, and where no graph was
+    replayed the host issued each wrapper's `want` (the row norm's two
+    modes are one kernel on the card)."""
+    return (counted["card"] == telemetry.families(want)
+            and (counted["replays"] > 0 or counted["host"] == {k: want.get(k, 0)
+                                                               for k in COUNTERS}))
+
+
 def _main_path(label, path, smi, den, module, t_init, run, warmup, latent) -> dict:
     n_params = sum(p.numel() for p in module.parameters())
     t0 = time.perf_counter()
@@ -1325,15 +1361,12 @@ def _main_path(label, path, smi, den, module, t_init, run, warmup, latent) -> di
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
 
-    _zero_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    out = run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with _timed_and_counted() as counted:
+        out = run()
+    wall, launches = counted["wall"], counted["card"]
     samples, den_hist = out if isinstance(out, tuple) else (out, out)  # ksampler: samples
-    launches = {k: f.launches for k, f in COUNTERS.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     side = latent.shape[-1]
@@ -1345,12 +1378,13 @@ def _main_path(label, path, smi, den, module, t_init, run, warmup, latent) -> di
     fwd = FORWARDS[path]
     want = _want(path)
     ok = (finite and samples.shape == latent.shape and known_err <= 1e-3 and moved > 1e-2
-          and launches == want)
+          and _launches_ok(counted, want))
     say(f"{label}: {n_params / 1e9:.3f} B params bf16 (init {t_init:.1f} s), {fwd} forwards | "
         f"first run {t_first:.2f} s, timed run {wall:.3f} s = {1e3 * wall / fwd:.2f} ms per "
         f"forward, peak {peak_gb:.1f} GB on {smi} | finite {finite} known-region max err "
-        f"{known_err:.3g} repainted mean change {moved:.3g} | launches {launches} "
-        f"(want {want}) {'ok' if ok else 'FAIL'}")
+        f"{known_err:.3g} repainted mean change {moved:.3g} | card's kernels {launches} "
+        f"(want {telemetry.families(want)}), graphs replayed {counted['replays']}, host "
+        f"issued {counted['host']} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{label} check failed")
     return launches
@@ -1409,19 +1443,17 @@ def _pixel_workflow(entry, den, model, source, path, **kw) -> tuple:
     overlap BLEND.  Checks that the output is finite and of the source's
     shape, that every pixel (of every frame) farther than the blend from the
     mask equals the source bit for bit, that the repainted region moved, and
-    that every kernel ran exactly as `path` expects.  Returns (ok,
-    launches, the result's text, the output)."""
+    that every kernel ran exactly as `path` expects (`_launches_ok`).
+    Returns (ok, the card's kernels by family, the result's text, the
+    output)."""
     hh, ww = source.shape[-2:]
     mask = _centre_mask(hh, ww)
     source_kw = {"video" if entry is inpaint_video else "image": source}
-    _zero_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    out = entry(den, model, mask=mask, blend_overlap=BLEND, **source_kw, **kw)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: f.launches for k, f in COUNTERS.items()}
+    with _timed_and_counted() as counted:
+        out = entry(den, model, mask=mask, blend_overlap=BLEND, **source_kw, **kw)
+    wall, launches = counted["wall"], counted["card"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     far = torch.ones((hh, ww), dtype=torch.bool, device="cuda")
@@ -1431,12 +1463,13 @@ def _pixel_workflow(entry, den, model, source, path, **kw) -> tuple:
     moved = float((out - source)[..., mask > 0].abs().mean())
     want = _want(path)
     ok = (finite and out.shape == source.shape and kept and moved > 1e-2
-          and launches == want)
+          and _launches_ok(counted, want))
     fwd = FORWARDS[path]
     text = (f"{fwd} forwards, timed run {wall:.3f} s = {1e3 * wall / fwd:.2f} ms per forward, "
             f"peak {peak_gb:.1f} GB | finite {finite} shape {tuple(out.shape)} beyond-blend "
-            f"pixels bit-equal {kept} repainted mean change {moved:.3g} | launches {launches} "
-            f"(want {want}) {'ok' if ok else 'FAIL'}")
+            f"pixels bit-equal {kept} repainted mean change {moved:.3g} | card's kernels "
+            f"{launches} (want {telemetry.families(want)}), graphs replayed "
+            f"{counted['replays']}, host issued {counted['host']} {'ok' if ok else 'FAIL'}")
     return ok, launches, text, out
 
 
@@ -2169,13 +2202,10 @@ def phase_serve(smi: str, directory: str, ref_pipe) -> dict:
     runner = serve.pipeline_runner(pipe, batch_size=2, progress=board)
     batches = []
 
-    def counted(batch):  # each batch's launches and seconds
-        before = {k: f.launches for k, f in COUNTERS.items()}
-        t0 = time.perf_counter()
-        out = runner(batch)
-        torch.cuda.synchronize()
-        batches.append({"lanes": len(batch), "seconds": time.perf_counter() - t0,
-                        "launches": {k: f.launches - before[k] for k, f in COUNTERS.items()}})
+    def counted(batch):  # each batch's seconds and the card's kernels
+        with _timed_and_counted() as one:
+            out = runner(batch)
+        batches.append({"lanes": len(batch), "seconds": one["wall"], "counted": one})
         return out
 
     srv = serve.InpaintServer(counted, batch_size=2, max_delay_s=1.5,
@@ -2202,7 +2232,6 @@ def phase_serve(smi: str, directory: str, ref_pipe) -> dict:
     def post(name, payload):
         answers[name] = _post(url + "/inpaint", payload)
 
-    _zero_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t_all = time.perf_counter()
@@ -2226,7 +2255,10 @@ def phase_serve(smi: str, directory: str, ref_pipe) -> dict:
         for t in second:
             t.join()
         wall = time.perf_counter() - t_all
-        launches = {k: f.launches for k, f in COUNTERS.items()}
+        launches = telemetry.families({})
+        for b in batches:
+            for k, n in b["counted"]["card"].items():
+                launches[k] += n
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         _, stats = _get(url + "/stats")
         _, done_entry = _get(url + "/progress?id=a")
@@ -2253,8 +2285,7 @@ def phase_serve(smi: str, directory: str, ref_pipe) -> dict:
     want_total = _want("serve")
     want_batch = {k: n // SERVE_BATCHES for k, n in want_total.items()}
     per_batch_ok = (len(batches) == SERVE_BATCHES
-                    and all(b["launches"] == {k: want_batch.get(k, 0) for k in COUNTERS}
-                            for b in batches))
+                    and all(_launches_ok(b["counted"], want_batch) for b in batches))
     seeds_differ = "a" in outs and "b" in outs and not np.array_equal(outs["a"], outs["b"])
     stats_ok = (stats["requests"] == 3 and stats["batches"] == SERVE_BATCHES
                 and stats["padded_lanes"] == 1 and stats["errors"] == 1)
@@ -2262,8 +2293,7 @@ def phase_serve(smi: str, directory: str, ref_pipe) -> dict:
                and len(done_entry.get("think_steps_done", [])) == STEPS
                and any(not d and s < STEPS for s, _, d in progress))
     bad_ok = answers["bad"][0] >= 400 and "image shape" in answers["bad"][1].get("error", "")
-    ok = (all(checks.values()) and per_batch_ok and launches == {k: want_total.get(k, 0)
-                                                                 for k in COUNTERS}
+    ok = (all(checks.values()) and per_batch_ok and launches == telemetry.families(want_total)
           and seeds_differ and stats_ok and prog_ok and bad_ok and health == {"ok": True})
     lat = {n: round(answers[n][2], 3) for n in ("a", "b", "c", "bad")}
     batch_s = [round(b["seconds"], 3) for b in batches]
@@ -2283,8 +2313,10 @@ def phase_serve(smi: str, directory: str, ref_pipe) -> dict:
         f"beyond-blend pixels bit-equal, repainted moved), seeds differ {seeds_differ}, bad "
         f"request HTTP {answers['bad'][0]} alone {bad_ok}, /stats {stats} {stats_ok}, /progress "
         f"polled {len(progress)} times, done {done_entry.get('done')} think_steps_done "
-        f"{done_entry.get('think_steps_done')} {prog_ok} | launches {launches} (want "
-        f"{want_total}), per batch {[b['launches'] for b in batches]} {per_batch_ok} on {smi} "
+        f"{done_entry.get('think_steps_done')} {prog_ok} | card's kernels {launches} (want "
+        f"{telemetry.families(want_total)}), per batch "
+        f"{[b['counted']['card'] for b in batches]}, graphs replayed "
+        f"{[b['counted']['replays'] for b in batches]} {per_batch_ok} on {smi} "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("phase 21 serving checks failed")
@@ -3554,18 +3586,17 @@ def kernels_line(rows: dict, launches: dict) -> list:
     a launched shape has no one PyTorch call computing the same function)."""
     meta = {
         "flash_attention": ("cuda", "lanpaint_tpu_torch/csrc/attention.cu",
-                            "lanpaint_tpu/models/layers.py:238; lanpaint_tpu/models/layers.py:131",
-                            ("flash_attention",)),
+                            "lanpaint_tpu/models/layers.py:238; lanpaint_tpu/models/layers.py:131"),
         "wide_attention": ("cuda", "lanpaint_tpu_torch/csrc/wide_attention.cu",
                            "lanpaint_tpu/models/layers.py:131 (_splash_kernel) via "
-                           "lanpaint_tpu/models/vae.py:81 and lanpaint_tpu/models/video_vae.py:159",
-                           ("wide_attention",)),
+                           "lanpaint_tpu/models/vae.py:81 and "
+                           "lanpaint_tpu/models/video_vae.py:159"),
         "row_norm": ("cuda", "lanpaint_tpu_torch/csrc/row_norm.cu",
-                     "lanpaint_tpu/ops/norms.py:93", ("layernorm", "rmsnorm")),
+                     "lanpaint_tpu/ops/norms.py:93"),
         "fused_half_step": ("cuda", "lanpaint_tpu_torch/csrc/fused.cu",
-                            "lanpaint_tpu/ops/fused.py:239", ("fused_half_step",)),
+                            "lanpaint_tpu/ops/fused.py:239"),
         "fused_finish": ("cuda", "lanpaint_tpu_torch/csrc/fused.cu",
-                         "lanpaint_tpu/ops/fused.py:259", ("fused_finish",)),
+                         "lanpaint_tpu/ops/fused.py:259"),
     }
 
     def run_launches(r):  # this shape's launches in the timed runs
@@ -3573,15 +3604,16 @@ def kernels_line(rows: dict, launches: dict) -> list:
                 + sum(r["run_calls"].values()))
 
     out = []
-    for name, (route, source, replaces, counters) in meta.items():
+    launches = {p: telemetry.families(c) for p, c in launches.items()}
+    for name, (route, source, replaces) in meta.items():
         weighted = [(r, run_launches(r)) for r in rows[name]]
         used = [(r, n) for r, n in weighted if n]
         by_ops = sum(r["bound_ms"] * n for r, n in used if r["bound_by"] == "operations")
         total_bound = sum(r["bound_ms"] * n for r, n in used)
         out.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": sum(launches[p][c] for p in launches for c in counters),
-            "launches_by_path": {p: sum(launches[p][c] for c in counters) for p in launches},
+            "launches": sum(c[name] for c in launches.values()),
+            "launches_by_path": {p: c[name] for p, c in launches.items()},
             "max_abs_err": max(r["err"] for r, _ in weighted),
             "ms": sum(r["ms"] * n for r, n in used),
             "plain_ms": sum(r["plain_ms"] * n for r, n in used),

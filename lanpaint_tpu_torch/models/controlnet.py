@@ -5,7 +5,7 @@ encoder half with a pixel-space hint encoder (`input_hint_block`, 8 convs
 downsampling the control image to latent resolution) and a
 zero-initialized 1x1 projection (`zero_conv_j`) after every skip position
 plus `middle_block_out`.  The produced residual dict plugs into
-`UNetModel.forward(..., control=...)`.
+`UNetModel.forward(..., control=...)` (documented at `UNetModel._forward`).
 
 Submodule names follow the flax module names (`input_hint_block.conv_j`,
 `zero_conv_j`, `middle_block_out`, and the UNet's `down_*`, `mid_*`), so

@@ -13,6 +13,11 @@ on a rank's heads (layers.SpatialTransformer), each whole where the axis
 does not divide its head count; convolutions, GroupNorm and the time
 embedding stay whole, as in the JAX package.  `zoo.build_unet(...,
 mesh=...)` builds the denoiser.
+
+On the card a whole model's forward replays as a CUDA graph, one a
+signature of its inputs (`models/graphs.py`): its ~2,550 launches at SDXL
+are issued as one.  `.to(...)`, `load_state_dict` and the like drop the
+graphs.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.mesh import NO_AXIS, Axis, axis_of
+from . import graphs
 from .layers import (
     Conv2d,
     Downsample,
@@ -179,8 +185,27 @@ class UNetModel(nn.Module):
         self.out_norm = GroupNorm32(mc)
         self.out_conv = Conv2d(mc, cfg.out_channels, 3, padding=1,
                                compute_dtype=torch.float32)
+        self._whole = mesh is None
+        self._graphs = graphs.Graphs()
 
     def forward(self, x, timesteps, context, y=None, control=None, kv_cache=None):
+        """The forward (`_forward`), replayed as a CUDA graph where
+        `graphs.Graphs` can (on the card, grad off) and the forward allows:
+        no `control` and a model built without a mesh (its collectives run
+        inside the forward)."""
+        eager = control is not None or not self._whole
+        return self._graphs(self._forward, x, timesteps, context, y, control, kv_cache,
+                            eager=eager)
+
+    def _apply(self, fn, recurse=True):
+        self._graphs.clear()  # `.to(...)`, `.half()`: a graph holds the old weights
+        return super()._apply(fn, recurse)
+
+    def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
+        self._graphs.clear()
+        return super().load_state_dict(state_dict, strict=strict, assign=assign)
+
+    def _forward(self, x, timesteps, context, y=None, control=None, kv_cache=None):
         """`control` (ControlNet residual injection): optional dict with
         "input" (list added to each skip activation as it is produced),
         "middle" (added after the middle block) and/or "output" (list added

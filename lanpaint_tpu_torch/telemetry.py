@@ -34,7 +34,12 @@ model's own input scaling and output conversion.
 `jobs(last=n)` resolves the kept records (host and device ms a span; the
 caller synchronises first, and an unfinished event pair gives None).
 `summary()` gives, per span name, the count and the p50 / p90 of host and
-device ms over the kept jobs, beside the kernel wrappers' launch counters.
+device ms over the kept jobs, beside the kernel wrappers' launch counters
+and the UNet's CUDA-graph counters (`models/graphs.py`: captures, replays
+and forwards run eagerly; replays over replays plus eager is the hit rate).
+The wrappers count the launches the host issues; `card_kernels()` counts
+the port's kernels that the card runs in a block, from its trace, a
+graph's replays among them.
 `enable(flag)` switches recording for the process.  It is on by default:
 a span costs ~3 us of host time, ~20-45 us with its event pair, a few
 ms a job of hundreds of forwards, and a recorder that must be switched
@@ -44,6 +49,8 @@ on is off where it would be read.  `reset()` forgets the kept jobs.
 from __future__ import annotations
 
 import collections
+import contextlib
+import re
 import threading
 import time
 
@@ -68,6 +75,7 @@ class Recorder:
         self._pool = {}  # device index -> free timing events
         self._lock = threading.Lock()
         self._local = threading.local()
+        self.graphs = {"captures": 0, "replays": 0, "eager": 0}  # models/graphs.py
 
     def _events(self, index: int) -> list:
         with self._lock:
@@ -108,7 +116,8 @@ class Recorder:
     def summary(self) -> dict:
         """Per span name over the kept jobs: count, and p50 / p90 of host
         ms and of device ms (None where no span has both events done),
-        with the kernel wrappers' `.launches` beside them."""
+        with the kernel wrappers' `.launches` and the CUDA-graph counters
+        (`count_graphs`) beside them."""
         kept = self.jobs()
         times = {}
         for job in kept:
@@ -125,7 +134,7 @@ class Recorder:
         return {"jobs": len(kept),
                 "spans": {name: {"count": len(host), "host_ms": pct(host), "device_ms": pct(dev)}
                           for name, (host, dev) in times.items()},
-                "launches": launches()}
+                "launches": launches(), "graphs": dict(self.graphs)}
 
 
 def _resolve(job: list) -> dict:
@@ -229,10 +238,68 @@ def summary() -> dict:
 
 
 def launches() -> dict:
-    """The six kernel wrappers' launch counters, as they stand."""
+    """The six kernel wrappers' launch counters, as they stand: the
+    launches the host issued through them, a graph's capture among them
+    and its replays not (`card_kernels` counts what the card ran)."""
     from .ops import attention, fused, norms
 
     return {f.__name__: f.launches for f in (
         attention.flash_attention, attention.wide_attention, norms.layernorm, norms.rmsnorm,
         fused.fused_half_step, fused.fused_finish)}
 
+
+def count_graphs(name: str) -> None:
+    """Count a graph captured ("captures"), or a forward replayed
+    ("replays") or run eagerly ("eager"), by `models/graphs.Graphs`."""
+    with RECORDER._lock:
+        RECORDER.graphs[name] += 1
+
+
+# The port's hand-written kernels (`csrc/*.cu`) by their symbol in a device
+# trace, and the family each is counted in: the row norm's two modes are
+# one kernel, and the fused think step's template phase tells its half
+# step (kHalf = 0) from its finishes (kWarm = 1, kCold = 2).  The trace
+# names them `void (anonymous namespace)::row_norm_kernel<...>(...)`; the
+# lookbehinds keep out PyTorch's own `pytorch_flash::flash_fwd_kernel`.
+_KERNEL = re.compile(r"(?<!\w)(?<!pytorch_flash::)"
+                     r"(flash_fwd_kernel|wide_fwd_kernel|row_norm_kernel|fused_think_kernel)<(\d*)")
+FAMILIES = ("flash_attention", "wide_attention", "row_norm", "fused_half_step", "fused_finish")
+
+
+def kernel_family(name: str):
+    """The family (`FAMILIES`) of the kernel named `name` (demangled) in a
+    device trace, or None where it is none of the port's."""
+    m = _KERNEL.search(name)
+    if m is None:
+        return None
+    kind, phase = m.groups()
+    if kind == "fused_think_kernel":
+        return "fused_half_step" if phase == "0" else "fused_finish"
+    return {"flash_fwd_kernel": "flash_attention", "wide_fwd_kernel": "wide_attention",
+            "row_norm_kernel": "row_norm"}[kind]
+
+
+def families(counts: dict) -> dict:
+    """Launch counts by wrapper name (`launches()`) or by family, by family
+    as `card_kernels` counts them."""
+    out = {f: counts.get(f, 0) for f in FAMILIES}
+    out["row_norm"] += counts.get("layernorm", 0) + counts.get("rmsnorm", 0)
+    return out
+
+
+@contextlib.contextmanager
+def card_kernels():
+    """Count the port's hand-written kernels that the card runs inside the
+    block, from a CUPTI trace of its device activity (`torch.profiler`): a
+    CUDA graph's replays among them, which pass no wrapper.  Yields
+    {family: 0} over `FAMILIES`, filled in when the block ends, after a
+    synchronize."""
+    counts = dict.fromkeys(FAMILIES, 0)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        yield counts
+        torch.cuda.synchronize()
+    for event in prof.profiler.kineto_results.events():
+        if event.device_type() == torch.autograd.DeviceType.CUDA:
+            family = kernel_family(event.name())
+            if family is not None:
+                counts[family] += 1
