@@ -673,22 +673,42 @@ def inpaint_video(
     spatial stride (8 for Wan2.1, 16 for Wan2.2); `mask` a (T, H, W) or
     (H, W) pixel mask, 1 = repaint (a 2D mask applies to every frame).
     Returns (B, 3, T, H, W); where the dilated, feathered mask is 0 the
-    result is `video` exactly."""
-    latent = vae.encode(video)
-    out_latent = ksampler(
-        model, seed=seed, steps=steps, cfg=cfg, sampler_name=sampler_name,
-        scheduler=scheduler, positive=positive, negative=negative, latent=latent, mask=mask,
-        num_steps=num_steps, prompt_mode=prompt_mode, video=True, **sampler_kwargs)
-    decoded = vae.decode(out_latent)
-    if blend_overlap <= 0:
-        return decoded
+    result is `video` exactly.
+
+    The call is a `pipeline.video` span (`telemetry`: a job record of its
+    own, the sampler's `sampler.job` inside it) holding `vae.encode`,
+    `vae.decode` and `video.blend` spans."""
+    device = video.device
     b, _, t, hh, ww = video.shape
-    m = torch.as_tensor(mask, dtype=torch.float32, device=video.device)
-    if m.ndim == 2:
-        m = m[None]
-    # fold the frames into the batch axis for the 2D blend
-    img_hwc = video.permute(0, 2, 3, 4, 1).reshape(b * t, hh, ww, 3)
-    dec_hwc = decoded.permute(0, 2, 3, 4, 1).reshape(b * t, hh, ww, 3).to(img_hwc.dtype)
-    mf = torch.broadcast_to(m, (b, t, hh, ww)).reshape(b * t, hh, ww)
-    blended = mask_blend(img_hwc, dec_hwc, mf, blend_overlap=blend_overlap)
-    return blended.reshape(b, t, hh, ww, 3).permute(0, 4, 1, 2, 3)
+    with telemetry.span("pipeline.video", device=device, frames=t, height=hh,
+                        width=ww) as job:
+        with telemetry.span("vae.encode", device=device):
+            latent = vae.encode(video)
+        job.attrs["tokens"] = _backbone_tokens(model, latent.shape)
+        out_latent = ksampler(
+            model, seed=seed, steps=steps, cfg=cfg, sampler_name=sampler_name,
+            scheduler=scheduler, positive=positive, negative=negative, latent=latent,
+            mask=mask, num_steps=num_steps, prompt_mode=prompt_mode, video=True,
+            **sampler_kwargs)
+        with telemetry.span("vae.decode", device=device):
+            decoded = vae.decode(out_latent)
+        if blend_overlap <= 0:
+            return decoded
+        with telemetry.span("video.blend", device=device):
+            m = torch.as_tensor(mask, dtype=torch.float32, device=device)
+            if m.ndim == 2:
+                m = m[None]
+            # fold the frames into the batch axis for the 2D blend
+            img_hwc = video.permute(0, 2, 3, 4, 1).reshape(b * t, hh, ww, 3)
+            dec_hwc = decoded.permute(0, 2, 3, 4, 1).reshape(b * t, hh, ww, 3).to(img_hwc.dtype)
+            mf = torch.broadcast_to(m, (b, t, hh, ww)).reshape(b * t, hh, ww)
+            blended = mask_blend(img_hwc, dec_hwc, mf, blend_overlap=blend_overlap)
+            return blended.reshape(b, t, hh, ww, 3).permute(0, 4, 1, 2, 3)
+
+
+def _backbone_tokens(model: Denoiser, latent_shape):
+    """The backbone's tokens a sample for a (B, C, F, h, w) latent: its
+    positions over the module's (pf, ph, pw) patch, or None where the
+    module has no one patch (an expert pair)."""
+    patch = getattr(getattr(model.module, "cfg", None), "patch", None)
+    return None if patch is None else math.prod(latent_shape[2:]) // math.prod(patch)

@@ -13,16 +13,22 @@
   With the profiler off the span does not call it (it costs ~10 us a
   call even then).
 
-Spans nest.  A `sampler.job` span opened outside any other starts a job
-record, which collects every span opened inside it on the same thread:
-name, parent, host start and end, the event pair and the attrs.  Spans
-opened outside a job are not recorded.  The recorder keeps the last `KEEP`
-jobs; an evicted job's events go back to the pool.
+Spans nest.  A job root (`JOB_ROOTS`: `pipeline.video` or `sampler.job`)
+opened outside any other span starts a job record, which collects every
+span opened inside it on the same thread: name, parent, host start and
+end, the event pair and the attrs.  A `sampler.job` inside a
+`pipeline.video` joins that record as a child.  Spans opened outside a job
+are not recorded.  The recorder keeps the last `KEEP` jobs; an evicted
+job's events go back to the pool.
 
 The port's spans:
 
 | span | placed in | events | attrs |
 | --- | --- | --- | --- |
+| `pipeline.video` | `api.inpaint_video`, whole body | yes | frames, height, width, tokens |
+| `vae.encode` | `api.inpaint_video`, the VAE encode | yes | |
+| `vae.decode` | `api.inpaint_video`, the VAE decode | yes | |
+| `video.blend` | `api.inpaint_video`, the per-frame MaskBlend | yes | |
 | `sampler.job` | `api.LanPaintSampler.__call__` | yes | sampler, steps, batch |
 | `sampler.step` | the solver's model function (`api`): one a model-function call | no | step |
 | `engine.think_iter` | each Langevin iteration of `engine.lanpaint_update` | yes | i |
@@ -58,7 +64,7 @@ import numpy as np
 import torch
 
 KEEP = 64  # jobs kept
-JOB = "sampler.job"
+JOB_ROOTS = ("pipeline.video", "sampler.job")  # spans that start a job record
 
 
 class _Entry:
@@ -165,6 +171,11 @@ class _Span:
         self._rec, self._name, self._device, self._attrs = rec, name, device, attrs
         self._entry = self._annotation = None
 
+    @property
+    def attrs(self) -> dict:
+        """The span's attrs, which the block may add to before it ends."""
+        return self._attrs
+
     def __enter__(self):
         rec = self._rec
         if not rec.enabled:
@@ -175,7 +186,7 @@ class _Span:
         local = rec._local
         job = getattr(local, "job", None)
         if job is None:
-            if self._name != JOB:
+            if self._name not in JOB_ROOTS:
                 return self
             job = local.job = []
             local.stack = []

@@ -90,6 +90,69 @@ def test_a_job_opens_its_spans_nested(sequential, forwards):
             assert s["start_ms"] + s["host_ms"] <= p["start_ms"] + p["host_ms"] + 1e-6
 
 
+def _video_job(steps=3):
+    """A tiny `inpaint_video` job: the tiny Wan DiT and Wan2.2 VAE, random
+    weights, a (1, 3, 5, 32, 32) clip, a square mask on every frame."""
+    from lanpaint_tpu_torch.models import video_vae, zoo
+
+    den, _ = zoo.build_tiny_wan(device="cpu", seed=1)
+    vae = zoo.build_wan_vae(video_vae.TINY_WAN22_VAE_CONFIG, device="cpu", seed=2)
+    clip = torch.from_numpy(np.random.default_rng(4).uniform(
+        -1, 1, (1, 3, 5, 32, 32)).astype(np.float32))
+    mask = torch.zeros((32, 32))
+    mask[8:24, 8:24] = 1.0
+    ctx = {"context": torch.ones((1, 6, 32))}
+    return api.inpaint_video(den, vae, video=clip, mask=mask, positive=ctx,
+                             negative={"context": torch.zeros((1, 6, 32))}, seed=3,
+                             steps=steps, num_steps=2, blend_overlap=5)
+
+
+VIDEO = ("pipeline.video", "vae.encode", "sampler.job", "vae.decode", "video.blend")
+
+
+def test_a_video_job_is_one_record_nested_as_placed():
+    """`pipeline.video` starts the record; the VAE's encode, the sampler's
+    own job, the decode and the blend are its children in that order, and
+    the sampler's spans sit inside `sampler.job` as in an image job."""
+    _video_job()
+    (job,) = telemetry.jobs()
+    spans = job["spans"]
+    names = _names(job)
+    assert names[0] == "pipeline.video" and spans[0]["parent"] is None
+    assert job["attrs"] == {"frames": 5, "height": 32, "width": 32, "tokens": 3 * 2 * 2}
+    top = [s["name"] for s in spans if s["parent"] == 0]
+    assert top == list(VIDEO[1:])
+    assert [names.count(n) for n in VIDEO] == [1] * 5
+    sjob = names.index("sampler.job")
+    assert spans[sjob]["attrs"] == {"sampler": "euler", "steps": 3, "batch": 1}
+    inner = names[sjob + 1:names.index("vae.decode")]
+    assert [inner.count(n) for n in NAMES[1:]] == [3, 4, 7]
+    assert all(spans[i]["parent"] == sjob for i, n in enumerate(names) if n == "sampler.step")
+
+
+def test_a_ksampler_job_alone_is_recorded_as_before():
+    """Outside a video pipeline `sampler.job` is the record's root and the
+    record holds the sampler's four span names only."""
+    _job()
+    (job,) = telemetry.jobs()
+    assert job["spans"][0]["name"] == "sampler.job" and job["spans"][0]["parent"] is None
+    assert set(_names(job)) == set(NAMES)
+    assert job["attrs"] == {"sampler": "euler", "steps": 3, "batch": 1}
+
+
+def test_spans_outside_either_root_are_not_recorded():
+    for name in ("vae.encode", "vae.decode", "video.blend", "sampler.step", "model.forward"):
+        with telemetry.span(name):
+            with telemetry.span("engine.think_iter", i=0):
+                pass
+    assert telemetry.jobs() == []
+    with telemetry.span("pipeline.video", frames=1):
+        with telemetry.span("sampler.job"):
+            pass
+    (job,) = telemetry.jobs()
+    assert _names(job) == ["pipeline.video", "sampler.job"]
+
+
 def test_the_mask_less_path_spans_steps_and_forwards():
     latent = torch.ones((1, 4, 8, 8))
     sam = api.LanPaintSampler(_toy(), config=LanPaintConfig(n_steps=2), cfg=2.0)
