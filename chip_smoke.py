@@ -396,16 +396,23 @@ PER_FORWARD = {  # kernel launches per model forward
     # 19 double + 38 single blocks; adaLN norms 4 + 1 per block + 1 final;
     # QKNorm 4 per double block, 2 per single block
     "flux": {"flash_attention": 57, "layernorm": 115, "rmsnorm": 152},
-    # 30 blocks: self-attention; norm1, norm2, norm3 + the head's norm;
-    # self q, self k and cross q RMS norms
-    "video": {"flash_attention": 30, "layernorm": 91, "rmsnorm": 90},
-    "pair": {"flash_attention": 40, "layernorm": 121, "rmsnorm": 120},  # 40 blocks
+    # 30 blocks: self-attention and the cross-attention over the 512 text
+    # tokens (S >= 1,024 queries: the kernel takes Sk != S), two a block;
+    # norm1, norm2, norm3 + the head's norm; self q, self k and cross q RMS
+    # norms
+    "video": {"flash_attention": 60, "layernorm": 91, "rmsnorm": 90},
+    "pair": {"flash_attention": 80, "layernorm": 121, "rmsnorm": 120},  # 40 blocks
 }
 # the seq-parallel TI2V-5B: ring self-attention (plain fp32, no kernel), the
-# video path's norms, and the cross norm_k of each block in the forward (no
-# hoist on the parallel path)
-PER_FORWARD["parallel"] = {"flash_attention": 0, "layernorm": 91, "rmsnorm": 120}
+# cross-attention through the kernel (a rank's 7,920 queries over the 512
+# text tokens), the video path's norms, and the cross norm_k of each block
+# in the forward (no hoist on the parallel path)
+PER_FORWARD["parallel"] = {"flash_attention": 30, "layernorm": 91, "rmsnorm": 120}
 PER_FORWARD["pixel"] = PER_FORWARD["pipeline"] = PER_FORWARD["serve"] = PER_FORWARD["sdxl"]
+# of each path's flash_attention launches, the cross-attention ones
+# (`telemetry.summary()["cross_launches"]`): Wan's, one a block; none
+# elsewhere (the UNet's 77-token cross-attention stays plain)
+CROSS_PER_FORWARD = {"video": 30, "pair": 40, "parallel": 30}
 # a rank's tensor-2 SDXL: every block on its half of the heads (10 and 20
 # heads: 5 and 10), the blocks' LayerNorms whole
 PER_FORWARD["tp"] = PER_FORWARD["sdxl"]
@@ -458,7 +465,10 @@ PER_RUN["hidream"] = PER_RUN["hyvideo"] = PER_RUN["controlnet"] = PER_RUN["paral
 PER_RUN["serve"] = {"fused_half_step": 0, "fused_finish": 0, "wide_attention": 2 * SERVE_BATCHES}
 BLEND = 9  # MaskBlend overlap of the pixel and video paths
 SPLASH = "lanpaint_tpu/models/layers.py:131 (_splash_kernel)"
-# (shape, calls per forward by path, TPU kernel it replaces)
+# the JAX package's cross-attention: attention_bshd(impl="auto") -> XLA
+XLA_CROSS = "lanpaint_tpu/models/layers.py:176 (attention_bshd, XLA)"
+# (shape (B, S, H, D) or (B, S, H, D, Sk) for k and v of Sk rows, calls per
+# forward by path, TPU kernel or call it replaces)
 ATTN_SHAPES = [
     ((1, 4096, 10, 64), {"sdxl": 10, "pixel": 10, "pipeline": 10, "controlnet": 14}, SPLASH),
     ((1, 1024, 20, 64), {"sdxl": 60, "pixel": 60, "pipeline": 60, "controlnet": 90},
@@ -475,6 +485,17 @@ ATTN_SHAPES = [
     ((1, 14040, 40, 128), {"pair": 40}, SPLASH),  # T2V-A14B at 480x832 x 33 frames
     ((2, 1000, 4, 64), {}, None),
     ((2, 1000, 4, 128), {}, None),
+    # Wan's cross-attention over its 512 text tokens: the benchmark's
+    # batch-2 CFG, TI2V-5B (sequential CFG here; the seq-parallel rank's
+    # too) and T2V-A14B; q contiguous, k and v views of the hoisted cache
+    ((2, 7920, 24, 128, 512), {}, XLA_CROSS),
+    ((1, 7920, 24, 128, 512), {"video": 30, "parallel": 30}, XLA_CROSS),
+    ((1, 14040, 40, 128, 512), {"pair": 40}, XLA_CROSS),
+    # a ragged key run of 77 (CLIP's text length): SDXL's 4,096-level cross
+    # shape at batch-2 CFG (the UNet's stays plain), and ragged S and Sk
+    ((2, 4096, 10, 64, 77), {}, XLA_CROSS),
+    ((2, 1000, 4, 64, 77), {}, None),
+    ((2, 1000, 4, 128, 77), {}, None),
 ]
 # the VAEs' mid attention (one head of 512, 640 or 384): (shape, calls per
 # run by path, TPU call site)
@@ -640,11 +661,12 @@ def phase_device() -> str:
     return smi
 
 
-# kernel instantiations each CUDA library must hold: the attention kernels
-# one per head dim, the row norm one per (x dtype, out dtype, vectors a
-# thread) of fp32 / bf16 and 1, 2, 4, 8, the fused think step one per
-# (phase, quads a thread) of half / warm / cold and 1, 2
-INSTANTIATIONS = {"attention": len(attention.SUPPORTED_HEAD_DIMS),
+# kernel instantiations each CUDA library must hold: the D <= 128 attention
+# two per head dim (a block a query tile, and persistent for short key
+# runs), the wide attention one per head dim, the row norm one per (x dtype,
+# out dtype, vectors a thread) of fp32 / bf16 and 1, 2, 4, 8, the fused
+# think step one per (phase, quads a thread) of half / warm / cold and 1, 2
+INSTANTIATIONS = {"attention": 2 * len(attention.SUPPORTED_HEAD_DIMS),
                   "wide_attention": len(attention.WIDE_HEAD_DIMS), "row_norm": 2 * 2 * 4,
                   "fused": 3 * 2}
 WGMMA_LIBRARIES = ("attention", "wide_attention")
@@ -689,14 +711,17 @@ def phase_build() -> None:
 
 def _instantiation(mangled: str) -> str:
     """A kernel instantiation named by its template arguments: D for the
-    attention kernels, the mangled (x dtype, out dtype, vectors) for the
-    row norm, (phase, quads a thread) for the fused think step."""
+    attention kernels (and "persistent" for the D <= 128 kernel's short-key
+    instantiation), the mangled (x dtype, out dtype, vectors) for the row
+    norm, (phase, quads a thread) for the fused think step."""
     if "row_norm_kernelI" in mangled:
         return "row_norm<" + mangled.split("row_norm_kernelI", 1)[1].split("EEv", 1)[0] + ">"
     args = re.findall(r"Li(\d+)E", mangled)
     if "fused_think_kernelI" in mangled:
         return f"fused<{('half', 'warm', 'cold')[int(args[0])]}, {args[1]} quads>"
-    return "D=" + "x".join(args) if args else mangled
+    if not args:
+        return mangled
+    return "D=" + "x".join(args) + (" persistent" if "Lb1E" in mangled else "")
 
 
 def sass_counts(lib) -> dict:
@@ -737,17 +762,31 @@ def _qkv_views(b, s, h, d, gen):
     return [t.unflatten(-1, (h, d)) for t in qkv.chunk(3, dim=-1)]
 
 
+def _cross_views(b, s, sk, h, d, gen):
+    """q, k, v as Wan's cross-attention hands them over: q a contiguous
+    (B, S, H, D) norm output, k and v block 1's (B, Sk, H, D) views of a
+    hoisted (B, 2, Sk, H * D) cache."""
+    q = torch.randn((b, s, h, d), device="cuda", generator=gen).to(torch.bfloat16)
+    k, v = (torch.randn((b, 2, sk, h * d), device="cuda", generator=gen).to(torch.bfloat16)
+            [:, 1].unflatten(-1, (h, d)) for _ in range(2))
+    return q, k, v
+
+
 def _kernel_attention(gen, kernel=attention.flash_attention, shapes=ATTN_SHAPES,
                       per_run=False) -> list:
     """Each shape through `kernel` against `attention_ref` in fp32, then
     timed against `attention_ref` on the same bf16 inputs."""
     rows = []
     for shape, calls, *replaces in shapes:
-        b, s, h, d = shape
-        flops = 4 * b * h * s * s * d
-        q, k, v = _qkv_views(b, s, h, d, gen)
-        if s % 8:  # a ragged S: contiguous inputs
-            q, k, v = (t.contiguous() for t in (q, k, v))
+        b, s, h, d = shape[:4]
+        sk = shape[4] if len(shape) > 4 else s
+        flops, n_bytes = 4 * b * h * s * sk * d, 4 * b * h * d * (s + sk)
+        if sk != s:
+            q, k, v = _cross_views(b, s, sk, h, d, gen)
+        else:
+            q, k, v = _qkv_views(b, s, h, d, gen)
+            if s % 8:  # a ragged S: contiguous inputs
+                q, k, v = (t.contiguous() for t in (q, k, v))
         out = kernel(q, k, v)
         torch.cuda.synchronize()
         want = _plain_attention(q.float(), k.float(), v.float())
@@ -761,12 +800,13 @@ def _kernel_attention(gen, kernel=attention.flash_attention, shapes=ATTN_SHAPES,
         backends = _sdpa_backends(q, k, v)
         r = timed_row(lambda: kernel(q, k, v), lambda: _plain_attention(q, k, v), err,
                       {} if per_run else calls, run_calls=calls if per_run else None,
-                      bounds=bound(4 * b * s * h * d * 2, flops, PEAK_BF16),
+                      bounds=bound(n_bytes, flops, PEAK_BF16),
                       library=lambda: _sdpa(q, k, v),
                       library_name="scaled_dot_product_attention, backends that take it: "
                                    + ("/".join(backends) or "math only"),
-                      shape=shape, replaces=replaces[0] if replaces else None)
-        say(f"phase 3 kernels: {kernel.__name__} {shape} max_abs_err {err:.3g} rel_l2 "
+                      shape=shape[:4], kv_len=sk, replaces=replaces[0] if replaces else None)
+        label = shape[:4] if sk == s else f"{shape[:4]} x Sk {sk}"
+        say(f"phase 3 kernels: {kernel.__name__} {label} max_abs_err {err:.3g} rel_l2 "
             f"{rel:.3g} {row_text(r)}, {flops / r['us'] / 1e6:.1f} TFLOP/s = "
             f"{100 * 1e3 * r['bound_ms'] / r['us']:.1f}% of the bound ok")
         rows.append(r)
@@ -1310,6 +1350,15 @@ COUNTERS = {"flash_attention": attention.flash_attention,
 def _zero_counters() -> None:
     for f in COUNTERS.values():
         f.launches = 0
+    attention.flash_attention.cross_launches = 0
+
+
+def _cross_ok(path: str) -> tuple:
+    """(the cross-attention launches since `_zero_counters` as
+    `telemetry.summary()` reports them, the path's want, equal)."""
+    got = telemetry.summary()["cross_launches"]
+    want = CROSS_PER_FORWARD.get(path, 0) * FORWARDS[path]
+    return got, want, got == want
 
 
 def _want(path: str) -> dict:
@@ -1462,14 +1511,16 @@ def _pixel_workflow(entry, den, model, source, path, **kw) -> tuple:
     kept = torch.equal(out[..., far], source[..., far])
     moved = float((out - source)[..., mask > 0].abs().mean())
     want = _want(path)
+    cross, cross_want, cross_ok = _cross_ok(path)
     ok = (finite and out.shape == source.shape and kept and moved > 1e-2
-          and _launches_ok(counted, want))
+          and _launches_ok(counted, want) and cross_ok)
     fwd = FORWARDS[path]
     text = (f"{fwd} forwards, timed run {wall:.3f} s = {1e3 * wall / fwd:.2f} ms per forward, "
             f"peak {peak_gb:.1f} GB | finite {finite} shape {tuple(out.shape)} beyond-blend "
             f"pixels bit-equal {kept} repainted mean change {moved:.3g} | card's kernels "
             f"{launches} (want {telemetry.families(want)}), graphs replayed "
-            f"{counted['replays']}, host issued {counted['host']} {'ok' if ok else 'FAIL'}")
+            f"{counted['replays']}, host issued {counted['host']}, cross-attention launches "
+            f"{cross} (want {cross_want}) {'ok' if ok else 'FAIL'}")
     return ok, launches, text, out
 
 
@@ -3137,14 +3188,16 @@ def phase_parallel(smi: str) -> dict:
         known_err = float((samples - latent)[known].abs().max())
         moved = float((samples - latent)[~known].abs().mean())
         want = _want("parallel")
-        ok = finite and known_err <= 1e-3 and moved > 1e-2 and launches == want
+        cross, cross_want, cross_ok = _cross_ok("parallel")
+        ok = finite and known_err <= 1e-3 and moved > 1e-2 and launches == want and cross_ok
         axes = dict(zip(mesh.mesh_dim_names, mesh.shape))
         say(f"phase 22 parallel path: LanPaintSampler over build_wan_seq_parallel (mesh {axes}, "
             f"{dist.get_backend()}), euler simple {SP_STEPS} x think {SP_THINK}, cfg 1, "
             f"{FORWARDS['parallel']} forwards, init {t_init:.1f} s | run {wall:.3f} s = "
             f"{1e3 * wall / FORWARDS['parallel']:.2f} ms per forward, peak {peak:.1f} GB on "
             f"{smi} | finite {finite} known-region max err {known_err:.3g} repainted mean "
-            f"change {moved:.3g} | launches {launches} (want {want}) {'ok' if ok else 'FAIL'}")
+            f"change {moved:.3g} | launches {launches} (want {want}), cross-attention "
+            f"launches {cross} (want {cross_want}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("phase 22 parallel sampler check failed")
         del sam, sp, sp_module, samples
@@ -3621,7 +3674,8 @@ def kernels_line(rows: dict, launches: dict) -> list:
             "bound_by": "operations" if by_ops >= total_bound / 2 else "bytes",
             "library_ms": (sum(r["library_ms"] * n for r, n in used)
                            if all(r["library_ms"] is not None for r, _ in used) else None),
-            "per_shape": [{"shape": list(r["shape"]), "mode": r.get("mode"),
+            "per_shape": [{"shape": list(r["shape"]), "kv_len": r.get("kv_len"),
+                           "mode": r.get("mode"),
                            "launches_per_forward": r["calls"], "launches_per_run": r["run_calls"],
                            "ms": r["ms"], "plain_ms": r["plain_ms"], "device_us": r["us"],
                            "plain_device_us": r["plain_us"], "bound_us": 1e3 * r["bound_ms"],

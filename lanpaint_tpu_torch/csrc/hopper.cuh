@@ -251,14 +251,16 @@ inline bool encode(CUtensorMap* map, const void* ptr, const long long* geom) {
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Whether `geom` (3 x kGeom: q, k, v) describes a (B, S, H, D) problem read
-// in boxes of (64, 1, rows, 1), `q_rows` rows for q and `kv_rows` for k, v.
-inline bool geometry_matches(const long long* geom, int B, int S, int H, int D, int q_rows,
-                             int kv_rows) {
+// Whether `geom` (3 x kGeom: q, k, v) describes a problem of q (B, Sq, H,
+// D) and k, v (B, Sk, H, D) read in boxes of (64, 1, rows, 1), `q_rows`
+// rows for q and `kv_rows` for k, v.
+inline bool geometry_matches(const long long* geom, int B, int Sq, int Sk, int H, int D,
+                             int q_rows, int kv_rows) {
   for (int t = 0; t < 3; ++t) {
     const long long* g = geom + t * kGeom;
     const long long rows = t == 0 ? q_rows : kv_rows;
-    if (g[0] != D || g[1] != H || g[2] != S || g[3] != B || g[7] != kBoxCols || g[8] != 1 ||
+    const long long seq = t == 0 ? Sq : Sk;
+    if (g[0] != D || g[1] != H || g[2] != seq || g[3] != B || g[7] != kBoxCols || g[8] != 1 ||
         g[9] != rows || g[10] != 1)
       return false;
   }

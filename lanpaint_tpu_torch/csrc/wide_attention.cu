@@ -351,7 +351,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   // the geometry must be the one this instantiation reads: the problem's
   // dims and 64-column boxes of kBlockM (Q) or kBlockN (K, V) rows
   CUtensorMap maps[3];
-  if (!geometry_matches(geom, B, S, H, D, kBlockM, kBlockN) || !encode_qkv(maps, q, k, v, geom))
+  if (!geometry_matches(geom, B, S, S, H, D, kBlockM, kBlockN) || !encode_qkv(maps, q, k, v, geom))
     return cudaErrorInvalidValue;
   static bool configured = false;
   if (!configured) {
@@ -374,13 +374,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 // for q, k, v in turn dims (D, H, S, B), byte strides of H, S and B, and
 // the box (64, 1, rows, 1): 64 rows for q, 32 for k and v); o: (B, S, H, D)
 // bf16 with unit stride along D and element strides (batch, seq, head).
+// Self-attention only: `Sk`, the D <= 128 entry's key count, must equal S.
 // Returns a cudaError_t.
 extern "C" int lp_wide_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                     int B, int S, int H, int D, const long long* geom,
-                                     long long o_sb, long long o_ss, long long o_sh,
-                                     float scale, void* stream) {
+                                     int B, int S, int Sk, int H, int D,
+                                     const long long* geom, long long o_sb, long long o_ss,
+                                     long long o_sh, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || S <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || S <= 0 || H <= 0 || Sk != S) return (int)cudaErrorInvalidValue;
   if (D == 384) return (int)launch<384>(q, k, v, o, B, S, H, geom, o_sb, o_ss, o_sh, scale, s);
   if (D == 512) return (int)launch<512>(q, k, v, o, B, S, H, geom, o_sb, o_ss, o_sh, scale, s);
   if (D == 640) return (int)launch<640>(q, k, v, o, B, S, H, geom, o_sb, o_ss, o_sh, scale, s);

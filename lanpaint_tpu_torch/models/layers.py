@@ -10,10 +10,11 @@ GroupNorm and the row norms compute their statistics in fp32.
 
 Self-attention goes through `attention_bshd`, which takes the hand-written
 attention kernels (ops/attention.py) where the JAX package takes its TPU
-kernels, and every transformer LayerNorm and RMSNorm through the row-norm
-kernel (ops/norms.py); the 77-token cross-attention, and self-attention
-the JAX package leaves to XLA (S < 1024, or SD1.5's head dims), stay plain
-PyTorch.
+kernels, and so does Wan's cross-attention to its text tokens (S >= 1024
+queries, D = 128); every transformer LayerNorm and RMSNorm goes through the
+row-norm kernel (ops/norms.py).  The UNet's 77-token cross-attention, and
+self-attention the JAX package leaves to XLA (S < 1024, or SD1.5's head
+dims), stay plain PyTorch.
 
 Tensor and layer parallelism (Megatron style, over the process groups of a
 `parallel.make_mesh` mesh, the weights cut by `parallel.shard_params_tp`):
@@ -43,17 +44,20 @@ from ..parallel.mesh import NO_AXIS, Axis, all_gather
 
 
 def attention_bshd(q, k, v, scale: Optional[float] = None):
-    """Multi-head attention on (B, S, H, D) tensors, routed by shape as the
-    JAX package's `attention_bshd(impl="auto")` is: self-attention with
+    """Multi-head attention of q (B, S, H, D) over k, v (B, Sk, H, D),
+    routed by shape as the JAX package's `attention_bshd(impl="auto")` is:
     S >= 1024 and D % 64 == 0 goes to a kernel on CUDA — `wide_attention`
-    for D in WIDE_HEAD_DIMS (the VAEs' mid attention, D = 384, 512, 640), else
-    `flash_attention` (which raises on a head dim it does not support) —
-    anything else to `attention_ref`, where the JAX package leaves it to
-    XLA."""
+    for self-attention with D in WIDE_HEAD_DIMS (the VAEs' mid attention,
+    D = 384, 512, 640), else `flash_attention`, whatever Sk (Wan's
+    cross-attention, which the JAX package leaves to XLA at the kernel's
+    precision; it raises on a head dim it does not support) — anything else
+    to `attention_ref`, where the JAX package leaves it to XLA."""
     s, d = q.shape[1], q.shape[3]
-    if k.shape[1] == s and s >= 1024 and d % 64 == 0:
-        kernel = wide_attention if d in WIDE_HEAD_DIMS else flash_attention
-        return kernel(q, k, v, scale)
+    if s >= 1024 and d % 64 == 0:
+        if d not in WIDE_HEAD_DIMS:
+            return flash_attention(q, k, v, scale)
+        if k.shape[1] == s:
+            return wide_attention(q, k, v, scale)
     return attention_ref(q, k, v, scale)
 
 

@@ -12,14 +12,17 @@ Submodule names follow the flax module names, with the scanned blocks as
 `blocks.<i>`, so models/bridge.py maps a flax tree onto the state_dict one
 to one.
 
-Kernels on CUDA: self-attention through `layers.attention_bshd` (at
-TI2V-5B's S = 7,920, D = 128 the flash-attention kernel, the ragged tail
-masked in the kernel); `norm1` / `norm2` / the head's `layernorm_na` and
-`norm3`'s `LayerNormF32` through the row-norm kernel; and `_WanQKNorm`,
-RMS over the full projection width before the head reshape, through the
-same row-norm kernel in its RMS mode with a scale (`ops.norms.rmsnorm`, one
-launch, counted in `rmsnorm.launches`).  Cross-attention over the 512 text
-tokens (Sk != S) takes `attention_ref`, as the JAX package leaves it to XLA.
+Kernels on CUDA: self-attention and the cross-attention over the 512 text
+tokens through `layers.attention_bshd` (at TI2V-5B's S = 7,920, D = 128 the
+flash-attention kernel, the ragged tail masked in the kernel; the cross
+call's Sk = 512 keys are a (B, 512, H, D) view of the hoisted k / v cache,
+`kv_cache["k"][:, i]`, which the kernel's tensor maps read in place: the
+JAX package leaves this call to XLA, in bf16 with fp32 logits and softmax,
+the kernel's arithmetic); `norm1` / `norm2` / the head's `layernorm_na`
+and `norm3`'s `LayerNormF32` through the row-norm kernel; and
+`_WanQKNorm`, RMS over the full projection width before the head reshape,
+through the same row-norm kernel in its RMS mode with a scale
+(`ops.norms.rmsnorm`, one launch, counted in `rmsnorm.launches`).
 
 Sequence and tensor parallelism (JAX's shard_map-manual Wan, over the
 process groups of a `parallel.make_mesh` mesh: `WanModel(cfg, mesh)`).  With

@@ -31,9 +31,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _PTR = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _INT = ctypes.c_int
-# both attention kernels: (q, k, v, out, B, S, H, D, the tensor maps' geometry,
-# out's strides (batch, seq, head), scale, stream)
-_ATTENTION_ARGS = ([_PTR] * 4 + [_INT] * 4 + [ctypes.POINTER(_I64)] + [_I64] * 3
+# both attention kernels: (q, k, v, out, B, Sq, Sk, H, D, the tensor maps'
+# geometry, out's strides (batch, seq, head), scale, stream)
+_ATTENTION_ARGS = ([_PTR] * 4 + [_INT] * 5 + [ctypes.POINTER(_I64)] + [_I64] * 3
                    + [ctypes.c_float, _PTR])
 # library name -> (CUDA source, its C entry point, the entry point's argtypes)
 SOURCES = {

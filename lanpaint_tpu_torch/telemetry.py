@@ -40,9 +40,11 @@ model's own input scaling and output conversion.
 `jobs(last=n)` resolves the kept records (host and device ms a span; the
 caller synchronises first, and an unfinished event pair gives None).
 `summary()` gives, per span name, the count and the p50 / p90 of host and
-device ms over the kept jobs, beside the kernel wrappers' launch counters
-and the UNet's CUDA-graph counters (`models/graphs.py`: captures, replays
-and forwards run eagerly; replays over replays plus eager is the hit rate).
+device ms over the kept jobs, beside the kernel wrappers' launch counters,
+the cross-attention launches of the flash-attention kernel among them
+(`cross_launches`) and the UNet's CUDA-graph counters (`models/graphs.py`:
+captures, replays and forwards run eagerly; replays over replays plus eager
+is the hit rate).
 The wrappers count the launches the host issues; `card_kernels()` counts
 the port's kernels that the card runs in a block, from its trace, a
 graph's replays among them.
@@ -122,8 +124,13 @@ class Recorder:
     def summary(self) -> dict:
         """Per span name over the kept jobs: count, and p50 / p90 of host
         ms and of device ms (None where no span has both events done),
-        with the kernel wrappers' `.launches` and the CUDA-graph counters
+        with the kernel wrappers' `.launches`, the flash-attention
+        launches among them that were cross-attention
+        (`flash_attention.cross_launches`, a key of its own so that
+        `families` does not count them twice) and the CUDA-graph counters
         (`count_graphs`) beside them."""
+        from .ops import attention
+
         kept = self.jobs()
         times = {}
         for job in kept:
@@ -140,7 +147,9 @@ class Recorder:
         return {"jobs": len(kept),
                 "spans": {name: {"count": len(host), "host_ms": pct(host), "device_ms": pct(dev)}
                           for name, (host, dev) in times.items()},
-                "launches": launches(), "graphs": dict(self.graphs)}
+                "launches": launches(),
+                "cross_launches": attention.flash_attention.cross_launches,
+                "graphs": dict(self.graphs)}
 
 
 def _resolve(job: list) -> dict:

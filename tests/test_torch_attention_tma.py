@@ -11,12 +11,14 @@ layout the port's callers hand the kernel:
   SDXL UNet's fused-qkv split views, Flux's single-block v (a column slice
   of `linear1`'s output, row stride 21,504), the contiguous RoPE outputs
   of Flux's double blocks and of Wan (S = 7,920, ragged at 64 and 128
-  rows), and B = 2 with S = 1,000;
+  rows), B = 2 with S = 1,000, and Wan's cross-attention (q of 7,920 rows,
+  k and v of 512 rows read in place from the hoisted k / v cache);
 * by emulating a TMA box load from the geometry over a tensor's storage
   (out-of-bounds elements zero, as TMA's fill) against the tensor indexed
   directly, at small sizes of each layout;
 * through the callers themselves: small bf16 UNet, MMDiT and Wan models on
-  the CPU, whose every `flash_attention` call is recorded.
+  the CPU, whose every `flash_attention` call is recorded;
+* the wrapper's refusals of q, k, v that do not describe one problem.
 """
 
 import dataclasses
@@ -50,6 +52,39 @@ LAYOUTS = {  # name: (q, k, v) at a main path's full size
     "ragged_b2_d64": lambda: _split_views(2, 1000, 4, 64),
     "ragged_b2_d128": lambda: _contiguous(2, 1000, 4, 128),
 }
+
+
+def _wan_cross(b, s, sk, h, d, depth=30, block=7, device="meta"):
+    """Wan's cross-attention operands: q a contiguous (B, S, H, D) norm
+    output; k and v block `block`'s (B, Sk, H, D) views of the hoisted
+    (B, depth, Sk, H * D) cache (`WanModel.precompute_kv`, `kv_cache["k"][:,
+    i]` unflattened), as `WanCrossAttention.forward` hands them over."""
+    q = torch.empty((b, s, h, d), dtype=torch.bfloat16, device=device)
+    k, v = (torch.empty((b, depth, sk, h * d), dtype=torch.bfloat16, device=device)[:, block]
+            .unflatten(-1, (h, d)) for _ in range(2))
+    return q, k, v
+
+
+def test_geometry_of_wan_cross_attention_at_full_size():
+    """TI2V-5B's cross call in the benchmark's batch-2 CFG: q (2, 7,920,
+    24, 128) contiguous; k and v (2, 512, 24, 128) slices of a (2, 30, 512,
+    3,072) cache, their batch stride the cache's (30 blocks of 512 rows)
+    and their base 7 blocks in: TMA reads them in place, no copy."""
+    q, k, v = _wan_cross(2, 7920, 512, 24, 128)
+    assert k.stride() == (30 * 512 * 3072, 3072, 128, 1) and not k.is_contiguous()
+    dims, strides, box = tattn.tma_geometry(q.shape, q.stride(), q.data_ptr(), tattn.BLOCK_M)
+    assert dims == (128, 24, 7920, 2) and strides == (256, 2 * 3072, 2 * 7920 * 3072)
+    for t in (k, v):
+        dims, strides, box = tattn.tma_geometry(t.shape, t.stride(), t.data_ptr(),
+                                                tattn.BLOCK_N)
+        assert dims == (128, 24, 512, 2) and box == (tattn.BOX_COLS, 1, tattn.BLOCK_N, 1)
+        assert strides == (256, 2 * 3072, 2 * 30 * 512 * 3072)
+        assert t.storage_offset() == 7 * 512 * 3072 and t.data_ptr() % 16 == 0
+    geom = list(tattn._tma_geometries(q, k, v))
+    # q's map runs over Sq rows, k's and v's over Sk: the kernel checks each
+    assert [geom[2], geom[11 + 2], geom[22 + 2]] == [7920, 512, 512]
+    assert (7920 % tattn.BLOCK_M, 512 % tattn.BLOCK_N) == (112, 0)  # four whole key tiles
+    tattn._check_cuda_inputs("flash_attention", q, k, v, tattn.SUPPORTED_HEAD_DIMS)
 
 
 @pytest.mark.parametrize("name", list(LAYOUTS))
@@ -110,6 +145,59 @@ def test_emulated_tma_box_reads_the_tensor(layout, d):
             part = t[bi, s0:s0 + rows, hi, c0:c0 + 64]
             want[:part.shape[0]] = part
             assert torch.equal(_tma_box(t, geometry, c0, hi, s0, bi), want)
+
+
+@pytest.mark.parametrize("sk", [77, 512])
+@pytest.mark.parametrize("d", [64, 128])
+def test_emulated_tma_box_reads_cross_operands(sk, d):
+    """Cross-attention, Sk != Sq: a box of q (Sq = 150, two query tiles)
+    and of k and v (Sk keys, views of a (B, 3, Sk, H * D) cache), read
+    through each operand's own geometry as TMA would, equals the tensor's
+    (rows, 64) block; the key box past Sk is zero (77: one ragged tile;
+    512: the last of four whole tiles)."""
+    b, s, h = 2, 150, 3
+    gen = torch.Generator().manual_seed(sk + d)
+    q, k, v = _wan_cross(b, s, sk, h, d, depth=3, block=1, device="cpu")
+    q.copy_(torch.randn(q.shape, generator=gen).to(q.dtype))
+    for t in (k, v):
+        t.copy_(torch.randn(t.shape, generator=gen).to(t.dtype))
+    last_key_tile = (sk - 1) // tattn.BLOCK_N * tattn.BLOCK_N
+    for t, rows, starts in ((q, tattn.BLOCK_M, (0, 128)), (k, tattn.BLOCK_N, (0, last_key_tile)),
+                            (v, tattn.BLOCK_N, (last_key_tile,))):
+        geometry = tattn.tma_geometry(t.shape, t.stride(), t.data_ptr(), rows)
+        assert geometry[0][2] == t.shape[1]
+        for s0 in starts:
+            for c0, hi, bi in ((0, 0, 0), (d - 64, h - 1, 1)):
+                want = torch.zeros((rows, 64), dtype=t.dtype)
+                part = t[bi, s0:s0 + rows, hi, c0:c0 + 64]
+                want[:part.shape[0]] = part
+                assert torch.equal(_tma_box(t, geometry, c0, hi, s0, bi), want)
+
+
+@pytest.mark.parametrize("case", ["batch", "heads", "head_dim", "k_and_v_lengths", "sk_zero"])
+def test_the_wrapper_refuses_operands_of_two_problems(case):
+    """q, k, v must agree in B, H and D, and k and v in Sk (>= 1); Sk may
+    differ from Sq.  Every refusal comes before a launch, on any device."""
+    q, k, v = _wan_cross(2, 150, 77, 3, 64, depth=2, block=1, device="cpu")
+    tattn._check_cuda_inputs("flash_attention", q, k, v, tattn.SUPPORTED_HEAD_DIMS)
+    make = {"batch": lambda: (q[:1], k, v), "heads": lambda: (q[:, :, :2], k, v),
+            "head_dim": lambda: (torch.zeros((2, 150, 3, 128), dtype=torch.bfloat16), k, v),
+            "k_and_v_lengths": lambda: (q, k, v[:, :64]),
+            "sk_zero": lambda: (q, k[:, :0], v[:, :0])}
+    with pytest.raises(ValueError, match="one batch, head count and head dim|Sk >= 1"):
+        tattn._check_cuda_inputs("flash_attention", *make[case](), tattn.SUPPORTED_HEAD_DIMS)
+
+
+def test_the_wide_kernel_refuses_cross_attention():
+    """The wide-head kernel is self-attention only (KERNELS): Sk != S is
+    refused before a launch."""
+    q, k, v = (torch.zeros((1, 100, 1, 640), dtype=torch.bfloat16) for _ in range(3))
+    _, _, _, cross = tattn.KERNELS["wide_attention"]
+    assert not cross and tattn.KERNELS["flash_attention"][3]
+    tattn._check_cuda_inputs("wide_attention", q, k, v, tattn.WIDE_HEAD_DIMS, cross)
+    with pytest.raises(ValueError, match="self-attention only"):
+        tattn._check_cuda_inputs("wide_attention", q, k[:, :64], v[:, :64],
+                                 tattn.WIDE_HEAD_DIMS, cross)
 
 
 def test_geometry_refuses_what_tma_cannot_take():
@@ -194,19 +282,52 @@ def test_mmdit_joint_attention_layouts(recorded):
     assert v1[2] == 2 * 256  # ... 512 elements into each row
 
 
-def test_wan_self_attention_layouts(recorded):
-    """A small Wan DiT at head dim 128 on a (1, 4, 1, 64, 64) latent: S =
-    1,024 patches, contiguous RoPE q and k, v a dense projection's view."""
-    cfg = dataclasses.replace(wan.TINY_WAN_CONFIG, hidden=256, num_heads=2, depth=1,
-                              axes_dim=(44, 42, 42))
-    _, module = zoo.build_wan(cfg, device="cpu", param_dtype=torch.bfloat16, seed=1)
+WAN_SMALL = dataclasses.replace(wan.TINY_WAN_CONFIG, hidden=256, num_heads=2, depth=2,
+                                axes_dim=(44, 42, 42))
+
+
+def _wan_forward(hoisted: bool):
+    """A small Wan DiT at head dim 128 on a batch of two (4, 1, 64, 64)
+    latents (S = 1,024 patches; two, so that the batch stride is one the
+    kernel steps) over 8 text tokens, with the cross k / v hoisted
+    (`precompute_kv`, as the sampler runs it) or computed in the block."""
+    _, module = zoo.build_wan(WAN_SMALL, device="cpu", param_dtype=torch.bfloat16, seed=1)
     gen = torch.Generator().manual_seed(0)
+    x, ctx = torch.randn((2, 4, 1, 64, 64), generator=gen), torch.randn((2, 8, 32), generator=gen)
     with torch.no_grad():
-        module(torch.randn((1, 4, 1, 64, 64), generator=gen), torch.tensor([0.7]),
-               torch.randn((1, 8, 32), generator=gen))
-    assert len(recorded) == 1
-    for shape, stride, _ in recorded[0]:
-        assert shape == (1, 1024, 2, 128) and stride == (1024 * 256, 256, 128, 1)
+        cache = module.precompute_kv(ctx) if hoisted else None
+        module(x, torch.tensor([0.7, 0.7]), ctx, kv_cache=cache)
+
+
+def test_wan_self_attention_layouts(recorded):
+    """Each block of a small Wan DiT (S = 1,024, D = 128) reaches the kernel
+    twice, self-attention and then cross-attention over the 8 text tokens:
+    self with contiguous RoPE q and k and v a dense projection's view; cross
+    with q the contiguous `norm_q` output and k, v dense (B, 8, H, D)
+    views, computed in the block."""
+    _wan_forward(hoisted=False)
+    assert len(recorded) == 2 * WAN_SMALL.depth
+    for self_call, cross_call in zip(recorded[::2], recorded[1::2]):
+        for shape, stride, _ in self_call:
+            assert shape == (2, 1024, 2, 128) and stride == (1024 * 256, 256, 128, 1)
+        (q_shape, q_stride, _), *kv = cross_call
+        assert q_shape == (2, 1024, 2, 128) and q_stride == (1024 * 256, 256, 128, 1)
+        for shape, stride, _ in kv:
+            assert shape == (2, 8, 2, 128) and stride == (8 * 256, 256, 128, 1)
+
+
+def test_wan_cross_attention_reads_the_hoisted_cache_in_place(recorded):
+    """With the sampler's hoist, block i's cross k and v are views of the
+    (B, depth, 8, hidden) cache, block i's 8 rows in: batch stride depth x
+    8 x hidden, the storage offset i x 8 x hidden, no copy."""
+    _wan_forward(hoisted=True)
+    cross = recorded[1::2]
+    assert len(cross) == WAN_SMALL.depth
+    for i, (_, *kv) in enumerate(cross):
+        for shape, stride, offset in kv:
+            assert shape == (2, 8, 2, 128)
+            assert stride == (WAN_SMALL.depth * 8 * 256, 256, 128, 1)
+            assert offset == i * 8 * 256
 
 
 # ---- the wide-head kernel (csrc/wide_attention.cu): D = 384 / 512 / 640 ----

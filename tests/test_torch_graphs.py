@@ -259,6 +259,8 @@ def test_the_wrappers_count_what_the_host_issues_and_no_replay(stub):
 @pytest.mark.parametrize("name, family", [
     ("void (anonymous namespace)::flash_fwd_kernel<64>(CUtensorMap_st, CUtensorMap_st)",
      "flash_attention"),
+    ("void (anonymous namespace)::flash_fwd_kernel<128, true>(CUtensorMap_st, CUtensorMap_st)",
+     "flash_attention"),
     ("void (anonymous namespace)::wide_fwd_kernel<640>(CUtensorMap_st)", "wide_attention"),
     ("void (anonymous namespace)::row_norm_kernel<__nv_bfloat16, __nv_bfloat16, 2>(__nv_"
      "bfloat16 const*)", "row_norm"),
@@ -270,7 +272,7 @@ def test_the_wrappers_count_what_the_host_issues_and_no_replay(stub):
     ("void pytorch_flash::flash_fwd_kernel<Flash_fwd_kernel_traits<64> >(Flash_fwd_params)",
      None),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", None),
-], ids=["flash", "wide", "row-norm", "row-norm-global", "half-step", "warm-finish", "cold-finish",
+], ids=["flash", "flash-persistent", "wide", "row-norm", "row-norm-global", "half-step", "warm-finish", "cold-finish",
         "pytorch-flash", "gemm"])
 def test_the_card_trace_names_each_hand_written_kernel(name, family):
     assert telemetry.kernel_family(name) == family

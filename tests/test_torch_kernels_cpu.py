@@ -5,7 +5,8 @@
 CPU the JAX functions take their own plain references (XLA attention, the
 jnp row norm), as the JAX package's tests run them.  The port's wrappers
 take the plain version for a CPU tensor and do not count a launch; on any
-other non-CUDA device they raise.  The kernels themselves run only on the
+other non-CUDA device they raise.  `models.layers.attention_bshd` routes
+by shape, cross-attention (Sk != S) included.  The kernels themselves run only on the
 card; `chip_smoke.py` compares them with these plain versions there.
 
 Tolerances: fp32 1e-5.  bf16 one ulp: for the row norms one ulp of each
@@ -127,6 +128,60 @@ def test_wrappers_take_the_plain_path_on_cpu_and_count_nothing():
     assert torch.equal(tnorms.rmsnorm(x, g), tnorms.rmsnorm_ref(x, g))
     assert (tattn.flash_attention.launches, tnorms.layernorm.launches,
             tnorms.rmsnorm.launches) == launches == (0, 0, 0)
+
+
+def test_cross_attention_on_cpu_takes_the_plain_path_and_counts_nothing():
+    """`flash_attention` with Sk != S on a CPU tensor is `attention_ref`,
+    and neither `.launches` nor `.cross_launches` moves; the summary
+    reports the cross counter under its own key, outside `launches()`,
+    whose keys `families` folds into the card's kernel families."""
+    from lanpaint_tpu_torch import telemetry
+
+    rng = np.random.default_rng(7)
+    q = torch.from_numpy(rng.standard_normal((2, 40, 2, 64)).astype(np.float32)).bfloat16()
+    k, v = (torch.from_numpy(rng.standard_normal((2, 77, 2, 64)).astype(np.float32)).bfloat16()
+            for _ in range(2))
+    before = (tattn.flash_attention.launches, tattn.flash_attention.cross_launches)
+    assert torch.equal(tattn.flash_attention(q, k, v), tattn.attention_ref(q, k, v))
+    assert (tattn.flash_attention.launches, tattn.flash_attention.cross_launches) == before
+    summary = telemetry.summary()
+    assert summary["cross_launches"] == tattn.flash_attention.cross_launches
+    assert not any("cross" in name for name in telemetry.launches())
+
+
+# (S, Sk, D) -> the wrapper attention_bshd takes, as the JAX package routes
+# by shape (its "auto": a kernel from S = 1,024 at D % 64 == 0)
+ROUTES = {
+    "wan_cross": ((1024, 77, 128), "flash_attention"),
+    "wan_cross_d64": ((1024, 512, 64), "flash_attention"),
+    "self": ((1024, 1024, 64), "flash_attention"),
+    "short_cross": ((1000, 77, 128), "attention_ref"),
+    "short_self": ((1000, 1000, 64), "attention_ref"),
+    "cross_head_dim_96": ((1024, 77, 96), "attention_ref"),
+    "wide_self": ((1024, 1024, 640), "wide_attention"),
+    "wide_cross": ((1024, 77, 640), "attention_ref"),
+}
+
+
+@pytest.mark.parametrize("name", list(ROUTES))
+def test_attention_bshd_routes_by_shape(name, monkeypatch):
+    """`models.layers.attention_bshd`: S >= 1,024 queries at D % 64 == 0
+    reach `flash_attention` whatever Sk (Wan's cross-attention over its text
+    tokens), `wide_attention` for self-attention at a wide head; a wide
+    head's cross-attention and anything shorter stay `attention_ref`."""
+    from lanpaint_tpu_torch.models import layers
+
+    (s, sk, d), want = ROUTES[name]
+    seen = []
+    for wrapper in ("flash_attention", "wide_attention", "attention_ref"):
+        def spy(q, k, v, scale=None, _name=wrapper):
+            seen.append(_name)
+            return tattn.attention_ref(q, k, v, scale)
+        monkeypatch.setattr(layers, wrapper, spy)
+    q = torch.zeros((1, s, 1, d), dtype=torch.bfloat16)
+    kv = torch.zeros((1, sk, 1, d), dtype=torch.bfloat16)
+    out = layers.attention_bshd(q, kv, kv)
+    assert seen == [want] and tuple(out.shape) == (1, s, 1, d)
 
 
 def test_wrappers_raise_off_cpu_without_cuda():
