@@ -2627,7 +2627,6 @@ def phase_qwen_edit(smi: str, tok, q_txt: int) -> dict:
     (bf16, seed 5) run `api.edit_image` (the source's packed latents as
     4,096 reference tokens) with euler "simple", 20 steps, cfg 1, 5 think
     steps and shift 2.2, timed and counted with phase 7's checks."""
-    api._SAMPLER_CACHE.clear()
     gc.collect()
     torch.cuda.empty_cache()
     image, _ = _pixel_image(EDIT_SIDE)
@@ -2976,7 +2975,6 @@ def _encode_phase(clip_files, llama_tok, names, encode) -> tuple:
     """Build the fp32 encoders `names`, encode with `encode(encoders)`
     (first call, then the median of 3), release them: (cond, params by
     encoder, init s, first call s, ms, the encoders' peak GB)."""
-    api._SAMPLER_CACHE.clear()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3021,7 +3019,6 @@ def _latent_phase(label, path, smi, build, cond, enc_text, tp=None) -> dict:
     launches = _main_path(f"{label}: ksampler, euler simple {STEPS} x think {THINK}, cfg 1 "
                           "(warm-up: 2 steps)", path, smi, den, module, t_init, run,
                           lambda: run(2), latent)
-    api._SAMPLER_CACHE.clear()
     if tp is not None:
         tp(den, module, latent, t_mid)
     del den, module
@@ -3604,7 +3601,6 @@ def phase_examples(smi: str) -> tuple:
             f"{used} | {report[-1] if report else 'no report'} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"phase 23 example {name} failed:\n{out.getvalue()[-2000:]}")
-        api._SAMPLER_CACHE.clear()
         gc.collect()
     if not (total["layernorm"] and total["rmsnorm"]):
         raise AssertionError(f"phase 23: the row-norm kernel was not launched: {total}")
@@ -3717,18 +3713,15 @@ def main() -> int:
         del sdxl_vae, conds, reference
         launches["controlnet"] = phase_controlnet(smi, den)
         del den
-        api._SAMPLER_CACHE.clear()
         gc.collect()
         torch.cuda.empty_cache()
         launches["serve"] = phase_serve(smi, single, pipe)
         del pipe
     finally:
         shutil.rmtree(single, ignore_errors=True)
-    api._SAMPLER_CACHE.clear()  # ksampler's sampler cache holds the SDXL models
     gc.collect()
     torch.cuda.empty_cache()
     launches["sd15"] = phase_sd15(smi)
-    api._SAMPLER_CACHE.clear()
     gc.collect()
     torch.cuda.empty_cache()  # SDXL's and SD1.5's weights go before Flux's 23.8 GB arrive
     launches["flux"] = phase_flux(smi)
@@ -3736,38 +3729,31 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_flux_vae(smi)
     launches["video"] = phase_video(smi)
-    api._SAMPLER_CACHE.clear()  # ksampler's sampler cache holds the Wan model
     gc.collect()
     torch.cuda.empty_cache()  # TI2V-5B's weights go before the pair's 57 GB arrive
     launches["pair"] = phase_pair(smi)
-    api._SAMPLER_CACHE.clear()
     gc.collect()
     torch.cuda.empty_cache()
     phase_t5(smi)
-    api._SAMPLER_CACHE.clear()
     gc.collect()
     torch.cuda.empty_cache()
     launches["zimage"] = phase_zimage(smi, qwen_tok, z_txt)
-    api._SAMPLER_CACHE.clear()
     gc.collect()
     torch.cuda.empty_cache()
     phase_qwen_components(smi, qwen_tok, q_txt)
     launches["qwen_edit"] = phase_qwen_edit(smi, qwen_tok, q_txt)
-    api._SAMPLER_CACHE.clear()
     gc.collect()
     torch.cuda.empty_cache()
     directory = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         clip_files = _synthetic_clip_files(directory)
         launches["sd35"] = phase_sd35(smi, clip_files)
-        api._SAMPLER_CACHE.clear()
         gc.collect()
         torch.cuda.empty_cache()
         launches["hidream"] = phase_hidream(smi, clip_files, llama_tok, n_ll)
         launches["hyvideo"] = phase_hyvideo(smi, clip_files, llama_tok, n_hy)
     finally:
         shutil.rmtree(directory, ignore_errors=True)
-    api._SAMPLER_CACHE.clear()
     gc.collect()
     torch.cuda.empty_cache()
     launches["parallel"] = phase_parallel(smi)

@@ -68,9 +68,6 @@ def _add_sampler_flags(p: argparse.ArgumentParser):
                    choices=["Image First", "Prompt First"])
     p.add_argument("--blend-overlap", type=int, default=9,
                    help="MaskBlend dilate+feather width (0 = off)")
-    p.add_argument("--chunk-steps", type=int, default=0,
-                   help="split the sampling loop into chunked launches "
-                        "(0 = one launch)")
     p.add_argument("--sequential-cfg", action="store_true",
                    help="run cond/uncond as separate forwards "
                         "(faster + half the memory at video/1024px scale)")
@@ -120,7 +117,6 @@ def cmd_inpaint(args) -> int:
         steps=args.steps, cfg=args.cfg, num_steps=args.think_steps,
         sampler_name=args.sampler, scheduler=args.scheduler,
         blend_overlap=args.blend_overlap, prompt_mode=args.prompt_mode,
-        chunk_steps=args.chunk_steps or None,
         sequential_cfg=args.sequential_cfg)
     if args.edit:
         # Qwen-Image-Edit: the source image conditions the model both as

@@ -26,7 +26,6 @@ Every solver of the JAX package runs here (`samplers.SAMPLER_NAMES`).
 
 from __future__ import annotations
 
-import dataclasses
 import math
 from typing import Any, Callable, Optional
 
@@ -130,7 +129,6 @@ class LanPaintSampler:
         add_noise: bool = True,
         decoupled_noise: bool = False,
         video: bool = False,
-        chunk_steps: Optional[int] = None,
         noise_feed=None,
         batch_rows: Optional[tuple] = None,
     ):
@@ -140,13 +138,7 @@ class LanPaintSampler:
         `noise` overrides the seed-derived initial noise.  `decoupled_noise`:
         the think loop's replace-step noise comes from a second generator
         seeded `seed + 1` (reference nodes.py:208-212) instead of being the
-        initial noise.  `chunk_steps`: run the ladder as segments of at most
-        that many outer steps; each carries the global step index, the
-        solver carry, the table rows of the full ladder (deis, heunpp2) and
-        the generator on, so the result equals one run; dpm_fast segments
-        are whole groups of its uniform-t grid (a segment may span
-        chunk_steps + 2 grid steps), each run against the full ladder.
-        `noise_feed` (parity/replay mode): (total_steps, n_max, 5,
+        initial noise.  `noise_feed` (parity/replay mode): (total_steps, n_max, 5,
         *latent.shape) standard-normal draws the think loop consumes instead
         of the generator, row per outer step (engine.lanpaint_update
         contract), the step of a model call being that of its nearest ladder
@@ -226,32 +218,15 @@ class LanPaintSampler:
                     latent, think_noise, total, gen, noise_feed)
 
             collect = self.return_aux and mask is not None
-            chunk = total if not chunk_steps else max(1, int(chunk_steps))
-            if self.sampler_name == "dpm_fast":
-                # every launch sees the full ladder; its group range picks its share
-                segments = [(sig_host, None, 0, r) for r in _dpm_fast_ranges(total, chunk)]
-            else:
-                full_tables = samplers.prepare_tables(self.sampler_name, sig_host)
-                segments = [(sig_host[start:start + chunk + 1],
-                             {k: v[start:start + chunk] for k, v in full_tables.items()}, start,
-                             None) for start in range(0, total, chunk)]
-            x, carry = x_init, samplers.init_carry(x_init)
-            den_parts, auxs = [], []
-            for seg, tables, start, g_range in segments:
-                x, den, carry = samplers.sample(
-                    wrapped, x, seg, sampler=self.sampler_name, generator=gen,
-                    callback=self.callback, tables=tables, step_offset=start, carry_in=carry,
-                    return_carry=True, collect_aux=collect, dpm_fast_range=g_range)
-                if collect:
-                    den, seg_auxs = den
-                    auxs += seg_auxs
-                den_parts.append(den)
+            x, den_all = samplers.sample(wrapped, x_init, sig_host, sampler=self.sampler_name,
+                                         generator=gen, callback=self.callback,
+                                         collect_aux=collect)
             samples = inverse_noise_scaling(kind, sig_last, x)
-            den_all = den_parts[0] if len(den_parts) == 1 else torch.cat(den_parts)
             if not self.return_aux:
                 return samples, den_all
             aux = None
             if collect:
+                den_all, auxs = den_all
                 aux = ThinkAux(steps_done=torch.tensor([a.steps_done for a in auxs],
                                                        dtype=torch.int32),
                                trace=torch.stack([a.trace for a in auxs]))
@@ -311,61 +286,8 @@ class LanPaintSampler:
         return wrapped
 
 
-def _dpm_fast_ranges(total: int, chunk: int) -> list:
-    """dpm_fast's launches as (g0, g1, include_final) group ranges of at
-    most `chunk` grid steps each, unless one group alone is longer (a group
-    is atomic), as lanpaint_tpu/api.py:344-360 cuts them."""
-    orders = samplers.dpm_fast_groups(total)
-    ranges, g0, span = [], 0, 0
-    for g, o in enumerate(orders):
-        if span and span + o > chunk:
-            ranges.append((g0, g, False))
-            g0, span = g, 0
-        span += o
-    ranges.append((g0, len(orders), True))
-    return ranges
-
-
 # ---------------------------------------------------------------------------
 # Node-equivalent convenience entry points
-
-
-_SAMPLER_CACHE: dict = {}
-
-
-def _cached_sampler(model: Denoiser, config: LanPaintConfig, sampler_name: str, cfg: float,
-                    prompt_mode: str, sequential_cfg: bool = False,
-                    with_callback: bool = False, return_aux: bool = False) -> LanPaintSampler:
-    """Memoize LanPaintSampler per (model, hyperparameters), least recently
-    used first out beyond 8 entries, keyed as the JAX package's: the model
-    object and its weights module (a swapped module is a new entry), the
-    config (its `distance_fn` by identity), the solver, cfg, prompt mode,
-    sequential CFG, and whether a callback or the aux is wired in.
-
-    with_callback=True wires a trampoline: callers set
-    `sam._cb_holder["cb"]` around the call, so per-request callbacks share
-    one entry."""
-    key = (id(model), id(model.module),
-           dataclasses.astuple(dataclasses.replace(config, distance_fn=None)),
-           config.distance_fn, sampler_name, float(cfg), prompt_mode, sequential_cfg,
-           with_callback, return_aux)
-    sam = _SAMPLER_CACHE.pop(key, None)
-    if sam is None:
-        holder: dict = {}
-        tramp = None
-        if with_callback:
-            def tramp(i, den, x, _h=holder):  # noqa: E306
-                cb = _h.get("cb")
-                if cb is not None:
-                    cb(i, den, x)
-        sam = LanPaintSampler(model, config=config, sampler_name=sampler_name, cfg=cfg,
-                              prompt_mode=prompt_mode, sequential_cfg=sequential_cfg,
-                              callback=tramp, return_aux=return_aux)
-        sam._cb_holder = holder
-    _SAMPLER_CACHE[key] = sam  # a hit moves to the most recent end
-    while len(_SAMPLER_CACHE) > 8:
-        _SAMPLER_CACHE.pop(next(iter(_SAMPLER_CACHE)))
-    return sam
 
 
 def _build_sigmas(model: Denoiser, scheduler: str, steps: int, denoise: float = 1.0):
@@ -396,7 +318,6 @@ def ksampler(
     num_steps: int = 5,
     prompt_mode: str = "Image First",
     video: bool = False,
-    chunk_steps: Optional[int] = None,
     sequential_cfg: bool = False,
     noise=None,
     callback: Optional[Callable] = None,
@@ -414,17 +335,11 @@ def ksampler(
     threshold, patience, stopped]; the reference's
     model_options["lanpaint_semantic_trace"], earlystop.py:315-334)."""
     config = LanPaintConfig(n_steps=num_steps, record_trace=trace is not None)
-    sam = _cached_sampler(model, config, sampler_name, cfg, prompt_mode, sequential_cfg,
-                          with_callback=callback is not None, return_aux=trace is not None)
-    sigmas = _build_sigmas(model, scheduler, steps, denoise)
-    if callback is not None:
-        sam._cb_holder["cb"] = callback
-    try:
-        out = sam(latent=latent, sigmas=sigmas, cond=positive, uncond=negative, mask=mask,
-                  seed=seed, video=video, chunk_steps=chunk_steps, noise=noise)
-    finally:
-        if callback is not None:
-            sam._cb_holder["cb"] = None
+    sam = LanPaintSampler(model, config=config, sampler_name=sampler_name, cfg=cfg,
+                          prompt_mode=prompt_mode, sequential_cfg=sequential_cfg,
+                          callback=callback, return_aux=trace is not None)
+    out = sam(latent=latent, sigmas=_build_sigmas(model, scheduler, steps, denoise),
+              cond=positive, uncond=negative, mask=mask, seed=seed, video=video, noise=noise)
     if trace is not None:
         _fill_trace(trace, out[2])
     return out[0]
@@ -456,7 +371,6 @@ def ksampler_advanced(
     inner_threshold: float = 0.0,
     inner_patience: int = 1,
     video: bool = False,
-    chunk_steps: Optional[int] = None,
     sequential_cfg: bool = False,
     trace: Optional[dict] = None,
 ):
@@ -474,10 +388,11 @@ def ksampler_advanced(
         return latent
     if not return_with_leftover_noise:
         sigmas[-1] = 0.0
-    sam = _cached_sampler(model, config, sampler_name, cfg, prompt_mode, sequential_cfg,
+    sam = LanPaintSampler(model, config=config, sampler_name=sampler_name, cfg=cfg,
+                          prompt_mode=prompt_mode, sequential_cfg=sequential_cfg,
                           return_aux=trace is not None)
     out = sam(latent=latent, sigmas=sigmas, cond=positive, uncond=negative, mask=mask,
-              seed=noise_seed, add_noise=add_noise, video=video, chunk_steps=chunk_steps)
+              seed=noise_seed, add_noise=add_noise, video=video)
     if trace is not None:
         _fill_trace(trace, out[2])
     return out[0]
@@ -505,16 +420,15 @@ def sample_custom(
     num_steps: int = 5,
     prompt_mode: str = "Image First",
     video: bool = False,
-    chunk_steps: Optional[int] = None,
     sequential_cfg: bool = False,
 ):
     """LanPaint_SamplerCustom equivalent: a caller-supplied sigma ladder;
     returns (output, denoised_output) (reference nodes.py:491-556)."""
-    sam = _cached_sampler(model, LanPaintConfig(n_steps=num_steps), sampler_name, cfg,
-                          prompt_mode, sequential_cfg)
+    sam = LanPaintSampler(model, config=LanPaintConfig(n_steps=num_steps),
+                          sampler_name=sampler_name, cfg=cfg, prompt_mode=prompt_mode,
+                          sequential_cfg=sequential_cfg)
     samples, den_all = sam(latent=latent, sigmas=sigmas, cond=positive, uncond=negative,
-                           mask=mask, seed=noise_seed, add_noise=add_noise, video=video,
-                           chunk_steps=chunk_steps)
+                           mask=mask, seed=noise_seed, add_noise=add_noise, video=video)
     return samples, _last_denoised(model, den_all)
 
 
@@ -540,7 +454,6 @@ def sample_custom_advanced(
     inner_threshold: float = 0.0,
     inner_patience: int = 1,
     video: bool = False,
-    chunk_steps: Optional[int] = None,
     sequential_cfg: bool = False,
 ):
     """LanPaint_SamplerCustomAdvanced equivalent: the full hyperparameter
@@ -550,10 +463,10 @@ def sample_custom_advanced(
         n_steps=num_steps, lamb=lamb, step_size=step_size, beta=beta, friction=friction,
         outer_early_stop=early_stop, inner_threshold=inner_threshold,
         inner_patience=inner_patience)
-    sam = _cached_sampler(model, config, sampler_name, cfg, prompt_mode, sequential_cfg)
+    sam = LanPaintSampler(model, config=config, sampler_name=sampler_name, cfg=cfg,
+                          prompt_mode=prompt_mode, sequential_cfg=sequential_cfg)
     samples, den_all = sam(latent=latent, sigmas=sigmas, cond=positive, uncond=negative,
-                           mask=mask, seed=noise_seed, noise=noise, video=video,
-                           chunk_steps=chunk_steps)
+                           mask=mask, seed=noise_seed, noise=noise, video=video)
     return samples, _last_denoised(model, den_all)
 
 

@@ -92,9 +92,6 @@ def main():
         model, seed=args.seed, steps=args.steps, cfg=1.0,
         sampler_name="euler", scheduler="simple", positive=cond,
         latent=latent, mask=torch.from_numpy(mask), num_steps=2, video=True,
-        # long videos run the ladder as chunks of outer steps, as the JAX
-        # package's example does
-        chunk_steps=4 if args.checkpoint else None,
     )
     report("wan22_video_inpaint", out)
 

@@ -11,8 +11,8 @@ reference's in-place `input_x.copy_`, lanpaint.py:122).
 ModelFn signature: (x, sigma, step) -> (denoised, x_new).  `sigma` is the
 call's host np.float32 sigma; `step` is the outer step the JAX package's
 inpaint wrapper gives the call (lanpaint_tpu/api.py:184): the index of the
-ladder sigma nearest to `sigma` (the first on a tie, as `jnp.argmin`) plus
-`step_offset`.  For a one-call solver it is the loop counter; heun's second
+ladder sigma nearest to `sigma` (the first on a tie, as `jnp.argmin`).
+For a one-call solver it is the loop counter; heun's second
 stage (at sigma_next) belongs to the next step, and dpm_fast's calls, on
 their own uniform-t grid, to the nearest ladder step.
 
@@ -26,7 +26,7 @@ final step.
 
 Solver noise: every draw goes through `_noise_like(x, generator, step,
 slot)`; slot k of step i is the draw the JAX package takes as
-`normal(fold_in(fold_in(key, i + step_offset), k))`, and a slot is drawn
+`normal(fold_in(fold_in(key, i), k))`, and a slot is drawn
 once a step even where JAX reads it twice (seeds_2 and seeds_3 reuse their
 stage noise in the final update).  By default it is a `torch.randn` from
 the sampler's generator in call order, taken only where the result is used
@@ -481,8 +481,7 @@ def _deis(model, c, s, sn, i, gen, row):
 
 def prepare_tables(sampler: str, sigmas) -> dict:
     """Per-step table rows from a host ladder: deis's coefficients and
-    heunpp2's [sigma_0, s_end, sigma_{i+2}], one row per step.  Built from
-    the FULL ladder and sliced per segment, a chunked run equals one run."""
+    heunpp2's [sigma_0, s_end, sigma_{i+2}], one row per step."""
     if sampler == "deis":
         return {"deis": _deis_coeffs(sigmas)}
     if sampler == "heunpp2":
@@ -549,48 +548,36 @@ def _dpm_fast_orders(m: int):
     return [3] * (m // 3) + [2]
 
 
-def dpm_fast_groups(total_steps: int):
-    """The order grouping of a `total_steps`-step ladder.  Groups are atomic
-    multi-call updates, the chunkable unit of dpm_fast."""
-    return _dpm_fast_orders(max(total_steps - 1, 1))
-
-
-def _sample_dpm_fast(model, noise_x, sigmas, callback=None, g_range=None):
+def _sample_dpm_fast(model, noise_x, sigmas, callback=None):
     """DPM-Solver-fast: a uniform grid in t = -log sigma between the
     ladder's endpoints, its groups in order, then a final denoise at
-    sigma_min (the ladder is assumed to end at 0).  `g_range = (g0, g1,
-    include_final)` runs groups [g0, g1) only, plus the final denoise when
-    include_final: the chunked path; `sigmas` is still the full ladder, from
-    which grid and grouping come.  `callback(g, denoised, x)` after each
-    group (g = the group count after the final denoise).  Returns (x,
-    [denoised per group run])."""
+    sigma_min (the ladder is assumed to end at 0).  `callback(g, denoised,
+    x)` after each group (g = the group count after the final denoise).
+    Returns (x, [denoised per group])."""
     sigmas = np.asarray(sigmas, np.float32)
     m = max(len(sigmas) - 2, 1)
     orders = _dpm_fast_orders(m)
     bounds = np.cumsum([0] + orders)
     t0, t1 = -np.log(sigmas[0]), -np.log(sigmas[-2])
     ts = t0 + (t1 - t0) * np.arange(m + 1, dtype=np.float32) / _F(m)
-    g0, g1, include_final = (0, len(orders), True) if g_range is None else g_range
     x, dens = noise_x, []
-    for g in range(g0, g1):
+    for g in range(len(orders)):
         group = {1: _dpm1, 2: _dpm2, 3: _dpm3}[orders[g]]
         x, den = group(model, x, ts[bounds[g]], ts[bounds[g + 1]])
         if callback is not None:
             callback(g, den, x)
         dens.append(den)
-    if include_final:
-        den, _ = model(x, sigmas[-2])
-        x = den
-        if callback is not None:
-            callback(len(orders), den, x)
-        dens.append(den)
+    den, _ = model(x, sigmas[-2])
+    x = den
+    if callback is not None:
+        callback(len(orders), den, x)
+    dens.append(den)
     return x, dens
 
 
 # runs a whole ladder; sample() dispatches it (the JAX package lists the
 # name last and keeps no step function for it)
 register_solver("dpm_fast")(_sample_dpm_fast)
-_TABLE_SOLVERS = ("deis", "heunpp2")  # solvers that take their step's table row
 
 
 def get_solver(name: str):
@@ -603,11 +590,11 @@ def get_solver(name: str):
         raise ValueError(f"unknown sampler {name!r}; available: {sorted(_SOLVERS)}") from None
 
 
-def model_step(sigmas, sigma, step_offset: int = 0) -> int:
+def model_step(sigmas, sigma) -> int:
     """The outer step of a model call at `sigma`: the index of the nearest
-    sigma of the launch's ladder (the first on a tie, as `jnp.argmin`) plus
-    `step_offset` (lanpaint_tpu/api.py:184)."""
-    return int(np.argmin(np.abs(np.asarray(sigmas, np.float32) - _F(sigma)))) + step_offset
+    sigma of the ladder (the first on a tie, as `jnp.argmin`;
+    lanpaint_tpu/api.py:184)."""
+    return int(np.argmin(np.abs(np.asarray(sigmas, np.float32) - _F(sigma))))
 
 
 def sample(
@@ -618,40 +605,25 @@ def sample(
     sampler: str = "euler",
     generator: torch.Generator = None,
     callback=None,
-    tables: dict = None,
-    step_offset: int = 0,
-    carry_in: SolverCarry = None,
-    return_carry: bool = False,
     collect_aux: bool = False,
-    dpm_fast_range=None,
 ):
     """Run the outer sampling loop.
 
     `noise_x` is the initial latent AFTER initial noise scaling (reference
-    nodes.py:221); `sigmas` the host [steps+1] descending ladder (for
-    dpm_fast always the full ladder).  Returns (samples, all_denoised) with
-    all_denoised[i] the x0 prediction of step i (of group i for dpm_fast).
-
-    `step_offset`: the global index of this ladder's first step when a run
-    is cut into segments (api.LanPaintSampler chunk_steps): `callback(i,
-    denoised, x)` (after each step), the noise slots and the model's step
-    see global indices.  `tables`: `prepare_tables` of the full ladder,
-    sliced to the segment (built from `sigmas` when None).
-    `dpm_fast_range`: the (g0, g1, include_final) group range of a chunked
-    dpm_fast launch.  `carry_in`/`return_carry`: the solver state threads
-    from one segment to the next (pass the previous segment's carry, with
-    `noise_x` its output); with `return_carry` the result is (samples,
-    all_denoised, carry).  `collect_aux`: the model returns (denoised,
-    x_new, aux) and the aux of each step's first model call is kept;
-    all_denoised becomes the pair (denoised_stack, [aux per step]).
+    nodes.py:221); `sigmas` the host [steps+1] descending ladder.  Returns
+    (samples, all_denoised) with all_denoised[i] the x0 prediction of step i
+    (of group i for dpm_fast).  `callback(i, denoised, x)` fires after each
+    step.  `collect_aux`: the model returns (denoised, x_new, aux) and the
+    aux of each step's first model call is kept; all_denoised becomes the
+    pair (denoised_stack, [aux per step]).
     """
     step_fn = get_solver(sampler)
     sigmas = np.asarray(sigmas, dtype=np.float32)
     auxs = []
-    step = [0]  # the local index of the running step (dpm_fast: group)
+    step = [0]  # the index of the running step (dpm_fast: group)
 
     def call(x, s):
-        out = model(x, s, model_step(sigmas, s, step_offset))
+        out = model(x, s, model_step(sigmas, s))
         if not collect_aux:
             return out
         den, x_new, aux = out
@@ -666,24 +638,21 @@ def sample(
                 if callback is not None:
                     callback(g, den, x)
 
-            x, dens = _sample_dpm_fast(call, noise_x, sigmas, on_group, dpm_fast_range)
-            carry = init_carry(x)
+            x, dens = _sample_dpm_fast(call, noise_x, sigmas, on_group)
         else:
-            if sampler in _TABLE_SOLVERS and (tables is None or sampler not in tables):
-                tables = prepare_tables(sampler, sigmas)
-            carry = init_carry(noise_x) if carry_in is None else carry_in._replace(x=noise_x)
+            tables = prepare_tables(sampler, sigmas)
+            carry = init_carry(noise_x)
             dens = []
             for i in range(sigmas.shape[0] - 1):
                 step[0] = i
-                kw = {"row": tables[sampler][i]} if sampler in _TABLE_SOLVERS else {}
-                carry, den = step_fn(call, carry, sigmas[i], sigmas[i + 1], i + step_offset,
-                                     generator, **kw)
+                kw = {"row": tables[sampler][i]} if sampler in tables else {}
+                carry, den = step_fn(call, carry, sigmas[i], sigmas[i + 1], i, generator, **kw)
                 if callback is not None:
-                    callback(i + step_offset, den, carry.x)
+                    callback(i, den, carry.x)
                 dens.append(den)
             x = carry.x
     den_all = (torch.stack(dens) if dens
                else noise_x.new_zeros((0,) + tuple(noise_x.shape)))
     if collect_aux:
         den_all = (den_all, auxs)
-    return (x, den_all, carry) if return_carry else (x, den_all)
+    return x, den_all

@@ -51,9 +51,6 @@ class Variant:
     sampler_name: str = "euler"
     scheduler: str = "karras"
     cfg: float = 5.0
-    # Bound single-execution device time (docs/serving.md "Chunked
-    # launches"); None = one launch.  Set for video-scale variants.
-    chunk_steps: Optional[int] = None
     # Sequential cond/uncond passes — faster at 1024px+ and halves peak
     # activation memory (docs/serving.md "Video-scale CFG").
     sequential_cfg: bool = False
@@ -417,7 +414,7 @@ def pipeline_runner(pipeline, *, batch_size: int = 4,
                 negative=negative, seed=batch[0].seed, steps=v.steps,
                 cfg=v.cfg, sampler_name=v.sampler_name,
                 scheduler=v.scheduler, num_steps=v.num_steps,
-                chunk_steps=v.chunk_steps, sequential_cfg=v.sequential_cfg,
+                sequential_cfg=v.sequential_cfg,
                 noise=noise, callback=callback,
                 **({"trace": tr} if tr is not None else {}))
         finally:

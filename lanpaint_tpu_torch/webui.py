@@ -119,8 +119,6 @@ INDEX_HTML = """<!doctype html>
       <select id="scheduler">__SCHEDULERS__</select></div>
   </div>
   <div class="row">
-    <div><label for="chunk_steps">chunk steps (0 = one launch)</label>
-      <input id="chunk_steps" type="number" value="0"></div>
     <div><label for="sequential_cfg">sequential cfg</label>
       <select id="sequential_cfg">
         <option value="false" selected>off</option>
@@ -229,7 +227,6 @@ function showResult(t) {
 
 $("go").onclick = async () => {
   if (!haveImage) { status("load an image first", true); return; }
-  const chunk = +$("chunk_steps").value;
   const payload = {
     prompt: $("prompt").value,
     negative_prompt: $("negative_prompt").value,
@@ -239,7 +236,6 @@ $("go").onclick = async () => {
       steps: +$("steps").value, num_steps: +$("num_steps").value,
       sampler_name: $("sampler_name").value,
       scheduler: $("scheduler").value, cfg: +$("cfg").value,
-      chunk_steps: chunk > 0 ? chunk : null,
       sequential_cfg: $("sequential_cfg").value === "true",
     },
     ...grabTensors(),

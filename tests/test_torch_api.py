@@ -1,8 +1,8 @@
 """The port's sampling API beyond the main path (lanpaint_tpu_torch.api):
 the mask-less plain path, `ksampler_advanced`, `sample_custom(_advanced)`,
-`return_aux` / `trace`, callbacks, `chunk_steps`, `decoupled_noise`,
-`denoise_mask_fn` and the sampler cache, against the JAX package on the
-tiny UNet in fp32.
+`return_aux` / `trace`, callbacks, `decoupled_noise` and
+`denoise_mask_fn`, against the JAX package on the tiny UNet in fp32; and
+that an entry point keeps no reference to the model once it returns.
 
 Same numbers on both sides: explicit initial noise and the think loop's
 `noise_feed` where the entry point takes them; elsewhere the
@@ -15,6 +15,9 @@ Tolerance: 1e-4 relative to the largest value of each compared tensor, as
 tests/test_torch_unet.py's slice test (the random eps-UNet's history
 reaches ~100 and fp32 rounding moves small entries by ~5e-4 absolute).
 """
+
+import gc
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -223,28 +226,6 @@ def _toy_run(sam, **kw):
                **{"seed": 4, **kw})
 
 
-@pytest.mark.parametrize("chunk", [1, 2, 3, 5, 9])
-def test_chunk_steps_equal_one_run_on_the_tiny_unet(models, inputs, chunk):
-    """Segments carry the global step index (outer early stop, the feed's
-    rows, callbacks), the solver carry and the generator on: bit-equal."""
-    _, tden = models
-    cond, uncond = _conds(inputs, torch)
-    sigmas = calculate_sigmas(tden.sigma_table, "karras", 5)
-    calls = {}
-    runs = []
-    for chunk_steps in (None, chunk):
-        calls[chunk_steps] = []
-        sam = LanPaintSampler(tden, config=LanPaintConfig(n_steps=2), cfg=5.0, return_aux=True,
-                              callback=lambda i, den, x, _c=calls[chunk_steps]: _c.append(i))
-        runs.append(sam(latent=torch.from_numpy(inputs["latent"]), sigmas=sigmas, cond=cond,
-                        uncond=uncond, mask=torch.from_numpy(inputs["mask"]), seed=9,
-                        chunk_steps=chunk_steps))
-    (s1, d1, a1), (s2, d2, a2) = runs
-    assert torch.equal(s1, s2) and torch.equal(d1, d2)
-    assert torch.equal(a1.steps_done, a2.steps_done) and torch.equal(a1.trace, a2.trace)
-    assert calls[None] == calls[chunk] == list(range(5))
-
-
 def test_callbacks_once_per_step_with_the_step_results():
     seen = []
     sam = LanPaintSampler(_toy(), config=LanPaintConfig(n_steps=1), cfg=2.0,
@@ -282,26 +263,27 @@ def test_decoupled_noise_draws_from_seed_plus_one(monkeypatch, seed, think_seed)
         assert len(seen) == 5 and all(torch.equal(n, want) for n in seen)
 
 
-def test_cached_sampler_is_an_lru_of_eight():
-    tapi._SAMPLER_CACHE.clear()
-    den = _toy()
-    first = tapi._cached_sampler(den, LanPaintConfig(n_steps=1), "euler", 1.0, "Image First")
-    assert tapi._cached_sampler(den, LanPaintConfig(n_steps=1), "euler", 1.0,
-                                "Image First") is first
-    others = [tapi._cached_sampler(den, LanPaintConfig(n_steps=1), "euler", float(c),
-                                   "Image First") for c in range(2, 9)]
-    # a hit moves `first` to the most recent end: the next new entry evicts others[0]
-    assert tapi._cached_sampler(den, LanPaintConfig(n_steps=1), "euler", 1.0,
-                                "Image First") is first
-    tapi._cached_sampler(den, LanPaintConfig(n_steps=1), "euler", 9.0, "Image First")
-    assert len(tapi._SAMPLER_CACHE) == 8
-    assert all(s is not others[0] for s in tapi._SAMPLER_CACHE.values())
-    assert any(s is first for s in tapi._SAMPLER_CACHE.values())
-    # a callback or the aux wired in is another entry
-    cb = tapi._cached_sampler(den, LanPaintConfig(n_steps=1), "euler", 1.0, "Image First",
-                              with_callback=True)
-    assert cb is not first and cb.callback is not None
-    tapi._SAMPLER_CACHE.clear()
+@pytest.mark.parametrize("entry", ["ksampler", "ksampler_advanced", "sample_custom",
+                                   "sample_custom_advanced"])
+def test_entry_point_holds_no_reference_to_the_model(inputs, entry):
+    """Each entry point builds its sampler for the call: once the caller
+    drops the model, nothing the API kept alive holds it (a model's weights
+    leave the card with its last reference)."""
+    den, _ = tzoo.build_unet(_configs("fp32")[1], device="cpu")
+    alive = weakref.ref(den)
+    cond, uncond = _conds(inputs, torch)
+    kw = dict(positive=cond, negative=uncond, latent=torch.from_numpy(inputs["latent"]),
+              mask=torch.from_numpy(inputs["mask"]), num_steps=1)
+    if entry.startswith("sample_custom"):
+        kw["sigmas"] = calculate_sigmas(den.sigma_table, "karras", 2)
+    else:
+        kw["steps"] = 2
+    if entry == "ksampler":
+        kw["callback"] = lambda i, d, x: None
+    getattr(tapi, entry)(den, **kw)
+    del den
+    gc.collect()
+    assert alive() is None
 
 
 def test_one_sigma_ladder_with_trace():

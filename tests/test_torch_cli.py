@@ -177,7 +177,9 @@ def test_family_expected_keys_standins_nonempty():
 
 
 def test_flags_match_the_jax_cli():
-    """Every subcommand takes the JAX CLI's flags, with the same defaults."""
+    """Every subcommand takes the JAX CLI's flags, with the same defaults,
+    but `--chunk-steps` (the JAX package's chunked launches; the port runs a
+    ladder in one loop)."""
     import argparse
 
     import lanpaint_tpu.__main__ as jcli
@@ -202,4 +204,7 @@ def test_flags_match_the_jax_cli():
                        for a in p._actions if a.dest != "help"}
                 for name, p in sub.choices.items()}
 
-    assert parsers(cli) == parsers(jcli)
+    want = parsers(jcli)
+    for flags in want.values():
+        flags.pop("chunk_steps", None)
+    assert parsers(cli) == want

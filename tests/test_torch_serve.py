@@ -13,8 +13,10 @@ server's worker thread; and the web UI's sampler and scheduler lists are
 the port's registries.
 """
 
+import dataclasses
 import http.client
 import json
+import re
 import threading
 import time
 
@@ -118,6 +120,29 @@ def test_http_roundtrip():
         srv.close()
 
 
+def test_http_unknown_variant_field_is_refused_and_serving_goes_on():
+    """A variant naming a field `Variant` lacks (the JAX package's
+    `chunk_steps`) gets the handler's error reply; the next request is
+    served."""
+    srv = InpaintServer(lambda batch: [np.asarray(r.image, np.float32) for r in batch],
+                        batch_size=1, max_delay_s=0.01)
+    httpd, port = _serve(srv)
+    try:
+        img = np.zeros((3, 2, 2), np.float32)
+        payload = {"image": _encode_array(img), "mask": _encode_array(np.ones((2, 2), np.float32))}
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+        for variant, status in (({"steps": 4, "chunk_steps": 3}, 500), ({"steps": 4}, 200)):
+            conn.request("POST", "/inpaint", json.dumps(dict(payload, variant=variant)),
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            body = json.loads(resp.read())
+            assert resp.status == status, body
+        assert "chunk_steps" not in body and "image" in body
+    finally:
+        httpd.shutdown()
+        srv.close()
+
+
 def test_http_hwc_layout_mirrored():
     """An HWC (browser-canvas) request gets an HWC response; the runner
     still sees the canonical CHW layout through _as_chw."""
@@ -152,8 +177,6 @@ def test_validator_accepts_hwc():
 
 
 def test_web_ui_served_at_root():
-    import dataclasses
-
     srv = InpaintServer(lambda batch: [r.image for r in batch], batch_size=1, max_delay_s=0.01)
     httpd, port = _serve(srv)
     try:
@@ -182,6 +205,15 @@ def test_web_ui_lists_the_ports_samplers_and_schedulers():
     assert sorted(webui.SCHEDULERS) == sorted(SCHEDULERS)
     for s in webui.SAMPLERS + webui.SCHEDULERS:
         assert f'value="{s}"' in webui.INDEX_HTML
+
+
+def test_web_ui_payload_names_only_variant_fields():
+    """The page's request names every `Variant` field and no other, so the
+    server takes each form it sends."""
+    from lanpaint_tpu_torch import webui
+
+    block = re.search(r"variant: \{(.*?)\}", webui.INDEX_HTML, re.S).group(1)
+    assert set(re.findall(r"(\w+):", block)) == {f.name for f in dataclasses.fields(Variant)}
 
 
 class FakePipe:
@@ -244,8 +276,10 @@ def test_pipeline_runner_matches_the_jax_runner(monkeypatch):
     """Both packages' pipeline_runner on one padded batch, each package's
     `api.inpaint_image` replaced by a recorder: the same stacked images
     (one request in HWC), masks, prompt encodings (lane 0 repeated as
-    padding), batch seed, variant fields and sliced outputs.  Only the
-    per-lane noise's values differ (JAX keys against torch.Generator)."""
+    padding), batch seed, variant fields and sliced outputs; the JAX
+    package's variant also has `chunk_steps`, which it passes on and the
+    port has not.  Only the per-lane noise's values differ (JAX keys against
+    torch.Generator)."""
     import lanpaint_tpu.api as japi
     import lanpaint_tpu.serve as jserve
 
@@ -272,7 +306,8 @@ def test_pipeline_runner_matches_the_jax_runner(monkeypatch):
 
     rng = np.random.default_rng(3)
     v = Variant(height=16, width=24, steps=7, num_steps=2, sampler_name="dpmpp_2m",
-                scheduler="simple", cfg=3.5, chunk_steps=3, sequential_cfg=True)
+                scheduler="simple", cfg=3.5, sequential_cfg=True)
+    jv = jserve.Variant(**dataclasses.asdict(v), chunk_steps=3)
     images = [rng.uniform(-1, 1, (3, 16, 24)).astype(np.float32),
               rng.uniform(-1, 1, (16, 24, 3)).astype(np.float32),
               rng.uniform(-1, 1, (3, 16, 24)).astype(np.float32)]
@@ -281,7 +316,9 @@ def test_pipeline_runner_matches_the_jax_runner(monkeypatch):
                     variant=v)
             for p, n, im, seed in zip(("a cat", "the dog", "x"), ("", "blurry", "low"), images,
                                       (11, 12, 13))]
-    outs = {"jax": jserve.pipeline_runner(JaxPipe(), batch_size=4)(reqs),
+    jreqs = [jserve.Request(prompt=r.prompt, negative_prompt=r.negative_prompt, image=r.image,
+                            mask=r.mask, seed=r.seed, variant=jv) for r in reqs]
+    outs = {"jax": jserve.pipeline_runner(JaxPipe(), batch_size=4)(jreqs),
             "torch": serve_mod.pipeline_runner(PortPipe(), batch_size=4)(reqs)}
     want, got = seen["jax"], seen["torch"]
     assert want["args"] == (JaxPipe.model, "V", "P")
@@ -295,11 +332,12 @@ def test_pipeline_runner_matches_the_jax_runner(monkeypatch):
         for k in want[side]:
             assert tuple(got[side][k].shape) == np.shape(want[side][k])
             np.testing.assert_array_equal(got[side][k].numpy(), np.asarray(want[side][k]))
-    for key in ("seed", "steps", "cfg", "sampler_name", "scheduler", "num_steps", "chunk_steps",
+    for key in ("seed", "steps", "cfg", "sampler_name", "scheduler", "num_steps",
                 "sequential_cfg", "callback"):
         assert got[key] == want[key], key
-    assert got["seed"] == 11 and got["callback"] is None
-    assert sorted(got) == sorted(want)  # no trace without progress, in both
+    assert got["seed"] == 11 and got["callback"] is None and want["chunk_steps"] == 3
+    # no trace without progress, in both
+    assert sorted(got) == sorted(set(want) - {"chunk_steps"})
     assert tuple(got["noise"].shape) == np.shape(want["noise"]) == (4, 4, 2, 3)
     assert torch.equal(got["noise"][3], got["noise"][0])
     assert len(outs["jax"]) == len(outs["torch"]) == 3
@@ -503,7 +541,7 @@ def test_pipeline_runner_equals_inpaint_image_on_a_tiny_pipeline(tmp_path):
             positive={k: torch.cat([t, t]) for k, t in pipe.encode("the cat").items()},
             negative={k: torch.cat([t, t]) for k, t in pipe.encode("").items()}, seed=5,
             steps=3, cfg=v.cfg, sampler_name="euler", scheduler="karras", num_steps=1,
-            chunk_steps=None, sequential_cfg=False, noise=noise)
+            sequential_cfg=False, noise=noise)
     assert out.dtype == np.float32 and out.shape == (3, 32, 32)
     np.testing.assert_array_equal(out, want[0].numpy())
     assert np.isfinite(out).all()

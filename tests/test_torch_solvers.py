@@ -13,10 +13,12 @@ the JAX package's.
    JAX solver takes (`normal(fold_in(fold_in(key, step), slot))`).  Limit:
    rtol 1e-4 with atol 1e-5 * max|want| (scalars computed in float32 on
    both sides, elementwise work in a different order).
-3. `model_step`, the outer step of a model call (the nearest ladder sigma).
+3. The history solvers' one run over a ladder against the JAX solver's
+   run in two segments joined by its carry.
+4. `model_step`, the outer step of a model call (the nearest ladder sigma).
 
 The host tables' copies (`_deis_coeffs`, `prepare_tables`,
-`dpm_fast_groups`) are checked in tests/test_torch_host_copies.py.
+`_dpm_fast_orders`) are checked in tests/test_torch_host_copies.py.
 """
 
 import functools
@@ -151,25 +153,20 @@ def test_solver_matches_jax(name, monkeypatch):
 
 @pytest.mark.parametrize("name", ["dpmpp_3m_sde", "er_sde"])
 def test_history_solver_carry_matches_jax(name, monkeypatch):
-    """The carry a segment returns (history slots and their step sizes)
-    equals the JAX solver's, and a second segment continued from it equals
-    JAX's continuation."""
+    """The port's one run over the whole ladder equals the JAX solver's run
+    as two segments, the second continued at step 3 from the first's carry
+    (three history slots and their step sizes)."""
     sigmas = karras(8, 0.05, SIGMA_MAX).astype(np.float32)
     x0 = (np.random.default_rng(6).standard_normal((1, 2, 8, 8)) * SIGMA_MAX).astype(np.float32)
     key = jax.random.PRNGKey(7)
+    jx, jden, jc = jsamplers.sample(j_model, jnp.asarray(x0), jnp.asarray(sigmas[:4]),
+                                    sampler=name, key=key, return_carry=True)
+    assert int(jc.nhist) == 3
+    want, jden2 = jsamplers.sample(j_model, jx, jnp.asarray(sigmas[3:]), sampler=name,
+                                   key=key, step_offset=3, carry_in=jc)
     monkeypatch.setattr(tsamplers, "_noise_like", jax_draws(key))
-    jx, _, jc = jsamplers.sample(j_model, jnp.asarray(x0), jnp.asarray(sigmas[:4]),
-                                 sampler=name, key=key, return_carry=True)
-    tx, _, tc = tsamplers.sample(t_model, torch.from_numpy(x0), sigmas[:4], sampler=name,
-                                 return_carry=True)
-    for got, want in ((tc.hist1, jc.hist1), (tc.hist2, jc.hist2), (tx, jx)):
-        _close(got, want)
-    np.testing.assert_allclose([tc.h1, tc.h2], [float(jc.h1), float(jc.h2)], rtol=1e-6)
-    assert tc.nhist == int(jc.nhist) == 3
-    want, _ = jsamplers.sample(j_model, jx, jnp.asarray(sigmas[3:]), sampler=name, key=key,
-                               step_offset=3, carry_in=jc)
-    got, _ = tsamplers.sample(t_model, tx, sigmas[3:], sampler=name, step_offset=3,
-                              carry_in=tc)
+    got, got_den = tsamplers.sample(t_model, torch.from_numpy(x0), sigmas, sampler=name)
+    _close(got_den, jnp.concatenate([jden, jden2]))
     _close(got, want)
 
 
@@ -177,5 +174,5 @@ def test_model_step_is_the_nearest_ladder_sigma():
     sigmas = np.asarray([14.6, 6.0, 6.0, 1.0, 0.0], np.float32)
     assert tsamplers.model_step(sigmas, 14.6) == 0
     assert tsamplers.model_step(sigmas, 6.0) == 1  # a tie takes the first, as jnp.argmin
-    assert tsamplers.model_step(sigmas, 3.4, step_offset=10) == 13  # nearer 1.0 than 6.0
-    assert tsamplers.model_step(sigmas, 0.0, step_offset=2) == 6
+    assert tsamplers.model_step(sigmas, 3.4) == 3  # nearer 1.0 than 6.0
+    assert tsamplers.model_step(sigmas, 0.0) == 4

@@ -1,26 +1,38 @@
 """deis and dpm_fast through the port's `LanPaintSampler` against the JAX
-package, and chunked runs against one run.
+package, and the port's one run against the JAX package's chunked runs.
 
 1. deis and dpm_fast on the tiny UNet in fp32, as
    tests/test_torch_solvers_staged.py checks the multi-stage solvers (the
    same inputs and limit): deis reads its coefficient rows, dpm_fast runs
    its own uniform-t grid, each call taking the step of its nearest ladder
    sigma.
-2. A chunked run equals one run bit for bit on the CPU for deis, heunpp2,
-   dpmpp_3m_sde and dpm_fast: the full ladder's table rows sliced per
-   segment, the solver carry threaded on, dpm_fast's launches cut at its
-   group boundaries (lanpaint_tpu/api.py:344-360).
+2. The JAX package runs a ladder as segments of `chunk_steps` outer steps
+   (one compiled launch each, lanpaint_tpu/api.py:340-420); the port runs
+   every ladder in one loop.  For deis, heunpp2, dpmpp_3m_sde and dpm_fast
+   the port's one run equals the JAX package's chunked run, at the same
+   inputs and limit, over a 7-step ladder: dpm_fast's 6 grid steps fall
+   into groups of 3, 2 and 1, which its segments keep whole.  heunpp2 takes
+   one feed row for every step: its third stage, at sigma_{i+2}, lies past
+   the end of a segment's ladder whenever i is a segment's last step but
+   one, and the JAX package's chunked run then gives it the segment's last
+   step and feed row where its one run gives it step i + 2, so with a
+   random row per step the JAX package's own chunked run leaves its one run
+   from step 2 on (tests/test_torch_solvers_staged.py holds the port's
+   heunpp2 against the JAX package's one run with a random row per step).
 """
 
+import numpy as np
 import pytest
-import torch
 
-from lanpaint_tpu_torch import LanPaintConfig, LanPaintSampler
-from lanpaint_tpu_torch import api as tapi
-from lanpaint_tpu_torch import samplers as tsamplers
-from lanpaint_tpu_torch.sigmas import calculate_sigmas
-from test_torch_solvers_staged import (check_against_jax, inputs, models,  # noqa: F401
+from test_torch_solvers_staged import (SHAPE, check_against_jax, inputs, models,  # noqa: F401
                                       one_thread)
+
+
+@pytest.fixture(scope="module")
+def inputs_7(inputs):  # noqa: F811
+    """`inputs` with a think-noise feed for a 7-step ladder."""
+    feed = np.random.default_rng(32).standard_normal((7, 2, 5) + SHAPE).astype(np.float32)
+    return dict(inputs, feed=feed)
 
 
 @pytest.mark.parametrize("name", ["deis", "dpm_fast"])
@@ -30,31 +42,9 @@ def test_solver_through_sampler_matches_jax(models, inputs, monkeypatch, name): 
 
 @pytest.mark.parametrize("name,chunk", [("deis", 2), ("heunpp2", 2), ("dpmpp_3m_sde", 3),
                                         ("dpm_fast", 1), ("dpm_fast", 3)])
-def test_chunked_run_equals_one_run(models, inputs, name, chunk):
-    _, tden = models
-    calls = {}
-    for chunk_steps in (None, chunk):
-        calls[chunk_steps] = []
-        sam = LanPaintSampler(tden, config=LanPaintConfig(n_steps=2), sampler_name=name,
-                              cfg=5.0, sequential_cfg=True, return_aux=True,
-                              callback=lambda i, den, x, _c=calls[chunk_steps]: _c.append(i))
-        out = sam(latent=torch.from_numpy(inputs["latent"]),
-                  sigmas=calculate_sigmas(tden.sigma_table, "karras", 7),
-                  mask=torch.from_numpy(inputs["mask"]), seed=9, chunk_steps=chunk_steps,
-                  cond={"context": torch.from_numpy(inputs["ctx"])},
-                  uncond={"context": torch.from_numpy(inputs["unctx"])})
-        calls[chunk_steps].append(out)
-    (*idx_one, one), (*idx_chunked, chunked) = calls[None], calls[chunk]
-    assert idx_one == idx_chunked
-    for a, b in zip(one[:2], chunked[:2]):
-        assert torch.equal(a, b), name
-    assert torch.equal(one[2].steps_done, chunked[2].steps_done)
-
-
-def test_dpm_fast_chunks_snap_to_groups():
-    # 7 steps: 6 grid steps as groups of 3, 2, 1 (k-diffusion's grouping)
-    assert tsamplers.dpm_fast_groups(7) == [3, 2, 1]
-    assert tapi._dpm_fast_ranges(7, 7) == [(0, 3, True)]
-    assert tapi._dpm_fast_ranges(7, 1) == [(0, 1, False), (1, 2, False), (2, 3, True)]
-    assert tapi._dpm_fast_ranges(7, 3) == [(0, 1, False), (1, 3, True)]
-    assert tapi._dpm_fast_ranges(7, 5) == [(0, 2, False), (2, 3, True)]
+def test_chunked_run_equals_one_run(models, inputs_7, monkeypatch, name, chunk):  # noqa: F811
+    inputs = inputs_7
+    if name == "heunpp2":
+        feed = inputs["feed"]
+        inputs = dict(inputs, feed=np.broadcast_to(feed[:1], feed.shape).copy())
+    check_against_jax(models, inputs, monkeypatch, name, chunk_steps=chunk)

@@ -15,8 +15,9 @@ package on the tiny UNet in fp32.
    tests/test_torch_api.py's.
 2. The model-call steps of heun, heunpp2 and dpm_2, recorded.
 
-tests/test_torch_solvers_chunks.py holds deis, dpm_fast and the chunked
-runs (two files, so that pytest-xdist's workers share JAX's compiles).
+tests/test_torch_solvers_chunks.py holds deis, dpm_fast and the JAX
+package's chunked runs (two files, so that pytest-xdist's workers share
+JAX's compiles).
 """
 
 import jax
@@ -65,17 +66,20 @@ def inputs():
 def _run(sampler_cls, config_cls, den, inputs, to, name, **call_kw):
     sam = sampler_cls(den, config=config_cls(n_steps=2), sampler_name=name, cfg=5.0,
                       sequential_cfg=True)
+    # the feed holds a row per outer step
     return sam(latent=to(inputs["latent"]), sigmas=calculate_sigmas(
-                   den.sigma_table, "karras", STEPS), mask=to(inputs["mask"]),
+                   den.sigma_table, "karras", len(inputs["feed"])), mask=to(inputs["mask"]),
                cond={"context": to(inputs["ctx"])}, uncond={"context": to(inputs["unctx"])},
                noise=to(inputs["noise"]), seed=3, **call_kw)
 
 
-def check_against_jax(models, inputs, monkeypatch, name):
+def check_against_jax(models, inputs, monkeypatch, name, **jax_kw):
+    """The port's run against the JAX package's, `jax_kw` passed to the JAX
+    package's call alone."""
     jden, tden = models
     with jax.default_matmul_precision("highest"):
         want = _run(J.LanPaintSampler, J.LanPaintConfig, jden, inputs, jnp.asarray, name,
-                    noise_feed=jnp.asarray(inputs["feed"]))
+                    noise_feed=jnp.asarray(inputs["feed"]), **jax_kw)
     k_solve = jax.random.split(jax.random.PRNGKey(3), 3)[2]
     monkeypatch.setattr(tsamplers, "_noise_like", jax_draws(k_solve))
     got = _run(LanPaintSampler, LanPaintConfig, tden, inputs, torch.from_numpy, name,
