@@ -394,20 +394,22 @@ FORWARDS["tp"] = TP_RANKS * TP_RANK_FORWARDS  # 20
 PER_FORWARD = {  # kernel launches per model forward
     "sdxl": {"flash_attention": 70, "layernorm": 210, "rmsnorm": 0},
     # 19 double + 38 single blocks; adaLN norms 4 + 1 per block + 1 final;
-    # QKNorm 4 per double block, 2 per single block
-    "flux": {"flash_attention": 57, "layernorm": 115, "rmsnorm": 152},
+    # QKNorm with RoPE in its epilogue 4 per double block, 2 per single block
+    "flux": {"flash_attention": 57, "layernorm": 115, "rmsnorm": 0, "rmsnorm_rope": 152},
     # 30 blocks: self-attention and the cross-attention over the 512 text
     # tokens (S >= 1,024 queries: the kernel takes Sk != S), two a block;
-    # norm1, norm2, norm3 + the head's norm; self q, self k and cross q RMS
-    # norms
-    "video": {"flash_attention": 60, "layernorm": 91, "rmsnorm": 90},
-    "pair": {"flash_attention": 80, "layernorm": 121, "rmsnorm": 120},  # 40 blocks
+    # norm1, norm2, norm3 + the head's norm; the cross q RMS norm, and the
+    # self q and k with RoPE in the epilogue
+    "video": {"flash_attention": 60, "layernorm": 91, "rmsnorm": 30, "rmsnorm_rope": 60},
+    "pair": {"flash_attention": 80, "layernorm": 121, "rmsnorm": 40,  # 40 blocks
+             "rmsnorm_rope": 80},
 }
 # the seq-parallel TI2V-5B: ring self-attention (plain fp32, no kernel), the
 # cross-attention through the kernel (a rank's 7,920 queries over the 512
 # text tokens), the video path's norms, and the cross norm_k of each block
 # in the forward (no hoist on the parallel path)
-PER_FORWARD["parallel"] = {"flash_attention": 30, "layernorm": 91, "rmsnorm": 120}
+PER_FORWARD["parallel"] = {"flash_attention": 30, "layernorm": 91, "rmsnorm": 60,
+                           "rmsnorm_rope": 60}
 PER_FORWARD["pixel"] = PER_FORWARD["pipeline"] = PER_FORWARD["serve"] = PER_FORWARD["sdxl"]
 # of each path's flash_attention launches, the cross-attention ones
 # (`telemetry.summary()["cross_launches"]`): Wan's, one a block; none
@@ -430,9 +432,12 @@ PER_FORWARD["sd15"] = {"flash_attention": 0, "layernorm": 48, "rmsnorm": 0}
 # blocks, cap_norm and norm_final; the final LayerNorm is plain, as in JAX
 PER_FORWARD["zimage"] = {"flash_attention": 32, "layernorm": 0, "rmsnorm": 206}
 # Qwen-Image: 60 double blocks (S = n_txt + 8,192 with the reference
-# tokens); adaLN norms 4 a block + the final one, QKNorm 4 a block + txt_norm
-PER_FORWARD["qwen_edit"] = {"flash_attention": 60, "layernorm": 241, "rmsnorm": 241}
-PER_FORWARD["qwen_small"] = {"flash_attention": 2, "layernorm": 9, "rmsnorm": 9}  # 2 blocks
+# tokens); adaLN norms 4 a block + the final one, txt_norm, QKNorm with RoPE
+# 4 a block
+PER_FORWARD["qwen_edit"] = {"flash_attention": 60, "layernorm": 241, "rmsnorm": 1,
+                            "rmsnorm_rope": 240}
+PER_FORWARD["qwen_small"] = {"flash_attention": 2, "layernorm": 9, "rmsnorm": 1,  # 2 blocks
+                             "rmsnorm_rope": 8}
 # SD3.5-Large: 38 joint blocks (S = 231 + 4,096); ln_q and ln_k of both
 # streams, 4 a block; its affine-free LayerNorms are plain torch, as in JAX
 PER_FORWARD["sd35"] = {"flash_attention": 38, "layernorm": 0, "rmsnorm": 152}
@@ -529,17 +534,20 @@ NORM_SHAPES = [
     ((1, 4096, 3072), "layernorm_na", {"flux": 39}),
     ((1, 512, 3072), "layernorm_na", {"flux": 38}),
     ((1, 4608, 3072), "layernorm_na", {"flux": 38}),
-    ((1, 4096, 24, 128), "rmsnorm", {"flux": 38}),
-    ((1, 512, 24, 128), "rmsnorm", {"flux": 38}),
-    ((1, 4608, 24, 128), "rmsnorm", {"flux": 76}),
-    ((1, 4608, 12, 128), "rmsnorm", {}),  # Flux-dev's linear1 q / k at tensor 2
+    ((1, 4096, 24, 128), "rmsnorm_rope", {"flux": 38}),
+    ((1, 512, 24, 128), "rmsnorm_rope", {"flux": 38}),
+    ((1, 4608, 24, 128), "rmsnorm_rope", {"flux": 76}),
+    ((1, 4608, 12, 128), "rmsnorm_rope", {}),  # Flux-dev's linear1 q / k at tensor 2
     ((1, 7920, 3072), "layernorm_na", {"video": 61, "parallel": 61}),
     ((1, 7920, 3072), "layernorm", {"video": 30, "parallel": 30}),
-    ((1, 7920, 3072), "rmsnorm", {"video": 90, "parallel": 90}),
+    ((1, 7920, 3072), "rmsnorm", {"video": 30, "parallel": 30}),
+    ((1, 7920, 3072), "rmsnorm_rope", {"video": 60, "parallel": 60}),
+    ((2, 7920, 3072), "rmsnorm_rope", {}),  # the benchmark's video cell: batched CFG
     ((1, 512, 3072), "rmsnorm", {"parallel": 30}, {"video": 60}),
     ((1, 14040, 5120), "layernorm_na", {"pair": 81}),
     ((1, 14040, 5120), "layernorm", {"pair": 40}),
-    ((1, 14040, 5120), "rmsnorm", {"pair": 120}),
+    ((1, 14040, 5120), "rmsnorm", {"pair": 40}),
+    ((1, 14040, 5120), "rmsnorm_rope", {"pair": 80}),
     ((1, 512, 5120), "rmsnorm", {}, {"pair": 160}),
 ]
 # SDXL, Flux, ragged: whole quads a row, and M % 4 != 0 (quads straddle rows)
@@ -560,7 +568,8 @@ PEAK_BYTES = 3.35e12  # HBM3 bytes/s
 # fp32 operations per element, counted from each kernel's body: the row
 # norm's LayerNorm (x^2, two sums, centre, scale, affine) and RMS mode; the
 # fused think-step kernels' SHO/OU mix and Box-Muller draws (ops/fused.py)
-NORM_OPS = {"layernorm": 8, "layernorm_na": 6, "rmsnorm": 5, "rmsnorm_fp32": 5}
+NORM_OPS = {"layernorm": 8, "layernorm_na": 6, "rmsnorm": 5, "rmsnorm_fp32": 5,
+            "rmsnorm_rope": 8}  # the RMS mode's 5 and the rotation's 2 mul + 1 add
 FUSED_OPS = 60
 # bytes per element the fused kernels must move: half step 4 fp32 reads and
 # 3 writes, warm finish 6 reads (x_half, v_half, x_half_od, c_old, c_new,
@@ -664,10 +673,11 @@ def phase_device() -> str:
 # kernel instantiations each CUDA library must hold: the D <= 128 attention
 # two per head dim (a block a query tile, and persistent for short key
 # runs), the wide attention one per head dim, the row norm one per (x dtype,
-# out dtype, vectors a thread) of fp32 / bf16 and 1, 2, 4, 8, the fused
-# think step one per (phase, quads a thread) of half / warm / cold and 1, 2
+# out dtype, vectors a thread) of fp32 / bf16 and 1, 2, 4, 8 and with the
+# RoPE epilogue one per (dtype, vectors a thread), the fused think step one
+# per (phase, quads a thread) of half / warm / cold and 1, 2
 INSTANTIATIONS = {"attention": 2 * len(attention.SUPPORTED_HEAD_DIMS),
-                  "wide_attention": len(attention.WIDE_HEAD_DIMS), "row_norm": 2 * 2 * 4,
+                  "wide_attention": len(attention.WIDE_HEAD_DIMS), "row_norm": 2 * 2 * 4 + 2 * 4,
                   "fused": 3 * 2}
 WGMMA_LIBRARIES = ("attention", "wide_attention")
 
@@ -847,12 +857,38 @@ def _sdpa_backends(q, k, v) -> list:
     return ok
 
 
+def rope_case(shape, gen):
+    """(x, table) of an RMS norm with the RoPE epilogue at `shape`, as the
+    models hand it over: a 4D (B, S, H, 128) q is a strided third of a fused
+    projection (Flux's QKNorm) whose rows of the table are, at S = 512 and
+    4,096, the txt and img slices of a double block's 4,608-token table;
+    a 3D (B, S, C) one is Wan's dense full-width rows."""
+    b, s = shape[:2]
+    if len(shape) == 4:
+        x = _qkv_views(*shape, gen)[0]
+        start, total = {512: (0, 4608), 4096: (512, 4608)}.get(s, (0, s))
+        axes = (16, 56, 56)
+    else:
+        x = torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+        start, total, axes = 0, s, (44, 42, 42)
+    ids = torch.randint(0, 128, (b, total, 3), device="cuda", generator=gen)
+    return x, layers.rope_freqs(ids, axes)[:, start:start + s]
+
+
 def _kernel_norms(gen) -> list:
     rows = []
     for shape, mode, calls, *run_calls in NORM_SHAPES:
         c = shape[-1]
-        library = None
-        if mode.startswith("rmsnorm"):  # 4D: a strided q view, as QKNorm gets it
+        library = freqs = None
+        if mode == "rmsnorm_rope":  # against rmsnorm + apply_rope on the card, bit for bit
+            x, freqs = rope_case(shape, gen)
+            g = (1.0 + 0.1 * torch.randn(c, device="cuda", generator=gen)).to(torch.bfloat16)
+            kernel = lambda: norms.rmsnorm_rope(x, g, 1e-6, freqs, 128)  # noqa: E731
+            plain = lambda: norms.rmsnorm_rope_ref(x, g, 1e-6, freqs, 128)  # noqa: E731
+            library = lambda: norms.rope_rows(norms.rmsnorm(x, g), freqs, 128)  # noqa: E731
+            if not torch.equal(kernel(), library()):
+                raise AssertionError(f"rmsnorm_rope {shape} differs from rmsnorm + apply_rope")
+        elif mode.startswith("rmsnorm"):  # 4D: a strided q view, as QKNorm gets it
             x = (_qkv_views(*shape, gen)[0] if len(shape) == 4 else
                  torch.randn(shape, device="cuda", generator=gen))
             # fp32 rows (Z-Image's cap_norm on the text states) or bf16
@@ -884,12 +920,15 @@ def _kernel_norms(gen) -> list:
             raise AssertionError(f"{mode} {shape} disagrees with its plain version: {err}")
         params = [p for p in (g, beta) if p is not None] if not mode.startswith("rmsnorm") \
             else [g]
+        # the table as the kernel reads it: once a token, whatever its heads
+        params += [] if freqs is None else [freqs]
         n_bytes = sum(t.numel() * t.element_size() for t in (x, out, *params))
         r = timed_row(kernel, plain, err, calls, run_calls=run_calls[0] if run_calls else None,
                       bounds=bound(n_bytes, NORM_OPS[mode] * x.numel(), PEAK_FP32),
                       library=library,
                       library_name={"layernorm": "F.layer_norm", "rmsnorm": "F.rms_norm",
-                                    "rmsnorm_fp32": "F.rms_norm"}.get(mode),
+                                    "rmsnorm_fp32": "F.rms_norm",
+                                    "rmsnorm_rope": "rmsnorm + apply_rope"}.get(mode),
                       shape=shape, mode=mode)
         say(f"phase 3 kernels: {mode} {shape} {out.dtype} max_abs_err {err:.3g} {row_text(r)} ok")
         rows.append(r)
@@ -1140,14 +1179,12 @@ def _small_reference(label, models, forward, sampler_kw, latent_shape, cond, sig
     """The card's relative L2 error against the fp32 CPU reference must be
     no more than twice the plain bf16 path's, plus 1e-3, for one forward
     and for a 4-step LanPaint run with a shared think-noise feed."""
-    before = {k: f.launches for k, f in (("attention", attention.flash_attention),
-                                         ("layernorm", norms.layernorm),
-                                         ("rmsnorm", norms.rmsnorm))}
+    counters = (("attention", attention.flash_attention), ("layernorm", norms.layernorm),
+                ("rmsnorm", norms.rmsnorm), ("rmsnorm_rope", norms.rmsnorm_rope))
+    before = {k: f.launches for k, f in counters}
     with torch.no_grad():
         fwd = [forward(mod, dev).cpu() for _, mod, dev in models]
-    ran = {k: f.launches - before[k] for k, f in (("attention", attention.flash_attention),
-                                                  ("layernorm", norms.layernorm),
-                                                  ("rmsnorm", norms.rmsnorm))}
+    ran = {k: f.launches - before[k] for k, f in counters}
     runs = _small_runs(models, sampler_kw, _small_inputs(latent_shape, len(sigmas) - 1), cond,
                        sigmas)
     fwd_card, fwd_plain, fwd_ok = _against_fp32(fwd)
@@ -1310,7 +1347,7 @@ def phase_small_dit() -> None:
                              cond["vec"].to(dev), cond["guidance"].to(dev)),
         dict(cfg=1.0), (1, 16, 64, 64), (cond, None),
         calculate_sigmas(models[0][0].sigma_table, "simple", 4))
-    if not (ok and ran["attention"] and ran["layernorm"] and ran["rmsnorm"]):
+    if not (ok and ran["attention"] and ran["layernorm"] and ran["rmsnorm_rope"]):
         raise AssertionError("the small DiT on the card is less accurate than the plain path "
                              "or did not go through the kernels")
 
@@ -1343,8 +1380,8 @@ def phase_small_zimage() -> None:
 
 COUNTERS = {"flash_attention": attention.flash_attention,
             "wide_attention": attention.wide_attention, "layernorm": norms.layernorm,
-            "rmsnorm": norms.rmsnorm, "fused_half_step": fused.fused_half_step,
-            "fused_finish": fused.fused_finish}
+            "rmsnorm": norms.rmsnorm, "rmsnorm_rope": norms.rmsnorm_rope,
+            "fused_half_step": fused.fused_half_step, "fused_finish": fused.fused_finish}
 
 
 def _zero_counters() -> None:
@@ -2540,8 +2577,8 @@ def add_new_path_shapes(z_txt: int, q_txt: int) -> None:
         ((1, 4096, 30, 128), "rmsnorm", {"zimage": 4}),
         ((1, z_txt, 30, 128), "rmsnorm", {"zimage": 4}),
         ((1, q_txt, 3584), "rmsnorm", {"qwen_edit": 1}),  # txt_norm
-        ((1, 8192, 24, 128), "rmsnorm", {"qwen_edit": 120}),
-        ((1, q_txt, 24, 128), "rmsnorm", {"qwen_edit": 120}),
+        ((1, 8192, 24, 128), "rmsnorm_rope", {"qwen_edit": 120}),
+        ((1, q_txt, 24, 128), "rmsnorm_rope", {"qwen_edit": 120}),
         ((1, 8192, 3072), "layernorm_na", {"qwen_edit": 120}),
         ((1, q_txt, 3072), "layernorm_na", {"qwen_edit": 120}),
         ((1, 4096, 3072), "layernorm_na", {"qwen_edit": 1}),
@@ -3470,12 +3507,14 @@ def _recording(log: collections.Counter):
     strides, dtypes, mode, eps or scale."""
     norm_launch, attn_launch = norms._launch, attention._tma_launch
 
-    def norm(wrapper, x, gamma, beta, eps, rms, out_dtype, config=None):
+    def norm(wrapper, x, gamma, beta, eps, rms, out_dtype, config=None, rope=None):
         before = wrapper.launches
-        out = norm_launch(wrapper, x, gamma, beta, eps, rms, out_dtype, config)
+        out = norm_launch(wrapper, x, gamma, beta, eps, rms, out_dtype, config, rope)
         if wrapper.launches > before:
+            table = None if rope is None else (tuple(rope[0].shape), rope[0].stride(), rope[1])
             log[("row_norm", rms, tuple(x.shape), x.stride(), x.dtype,
-                 None if gamma is None else gamma.dtype, beta is not None, eps, out.dtype)] += 1
+                 None if gamma is None else gamma.dtype, beta is not None, eps, out.dtype,
+                 table)] += 1
         return out
 
     def attn(op, entry, q, k, v, scale):
@@ -3500,16 +3539,28 @@ def _random_strided(shape, stride, dtype, gen, scale=1.0, shift=0.0):
 
 def _replay_norm(key, n, gen) -> dict:
     """One recorded row-norm call on fresh inputs of its layout, against its
-    plain version (NORM_TOL), timed (reps 5, host-inclusive)."""
-    _, rms, shape, stride, dtype, g_dtype, has_beta, eps, out_dtype = key
+    plain version (NORM_TOL), timed (reps 5, host-inclusive); a call with
+    the RoPE epilogue also equal to `rmsnorm` + `apply_rope` on the card,
+    which it is timed against."""
+    _, rms, shape, stride, dtype, g_dtype, has_beta, eps, out_dtype, table = key
     c = shape[-1]
     x = _random_strided(shape, stride, dtype, gen, 2.0, 0.5)
     rnd = lambda: torch.randn(c, device=gen.device, generator=gen)  # noqa: E731
     g = None if g_dtype is None else (1.0 + 0.1 * rnd()).to(g_dtype)
     beta = (0.1 * rnd()).to(g_dtype) if has_beta else None
     lib_w = lambda t: None if t is None else t.to(x.dtype)  # noqa: E731
-    library = library_name = None
-    if rms:
+    library = library_name = freqs = None
+    if table is not None:
+        mode, (f_shape, f_stride, head_dim) = "rmsnorm_rope", table
+        freqs = _random_strided(f_shape, f_stride, torch.float32, gen)
+        kernel = lambda: norms.rmsnorm_rope(x, g, eps, freqs, head_dim)  # noqa: E731
+        plain = lambda: norms.rmsnorm_rope_ref(x, g, eps, freqs, head_dim)  # noqa: E731
+        library_name = "rmsnorm + apply_rope"
+        library = lambda: norms.rope_rows(norms.rmsnorm(x, g, eps), freqs, head_dim)  # noqa: E731
+        if not torch.equal(kernel(), library()):
+            raise AssertionError(f"phase 23: rmsnorm_rope {shape} stride {stride} table "
+                                 f"{f_shape} {f_stride} differs from rmsnorm + apply_rope")
+    elif rms:
         mode = "rmsnorm_fp32" if dtype == torch.float32 else "rmsnorm"
         kernel, plain = (lambda: norms.rmsnorm(x, g, eps)), (lambda: norms.rmsnorm_ref(x, g, eps))
         library, library_name = (lambda: F.rms_norm(x, (c,), lib_w(g), eps=eps)), "F.rms_norm"
@@ -3527,7 +3578,8 @@ def _replay_norm(key, n, gen) -> dict:
     if not (out.dtype == want.dtype and torch.allclose(out.float(), want.float(), **NORM_TOL)):
         raise AssertionError(f"phase 23: {mode} {shape} stride {stride} {dtype} -> {out_dtype} "
                              f"disagrees with its plain version: max abs {err}")
-    n_bytes = sum(t.numel() * t.element_size() for t in (x, out, g, beta) if t is not None)
+    n_bytes = sum(t.numel() * t.element_size() for t in (x, out, g, beta, freqs)
+                  if t is not None)
     return timed_row(kernel, plain, err, {}, run_calls={"examples": n}, reps=5, device=False,
                      bounds=bound(n_bytes, NORM_OPS[mode] * x.numel(), PEAK_FP32),
                      library=library, library_name=library_name, shape=shape, mode=mode)
@@ -3602,7 +3654,7 @@ def phase_examples(smi: str) -> tuple:
         if not ok:
             raise AssertionError(f"phase 23 example {name} failed:\n{out.getvalue()[-2000:]}")
         gc.collect()
-    if not (total["layernorm"] and total["rmsnorm"]):
+    if not (total["layernorm"] and total["rmsnorm"] and total["rmsnorm_rope"]):
         raise AssertionError(f"phase 23: the row-norm kernel was not launched: {total}")
     if total["fused_half_step"] or total["fused_finish"]:
         raise AssertionError(f"phase 23: fused kernel launches are not replayed: {total}")
@@ -3616,7 +3668,7 @@ def phase_examples(smi: str) -> tuple:
     recorded = {k: sum(n for key, n in log.items() if key[0] == k) for k in rows}
     counted = {"flash_attention": total["flash_attention"],
                "wide_attention": total["wide_attention"],
-               "row_norm": total["layernorm"] + total["rmsnorm"]}
+               "row_norm": total["layernorm"] + total["rmsnorm"] + total["rmsnorm_rope"]}
     ok = recorded == counted
     say(f"phase 23 examples: each distinct kernel call made again on fresh inputs against its "
         f"plain version: " + ", ".join(

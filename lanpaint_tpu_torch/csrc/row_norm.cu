@@ -25,7 +25,21 @@
 //     memory in a fixed order.  Each thread keeps its
 //     8 * NV elements in registers between the statistics and the output;
 //   * one launch through a plain C function (ctypes): the host's work per
-//     call is the wrapper's few lines of Python and this function.
+//     call is the wrapper's few lines of Python and this function;
+//   * RoPE in the RMS mode's epilogue (the `ROPE` instantiations): the DiTs'
+//     q and k go from their RMS norm straight into a rotation by the
+//     `rope_freqs` table (models/layers.py `apply_rope`), which as its own
+//     pass read and wrote every element five times in fp32.  Here the row
+//     is already in registers: each thread's 16-byte vector is 4 adjacent
+//     (even, odd) pairs of one head, so the rotation is local to the
+//     thread and costs only the table's reads, (D / 2, 2, 2) fp32 a token
+//     through L1, shared by the token's heads (loading a thread's matrices
+//     before the statistics, and keeping them for its later vectors at the
+//     same place in their heads, measured no faster).  The arithmetic is
+//     apply_rope's after the norm's output rounding: the normalised value
+//     rounded to the output dtype, widened, then t0 * x0 + t1 * x1 in fp32
+//     with no FMA contraction and one rounding to the output dtype.  The
+//     instantiations without the table are the code they were before it.
 //
 // Interface: lp_row_norm (below); it launches on the caller's stream and
 // returns a cudaError_t.
@@ -84,6 +98,39 @@ __device__ __forceinline__ void load8(const void* p, bool bf16, int i, float (&v
   }
 }
 
+// The table's rows (ROPE instantiations): kernel row r belongs to token
+// tok = r / tok_rows (tok_rows consecutive rows share one, the heads of
+// per-head rows), token (b, s) = (tok / n_tok, tok % n_tok) reads its
+// (D / 2, 2, 2) fp32 matrices at freqs + b * s_b + s * s_s, and element c
+// of a row is of pair (c % D) / 2.
+struct Rope {
+  const float* freqs;
+  unsigned tok_rows, n_tok;
+  long long s_b, s_s;
+  int head_dim;
+};
+
+// a value as the unfused path hands it on: rounded to the output dtype
+__device__ __forceinline__ float rounded(float v, float*) { return v; }
+__device__ __forceinline__ float rounded(float v, __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Rotate 8 outputs (4 pairs) by their 4 matrices m = (t00, t01, t10, t11),
+// read through L1: out_i = t_i0 * x0 + t_i1 * x1, apply_rope's mul, mul,
+// add in fp32
+template <typename O>
+__device__ __forceinline__ void rope8(float (&y)[kVec], const float* m) {
+#pragma unroll
+  for (int p = 0; p < kVec / 2; ++p) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(m) + p);
+    const float x0 = rounded(y[2 * p], static_cast<O*>(nullptr));
+    const float x1 = rounded(y[2 * p + 1], static_cast<O*>(nullptr));
+    y[2 * p] = __fadd_rn(__fmul_rn(t.x, x0), __fmul_rn(t.y, x1));
+    y[2 * p + 1] = __fadd_rn(__fmul_rn(t.z, x0), __fmul_rn(t.w, x1));
+  }
+}
+
 __device__ __forceinline__ void store8(float* p, const float (&v)[kVec]) {
   reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
   reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
@@ -98,13 +145,15 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[kVec])
 }
 
 // One row per `tpr` threads (threads / tpr rows a block); thread t of a row
-// holds the 8-element vectors t, t + tpr, ..., NV of them at most.
-template <typename X, typename O, int NV>
+// holds the 8-element vectors t, t + tpr, ..., NV of them at most.  ROPE:
+// the RMS mode with the rotation by `rope` after the scale (`rope` is the
+// last parameter, so the others keep their places).
+template <typename X, typename O, int NV, bool ROPE>
 __global__ void __launch_bounds__(max_threads(NV))
 row_norm_kernel(const X* __restrict__ x, const void* __restrict__ gamma,
                 const void* __restrict__ beta, O* __restrict__ out, unsigned n_rows,
                 unsigned n_inner, long long s_outer, long long s_inner, int C, bool p_bf16,
-                bool rms, float eps, int tpr) {
+                bool rms, float eps, int tpr, Rope rope) {
   const int nvec = C / kVec;
   const int t = threadIdx.x % tpr;
   const unsigned row = blockIdx.x * (blockDim.x / tpr) + threadIdx.x / tpr;
@@ -155,6 +204,11 @@ row_norm_kernel(const X* __restrict__ x, const void* __restrict__ gamma,
   const float mean = rms ? 0.f : s1 * inv_c;
   const float rstd = rsqrtf(fmaf(-mean, mean, s2 * inv_c) + eps);
   O* orow = out + (long long)row * C;
+  const float* table = nullptr;  // ROPE: the row's token's matrices
+  if constexpr (ROPE) {
+    const unsigned tok = row / rope.tok_rows, b = tok / rope.n_tok;
+    table = rope.freqs + b * rope.s_b + (tok - b * rope.n_tok) * rope.s_s;
+  }
 #pragma unroll
   for (int k = 0; k < NV; ++k) {
     const int vi = t + k * tpr;
@@ -174,33 +228,34 @@ row_norm_kernel(const X* __restrict__ x, const void* __restrict__ gamma,
 #pragma unroll
       for (int e = 0; e < kVec; ++e) y[e] += bb[e];
     }
+    if constexpr (ROPE) rope8<O>(y, table + vi * kVec % rope.head_dim * 2);
     store8(orow + vi * kVec, y);
   }
 }
 
-template <typename X, typename O, int NV>
+template <typename X, typename O, int NV, bool ROPE>
 cudaError_t launch(const void* x, const void* gamma, const void* beta, void* out,
                    unsigned n_rows, unsigned n_inner, long long s_outer, long long s_inner,
                    int C, bool p_bf16, bool rms, float eps, int threads, int tpr,
-                   cudaStream_t stream) {
+                   const Rope& rope, cudaStream_t stream) {
   if (threads > max_threads(NV)) return cudaErrorInvalidValue;
   const unsigned rows_per_block = threads / tpr;
   const unsigned blocks = (n_rows + rows_per_block - 1) / rows_per_block;
-  row_norm_kernel<X, O, NV><<<blocks, threads, 0, stream>>>(
+  row_norm_kernel<X, O, NV, ROPE><<<blocks, threads, 0, stream>>>(
       static_cast<const X*>(x), gamma, beta, static_cast<O*>(out), n_rows, n_inner, s_outer,
-      s_inner, C, p_bf16, rms, eps, tpr);
+      s_inner, C, p_bf16, rms, eps, tpr, rope);
   return cudaGetLastError();
 }
 
-template <typename X, typename O>
+template <typename X, typename O, bool ROPE>
 cudaError_t launch_nv(int nv, const void* x, const void* gamma, const void* beta, void* out,
                       unsigned n_rows, unsigned n_inner, long long s_outer, long long s_inner,
                       int C, bool p_bf16, bool rms, float eps, int threads, int tpr,
-                      cudaStream_t stream) {
+                      const Rope& rope, cudaStream_t stream) {
 #define LP_NV(N)                                                                           \
   if (nv <= N)                                                                             \
-    return launch<X, O, N>(x, gamma, beta, out, n_rows, n_inner, s_outer, s_inner, C,      \
-                           p_bf16, rms, eps, threads, tpr, stream);
+    return launch<X, O, N, ROPE>(x, gamma, beta, out, n_rows, n_inner, s_outer, s_inner,   \
+                                 C, p_bf16, rms, eps, threads, tpr, rope, stream);
   LP_NV(1)
   LP_NV(2)
   LP_NV(4)
@@ -218,11 +273,17 @@ cudaError_t launch_nv(int nv, const void* x, const void* gamma, const void* beta
 // nonzero, else fp32.  `threads` a block (a multiple of 32, at most 1,024)
 // and `tpr` threads a row dividing it (a power of two up to 32, or a
 // multiple of 32); tpr * 8 * 8 >= C, and at most 512 threads where a
-// thread holds 32 elements or more, 256 where 64.  Returns a cudaError_t.
+// thread holds 32 elements or more, 256 where 64.  freqs: null, or the RoPE
+// table (`Rope` above; fp32, 16-byte aligned, strides s_b and s_s multiples
+// of 4, each (D / 2, 2, 2) matrix block contiguous) for the RMS mode with
+// x_bf16 == out_bf16, head_dim D % 8 == 0 dividing C, tok_rows dividing
+// n_rows.  Returns a cudaError_t.
 extern "C" int lp_row_norm(const void* x, const void* gamma, const void* beta, void* out,
                            long long n_rows, long long n_inner, long long s_outer,
                            long long s_inner, int C, int x_bf16, int p_bf16, int out_bf16,
-                           int rms, float eps, int threads, int tpr, void* stream) {
+                           int rms, float eps, int threads, int tpr, const void* freqs,
+                           long long tok_rows, long long n_tok, long long s_b, long long s_s,
+                           int head_dim, void* stream) {
   const bool tpr_ok = tpr >= 1 && (tpr <= 32 ? (tpr & (tpr - 1)) == 0 : tpr % 32 == 0);
   if (n_rows <= 0 || n_rows >= (1ll << 31) || n_inner <= 0 || C <= 0 || C % kVec ||
       C > 8192 || threads < 32 || threads > 1024 || threads % 32 || !tpr_ok || threads % tpr)
@@ -231,16 +292,33 @@ extern "C" int lp_row_norm(const void* x, const void* gamma, const void* beta, v
   const int nv = (nvec + tpr - 1) / tpr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned rows = (unsigned)n_rows, inner = (unsigned)n_inner;
+  const Rope rope{static_cast<const float*>(freqs), (unsigned)tok_rows, (unsigned)n_tok, s_b,
+                  s_s, head_dim};
+  if (freqs != nullptr) {
+    if (!rms || x_bf16 != out_bf16 || head_dim <= 0 || head_dim % kVec || C % head_dim ||
+        tok_rows <= 0 || n_rows % tok_rows || n_tok <= 0 || s_b < 0 || s_s < 0 || s_b % 4 ||
+        s_s % 4 || reinterpret_cast<uintptr_t>(freqs) % 16)
+      return (int)cudaErrorInvalidValue;
+    if (x_bf16)
+      return (int)launch_nv<__nv_bfloat16, __nv_bfloat16, true>(
+          nv, x, gamma, beta, out, rows, inner, s_outer, s_inner, C, p_bf16, rms, eps, threads,
+          tpr, rope, s);
+    return (int)launch_nv<float, float, true>(nv, x, gamma, beta, out, rows, inner, s_outer,
+                                              s_inner, C, p_bf16, rms, eps, threads, tpr, rope,
+                                              s);
+  }
   if (x_bf16 && out_bf16)
-    return (int)launch_nv<__nv_bfloat16, __nv_bfloat16>(nv, x, gamma, beta, out, rows, inner,
-                                                         s_outer, s_inner, C, p_bf16, rms, eps,
-                                                         threads, tpr, s);
+    return (int)launch_nv<__nv_bfloat16, __nv_bfloat16, false>(
+        nv, x, gamma, beta, out, rows, inner, s_outer, s_inner, C, p_bf16, rms, eps, threads, tpr,
+        rope, s);
   if (x_bf16)
-    return (int)launch_nv<__nv_bfloat16, float>(nv, x, gamma, beta, out, rows, inner, s_outer,
-                                                s_inner, C, p_bf16, rms, eps, threads, tpr, s);
+    return (int)launch_nv<__nv_bfloat16, float, false>(nv, x, gamma, beta, out, rows, inner,
+                                                       s_outer, s_inner, C, p_bf16, rms, eps,
+                                                       threads, tpr, rope, s);
   if (out_bf16)
-    return (int)launch_nv<float, __nv_bfloat16>(nv, x, gamma, beta, out, rows, inner, s_outer,
-                                                s_inner, C, p_bf16, rms, eps, threads, tpr, s);
-  return (int)launch_nv<float, float>(nv, x, gamma, beta, out, rows, inner, s_outer, s_inner, C,
-                                      p_bf16, rms, eps, threads, tpr, s);
+    return (int)launch_nv<float, __nv_bfloat16, false>(nv, x, gamma, beta, out, rows, inner,
+                                                       s_outer, s_inner, C, p_bf16, rms, eps,
+                                                       threads, tpr, rope, s);
+  return (int)launch_nv<float, float, false>(nv, x, gamma, beta, out, rows, inner, s_outer,
+                                             s_inner, C, p_bf16, rms, eps, threads, tpr, rope, s);
 }

@@ -12,7 +12,9 @@ models/bridge.py maps a flax parameter tree onto the state_dict one to one.
 
 Joint self-attention goes through `layers.attention_bshd` (the
 flash-attention kernel on CUDA at S >= 1024, D % 64 == 0), every
-`layernorm_na` and `QKNorm` through the row-norm kernel.  The JAX config's
+`layernorm_na` and `QKNorm` through the row-norm kernel, QKNorm with RoPE
+in its epilogue (`ops.norms.rmsnorm_rope`: one launch for q and one for k
+of each stream, counted in `rmsnorm_rope.launches`).  The JAX config's
 `attention_impl` knob is not carried over: the port routes by shape only.
 
 Tensor and layer parallelism (`MMDiT(cfg, mesh, tp_axis=..., layer_axis=
@@ -42,7 +44,6 @@ from .layers import (
     MLPEmbedder,
     QKNorm,
     RMSNorm,
-    apply_rope,
     attention_bshd,
     layernorm_na,
     column_linear,
@@ -164,11 +165,13 @@ class DoubleStreamBlock(nn.Module):
                                                         dtype=dt))
             self.add_module(f"{p}_mlp_2", row_linear(mlp_h // n, h, tp, dtype=dt))
 
-    def _qkv(self, x, prefix):
+    def _qkv(self, x, prefix, pe):
+        """q, k, v of a stream, q and k normed and rotated by its rows of
+        the RoPE table, `pe`."""
         heads = (self.heads, self.cfg.head_dim)
         q, k, v = (t.unflatten(-1, heads)
                    for t in getattr(self, f"{prefix}_attn_qkv")(x).chunk(3, dim=-1))
-        q, k = getattr(self, f"{prefix}_attn_qknorm")(q, k)
+        q, k = getattr(self, f"{prefix}_attn_qknorm")(q, k, pe)
         return q, k, v
 
     def forward(self, img, txt, vec, pe):
@@ -176,15 +179,17 @@ class DoubleStreamBlock(nn.Module):
         im1_shift, im1_scale, im1_gate, im2_shift, im2_scale, im2_gate = self.img_mod(vec)
         tx1_shift, tx1_scale, tx1_gate, tx2_shift, tx2_scale, tx2_gate = self.txt_mod(vec)
 
-        iq, ik, iv = self._qkv(_modulate(layernorm_na(img), im1_shift, im1_scale).to(dt), "img")
-        tq, tk, tv = self._qkv(_modulate(layernorm_na(txt), tx1_shift, tx1_scale).to(dt), "txt")
-
-        # joint attention over [txt; img] with RoPE
-        q = apply_rope(torch.cat([tq, iq], dim=1), pe)
-        k = apply_rope(torch.cat([tk, ik], dim=1), pe)
+        # joint attention over [txt; img], RoPE in each stream's QKNorm by
+        # its tokens' rows of the table
+        n_txt = txt.shape[1]
+        iq, ik, iv = self._qkv(_modulate(layernorm_na(img), im1_shift, im1_scale).to(dt), "img",
+                               pe[:, n_txt:])
+        tq, tk, tv = self._qkv(_modulate(layernorm_na(txt), tx1_shift, tx1_scale).to(dt), "txt",
+                               pe[:, :n_txt])
+        q = torch.cat([tq, iq], dim=1)
+        k = torch.cat([tk, ik], dim=1)
         v = torch.cat([tv, iv], dim=1)
         attn = attention_bshd(q, k, v).flatten(2)
-        n_txt = txt.shape[1]
         txt_a, img_a = attn[:, :n_txt], attn[:, n_txt:]
 
         img = img + im1_gate * self.img_attn_proj(img_a)
@@ -221,8 +226,8 @@ class SingleStreamBlock(nn.Module):
         fused = self.linear1(_modulate(layernorm_na(x), shift, scale).to(cfg.dtype))
         qkv, mlp = fused[..., :3 * self.width], fused[..., 3 * self.width:]
         q, k, v = (t.unflatten(-1, (self.heads, cfg.head_dim)) for t in qkv.chunk(3, dim=-1))
-        q, k = self.qknorm(q, k)
-        attn = attention_bshd(apply_rope(q, pe), apply_rope(k, pe), v).flatten(2)
+        q, k = self.qknorm(q, k, pe)
+        attn = attention_bshd(q, k, v).flatten(2)
         return x + gate * self.linear2(torch.cat([attn, _gelu(mlp)], dim=-1))
 
 

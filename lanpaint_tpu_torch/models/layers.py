@@ -39,7 +39,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import WIDE_HEAD_DIMS, attention_ref, flash_attention, wide_attention
-from ..ops.norms import VEC, layernorm, rmsnorm, rmsnorm_ref
+from ..ops.norms import (VEC, apply_rope, layernorm, rmsnorm, rmsnorm_ref, rmsnorm_rope,
+                         rmsnorm_rope_ref, rope_rows)
 from ..parallel.mesh import NO_AXIS, Axis, all_gather
 
 
@@ -278,22 +279,34 @@ class LayerNormF32(nn.Module):
         return layernorm(x, self.weight, self.bias, self.eps)
 
 
+def _rms(x, weight, eps, freqs=None):
+    """RMSNorm of x's rows, then with `freqs` (a `rope_freqs` table) RoPE of
+    each of their heads of the table's head dim: through the row-norm kernel
+    (its RoPE epilogue with a table) where it takes the row width and head
+    dim (multiples of `ops.norms.VEC`), the plain versions elsewhere, as the
+    JAX package leaves the widths its kernel does not take to jnp (the tiny
+    Z-Image's head dim 12)."""
+    if freqs is None:
+        return rmsnorm_ref(x, weight, eps) if x.shape[-1] % VEC else rmsnorm(x, weight, eps)
+    head_dim = 2 * freqs.shape[-3]
+    if x.shape[-1] % VEC or head_dim % VEC:
+        return rmsnorm_rope_ref(x, weight, eps, freqs, head_dim)
+    return rmsnorm_rope(x, weight, eps, freqs, head_dim)
+
+
 class RMSNorm(nn.Module):
     """RMSNorm over the last axis with a learned scale (`weight`), fp32
-    statistics, output in the input dtype: through the row-norm kernel on
-    CUDA where it takes the row width (a multiple of `ops.norms.VEC`),
-    `rmsnorm_ref` elsewhere, as the JAX package leaves the widths its
-    kernel does not take to jnp (the tiny Z-Image's head dim 12)."""
+    statistics, output in the input dtype; `forward(x, freqs)` rotates the
+    normalised (B, S, ..., C) rows by a RoPE table after it, as
+    `apply_rope` (`_rms`'s routing)."""
 
     def __init__(self, dim: int, eps: float = 1e-6):
         super().__init__()
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(dim))
 
-    def forward(self, x):
-        if x.shape[-1] % VEC:
-            return rmsnorm_ref(x, self.weight, self.eps)
-        return rmsnorm(x, self.weight, self.eps)
+    def forward(self, x, freqs=None):
+        return _rms(x, self.weight, self.eps, freqs)
 
 
 class ShardedRMSNorm(nn.Module):
@@ -304,7 +317,10 @@ class ShardedRMSNorm(nn.Module):
     dim / size of them: the sum of squares is all-reduced over the axis and
     divided by the full `dim`, in plain PyTorch.  The scale is the rank's
     slice, or with `whole_weight` the full scale (replicated by the rules),
-    of which the forward takes the rank's slice."""
+    of which the forward takes the rank's slice.  `forward(x, freqs)`
+    rotates the normalised rows' heads by a RoPE table after it, as
+    `apply_rope`: in the kernel's epilogue on one rank, after the plain
+    norm on several."""
 
     def __init__(self, dim: int, eps: float = 1e-6, axis: Axis = NO_AXIS,
                  whole_weight: bool = False):
@@ -315,27 +331,29 @@ class ShardedRMSNorm(nn.Module):
         self.local = dim // axis.size
         self.weight = nn.Parameter(torch.ones(dim if whole_weight else self.local))
 
-    def forward(self, x):
+    def forward(self, x, freqs=None):
         w = self.weight
         if w.shape[0] != x.shape[-1]:
             w = w.narrow(0, self.axis.index * self.local, self.local)
         if self.axis.size == 1:
-            return rmsnorm_ref(x, w, self.eps) if x.shape[-1] % VEC else rmsnorm(x, w, self.eps)
+            return _rms(x, w, self.eps, freqs)
         xf = x.float()
         ss = all_reduce(torch.sum(xf * xf, dim=-1, keepdim=True), self.axis)
-        return (xf * torch.rsqrt(ss / self.dim + self.eps) * w.float()).to(x.dtype)
+        y = (xf * torch.rsqrt(ss / self.dim + self.eps) * w.float()).to(x.dtype)
+        return y if freqs is None else rope_rows(y, freqs, 2 * freqs.shape[-3])
 
 
 class QKNorm(nn.Module):
-    """Per-head RMS normalization of q and k (Flux/SD3-style)."""
+    """Per-head RMS normalization of q and k (Flux/SD3-style); with a RoPE
+    table `freqs`, q and k rotated by it after the norm (one launch each)."""
 
     def __init__(self, head_dim: int):
         super().__init__()
         self.query_norm = RMSNorm(head_dim)
         self.key_norm = RMSNorm(head_dim)
 
-    def forward(self, q, k):
-        return self.query_norm(q), self.key_norm(k)
+    def forward(self, q, k, freqs=None):
+        return self.query_norm(q, freqs), self.key_norm(k, freqs)
 
 
 class CrossAttention(nn.Module):
@@ -541,12 +559,3 @@ def rope_freqs(ids: torch.Tensor, axes_dim, theta: float = 10000.0) -> torch.Ten
         cos, sin = torch.cos(out), torch.sin(out)
         parts.append(torch.stack([cos, -sin, sin, cos], dim=-1).reshape(*out.shape, 2, 2))
     return torch.cat(parts, dim=-3)
-
-
-def apply_rope(x: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
-    """Rotate (B, S, H, D) q or k by the table, in fp32; returns x's dtype."""
-    b, s, h, d = x.shape
-    xf = x.float().reshape(b, s, h, d // 2, 1, 2)
-    fr = freqs[:, :, None]  # (B, S, 1, D // 2, 2, 2)
-    out = fr[..., 0] * xf[..., 0] + fr[..., 1] * xf[..., 1]
-    return out.reshape(b, s, h, d).to(x.dtype)

@@ -21,8 +21,11 @@ JAX package leaves this call to XLA, in bf16 with fp32 logits and softmax,
 the kernel's arithmetic); `norm1` / `norm2` / the head's `layernorm_na`
 and `norm3`'s `LayerNormF32` through the row-norm kernel; and
 `_WanQKNorm`, RMS over the full projection width before the head reshape,
-through the same row-norm kernel in its RMS mode with a scale
-(`ops.norms.rmsnorm`, one launch, counted in `rmsnorm.launches`).
+through the same row-norm kernel in its RMS mode with a scale: the cross
+q and k with `ops.norms.rmsnorm` (counted in `rmsnorm.launches`), the self
+q and k with RoPE in the epilogue, each of a row's heads rotated by its
+token's row of the table (`ops.norms.rmsnorm_rope`, one launch each,
+counted in `rmsnorm_rope.launches`).
 
 Sequence and tensor parallelism (JAX's shard_map-manual Wan, over the
 process groups of a `parallel.make_mesh` mesh: `WanModel(cfg, mesh)`).  With
@@ -58,7 +61,6 @@ from .layers import (
     Linear,
     MLPEmbedder,
     ShardedRMSNorm,
-    apply_rope,
     attention_bshd,
     layernorm_na,
     rope_freqs,
@@ -140,8 +142,8 @@ class WanSelfAttention(_WanAttention):
 
     def forward(self, x, pe):
         heads = self.heads
-        q = apply_rope(self.norm_q(self.q(x)).unflatten(-1, heads), pe)
-        k = apply_rope(self.norm_k(self.k(x)).unflatten(-1, heads), pe)
+        q = self.norm_q(self.q(x), pe).unflatten(-1, heads)
+        k = self.norm_k(self.k(x), pe).unflatten(-1, heads)
         v = self.v(x).unflatten(-1, heads)
         if self.seq_group is not None:
             out = ring_attention(q, k, v, self.seq_group)

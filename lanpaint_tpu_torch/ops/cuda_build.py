@@ -40,9 +40,12 @@ SOURCES = {
     "attention": (CSRC / "attention.cu", "lp_flash_attention_fwd", _ATTENTION_ARGS),
     "wide_attention": (CSRC / "wide_attention.cu", "lp_wide_attention_fwd", _ATTENTION_ARGS),
     # (x, gamma, beta, out, rows, inner rows, outer and inner row strides, C,
-    #  x / params / out bf16 flags, rms, eps, threads a block, threads a row, stream)
+    #  x / params / out bf16 flags, rms, eps, threads a block, threads a row,
+    #  RoPE table or null, its rows a token, tokens a batch, batch and token
+    #  strides, head dim, stream)
     "row_norm": (CSRC / "row_norm.cu", "lp_row_norm",
-                 [_PTR] * 4 + [_I64] * 4 + [_INT] * 5 + [ctypes.c_float, _INT, _INT, _PTR]),
+                 [_PTR] * 4 + [_I64] * 4 + [_INT] * 5 + [ctypes.c_float, _INT, _INT, _PTR]
+                 + [_I64] * 4 + [_INT, _PTR]),
     # (phase, seed, launch, element offset, coef_x, coef_y, x, v, x_od, c_old, c_new,
     #  mask, out_x, out_v, out_x_od, rows, cols, noise_mult, threads, quads a thread, stream)
     "fused": (CSRC / "fused.cu", "lp_fused_think",

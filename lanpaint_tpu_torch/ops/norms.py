@@ -24,7 +24,15 @@ those bytes, and keeps enough of them in flight:
   `launch_config` gives the shape a block has at each C;
 * a cheap launch: one ctypes call of a plain C function, where Triton's
   Python launcher cost ~30-45 us a call above `F.layer_norm`'s on the
-  host (`PERF.md`).
+  host (`PERF.md`);
+* RoPE in the RMS mode's epilogue (`rmsnorm_rope`): the DiTs' q and k
+  norms rotate their rows by the `rope_freqs` table before the one write,
+  where `apply_rope` after the norm read and wrote them five times more in
+  fp32.  `rope_geometry` maps a kernel row to its row of the table (a view
+  with its own batch and token strides: the Flux double block's txt and
+  img slices of one table are read in place).  Bit for bit
+  `apply_rope(rmsnorm(x))`: the norm's output rounded to x's dtype, then
+  apply_rope's fp32 mul, mul and add.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises (a dtype other than fp32 / bf16, C > MAX_FEATURES or C % 8, a row
@@ -70,6 +78,29 @@ def rmsnorm_ref(x, gamma=None, eps: float = 1e-6):
     return y.to(x.dtype)
 
 
+def apply_rope(x: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
+    """Rotate (B, S, H, D) q or k by the (B or 1, S, D // 2, 2, 2) table
+    of `models.layers.rope_freqs`, in fp32; returns x's dtype."""
+    b, s, h, d = x.shape
+    xf = x.float().reshape(b, s, h, d // 2, 1, 2)
+    fr = freqs[:, :, None]  # (B, S, 1, D // 2, 2, 2)
+    out = fr[..., 0] * xf[..., 0] + fr[..., 1] * xf[..., 1]
+    return out.reshape(b, s, h, d).to(x.dtype)
+
+
+def rope_rows(y: torch.Tensor, freqs: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """`apply_rope` on (B, S, ..., C) rows that hold C / head_dim heads each
+    (per-head rows (B, S, H, D) or full-width ones (B, S, H * D)), in y's
+    shape."""
+    return apply_rope(y.reshape(*y.shape[:2], -1, head_dim), freqs).reshape(y.shape)
+
+
+def rmsnorm_rope_ref(x, gamma, eps: float, freqs, head_dim: int):
+    """`apply_rope(rmsnorm_ref(x, gamma, eps))` over x's heads of
+    `head_dim` (any device)."""
+    return rope_rows(rmsnorm_ref(x, gamma, eps), freqs, head_dim)
+
+
 def row_geometry(shape, strides) -> tuple:
     """The rows of a tensor of `shape` and element `strides`, normalised
     over its last dim, as the kernel reads them: (n_outer, n_inner,
@@ -97,6 +128,35 @@ def row_geometry(shape, strides) -> tuple:
     return n_out, n_in, s_out, s_in
 
 
+def rope_geometry(shape, freqs_shape, freqs_strides, head_dim: int) -> tuple:
+    """The table rows of the rows of a (B, S, ..., C) tensor of `shape` as
+    the kernel reads them: (tok_rows, n_tok, s_b, s_s).  Row r (in the
+    order of the tensor's own rows) is of token tok = r // tok_rows, the
+    product of the dims between S and C (the heads of per-head rows, 1 for
+    full-width ones); token (b, s) = (tok // n_tok, tok % n_tok) reads its
+    (D / 2, 2, 2) matrices at element offset b * s_b + s * s_s of the table
+    (s_b = 0 for a table of batch 1, which every batch shares, as
+    apply_rope broadcasts it), and element c of a row is of pair (c % D) / 2.
+
+    Raises ValueError for a table that is not (B or 1, S, D / 2, 2, 2) with
+    each token's matrices contiguous and 16-byte aligned strides, a head dim
+    that is no multiple of 8 or does not divide C, or fewer than 3 dims."""
+    if (len(shape) < 3 or head_dim <= 0 or head_dim % VEC or shape[-1] % head_dim
+            or len(freqs_shape) != 5 or freqs_shape[0] not in (1, shape[0])
+            or tuple(freqs_shape[1:]) != (shape[1], head_dim // 2, 2, 2)
+            or tuple(freqs_strides[2:]) != (4, 2, 1)
+            or freqs_strides[0] % 4 or freqs_strides[1] % 4):
+        raise ValueError(f"rmsnorm_rope: takes (B, S, ..., C) rows of heads of D % {VEC} == 0 "
+                         "dividing C and a (B or 1, S, D / 2, 2, 2) table with contiguous "
+                         f"matrices and strides of multiples of 4; got {tuple(shape)}, D = "
+                         f"{head_dim}, table {tuple(freqs_shape)} strides {tuple(freqs_strides)}")
+    tok_rows = 1
+    for n in shape[2:-1]:
+        tok_rows *= n
+    s_b = freqs_strides[0] if freqs_shape[0] > 1 else 0
+    return tok_rows, shape[1], s_b, freqs_strides[1]
+
+
 def max_threads(nv: int) -> int:
     """The kernel's limit on threads a block where a thread holds `nv`
     16-byte vectors (csrc/row_norm.cu `max_threads`): its registers must
@@ -119,11 +179,21 @@ def launch_config(c: int) -> tuple:
     return min(-(-nvec // 64) * 32, 1024), min(-(-nvec // 64) * 32, 1024)
 
 
-def _launch(wrapper, x, gamma, beta, eps, rms, out_dtype, config=None):
+def _launch(wrapper, x, gamma, beta, eps, rms, out_dtype, config=None, rope=None):
     """Check the operands and launch the kernel, adding one to
-    `wrapper.launches`; `config` overrides `launch_config` (a sweep)."""
+    `wrapper.launches`; `config` overrides `launch_config` (a sweep); `rope`
+    is (freqs, head_dim) for the RMS mode's RoPE epilogue."""
     c = x.shape[-1]
     out_dtype = x.dtype if out_dtype is None else out_dtype
+    freqs, head_dim = rope or (None, 0)
+    tok_rows = n_tok = s_b = s_s = 0
+    if freqs is not None:
+        tok_rows, n_tok, s_b, s_s = rope_geometry(x.shape, freqs.shape, freqs.stride(), head_dim)
+        if (not rms or out_dtype != x.dtype or freqs.dtype != torch.float32
+                or freqs.device != x.device or freqs.data_ptr() % 16):
+            raise ValueError(f"rmsnorm_rope: the RMS mode into x's dtype with a 16-byte "
+                             f"aligned fp32 table on {x.device}; got a {freqs.dtype} table on "
+                             f"{freqs.device}")
     if (x.dtype not in _BF16 or out_dtype not in _BF16 or c > MAX_FEATURES or c % VEC
             or x.data_ptr() % 16):
         raise ValueError(f"row norm kernel: takes fp32 / bf16 rows of C % {VEC} == 0, C <= "
@@ -146,7 +216,8 @@ def _launch(wrapper, x, gamma, beta, eps, rms, out_dtype, config=None):
         x.data_ptr(), None if gamma is None else gamma.data_ptr(),
         None if beta is None else beta.data_ptr(), out.data_ptr(), n_outer * n_inner, n_inner,
         s_outer, s_inner, c, _BF16[x.dtype], bool(params) and _BF16[params[0].dtype],
-        _BF16[out_dtype], rms, eps, threads, tpr, cuda_build.stream_handle(x.device))
+        _BF16[out_dtype], rms, eps, threads, tpr, None if freqs is None else freqs.data_ptr(),
+        tok_rows, n_tok, s_b, s_s, head_dim, cuda_build.stream_handle(x.device))
     if err != 0:
         raise RuntimeError(f"row norm kernel launch failed: CUDA error {err}")
     wrapper.launches += 1
@@ -174,5 +245,20 @@ def rmsnorm(x, gamma=None, eps: float = 1e-6):
     return _launch(rmsnorm, x, gamma, None, eps, rms=True, out_dtype=None)
 
 
+def rmsnorm_rope(x, gamma, eps: float, freqs, head_dim: int):
+    """RMSNorm over the last axis, then RoPE of each head of `head_dim` of
+    the (B, S, ..., C) rows by the (B or 1, S, D // 2, 2, 2) table `freqs`
+    (`rope_geometry`): `rmsnorm_rope_ref` on a CPU tensor; on a CUDA tensor
+    one launch of the kernel's RoPE epilogue, or raise.  Each launch adds
+    one to `rmsnorm_rope.launches`."""
+    if x.device.type == "cpu":
+        return rmsnorm_rope_ref(x, gamma, eps, freqs, head_dim)
+    if x.device.type != "cuda":
+        raise ValueError(f"rmsnorm_rope: unsupported device {x.device}")
+    return _launch(rmsnorm_rope, x, gamma, None, eps, rms=True, out_dtype=None,
+                   rope=(freqs, head_dim))
+
+
 layernorm.launches = 0
 rmsnorm.launches = 0
+rmsnorm_rope.launches = 0

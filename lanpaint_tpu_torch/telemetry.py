@@ -42,7 +42,8 @@ caller synchronises first, and an unfinished event pair gives None).
 `summary()` gives, per span name, the count and the p50 / p90 of host and
 device ms over the kept jobs, beside the kernel wrappers' launch counters,
 the cross-attention launches of the flash-attention kernel among them
-(`cross_launches`) and the UNet's CUDA-graph counters (`models/graphs.py`:
+(`cross_launches`), the row norm's launches with RoPE in their epilogue
+(`rope_launches`, `norms.rmsnorm_rope`) and the UNet's CUDA-graph counters (`models/graphs.py`:
 captures, replays and forwards run eagerly; replays over replays plus eager
 is the hit rate).
 The wrappers count the launches the host issues; `card_kernels()` counts
@@ -127,9 +128,10 @@ class Recorder:
         with the kernel wrappers' `.launches`, the flash-attention
         launches among them that were cross-attention
         (`flash_attention.cross_launches`, a key of its own so that
-        `families` does not count them twice) and the CUDA-graph counters
-        (`count_graphs`) beside them."""
-        from .ops import attention
+        `families` does not count them twice), the row norm's RoPE
+        launches (`rmsnorm_rope.launches`, also in `launches`) and the
+        CUDA-graph counters (`count_graphs`) beside them."""
+        from .ops import attention, norms
 
         kept = self.jobs()
         times = {}
@@ -149,6 +151,7 @@ class Recorder:
                           for name, (host, dev) in times.items()},
                 "launches": launches(),
                 "cross_launches": attention.flash_attention.cross_launches,
+                "rope_launches": norms.rmsnorm_rope.launches,
                 "graphs": dict(self.graphs)}
 
 
@@ -258,14 +261,14 @@ def summary() -> dict:
 
 
 def launches() -> dict:
-    """The six kernel wrappers' launch counters, as they stand: the
+    """The seven kernel wrappers' launch counters, as they stand: the
     launches the host issued through them, a graph's capture among them
     and its replays not (`card_kernels` counts what the card ran)."""
     from .ops import attention, fused, norms
 
     return {f.__name__: f.launches for f in (
         attention.flash_attention, attention.wide_attention, norms.layernorm, norms.rmsnorm,
-        fused.fused_half_step, fused.fused_finish)}
+        norms.rmsnorm_rope, fused.fused_half_step, fused.fused_finish)}
 
 
 def count_graphs(name: str) -> None:
@@ -276,9 +279,10 @@ def count_graphs(name: str) -> None:
 
 
 # The port's hand-written kernels (`csrc/*.cu`) by their symbol in a device
-# trace, and the family each is counted in: the row norm's two modes are
-# one kernel, and the fused think step's template phase tells its half
-# step (kHalf = 0) from its finishes (kWarm = 1, kCold = 2).  The trace
+# trace, and the family each is counted in: the row norm's modes (with
+# RoPE or without) are one kernel, and the fused think step's template
+# phase tells its half step (kHalf = 0) from its finishes (kWarm = 1,
+# kCold = 2).  The trace
 # names them `void (anonymous namespace)::row_norm_kernel<...>(...)`; the
 # lookbehinds keep out PyTorch's own `pytorch_flash::flash_fwd_kernel`.
 _KERNEL = re.compile(r"(?<!\w)(?<!pytorch_flash::)"
@@ -303,7 +307,7 @@ def families(counts: dict) -> dict:
     """Launch counts by wrapper name (`launches()`) or by family, by family
     as `card_kernels` counts them."""
     out = {f: counts.get(f, 0) for f in FAMILIES}
-    out["row_norm"] += counts.get("layernorm", 0) + counts.get("rmsnorm", 0)
+    out["row_norm"] += sum(counts.get(k, 0) for k in ("layernorm", "rmsnorm", "rmsnorm_rope"))
     return out
 
 

@@ -8,7 +8,8 @@ For each row-norm shape of the main paths (`chip_smoke.NORM_SHAPES`, with
 the shapes whose text lengths come from the synthetic tokenizers: the SDXL
 LayerNorms, the DiTs' fp32-out adaLN norms, QKNorm's strided views of a
 fused projection, the full-width q / k norms of Wan and HiDream, Z-Image's
-and Qwen-Image's RMS norms; `--widths` keeps the rows of those widths
+and Qwen-Image's RMS norms, the DiTs' and Wan's q / k norms with RoPE in
+the epilogue; `--widths` keeps the rows of those widths
 only), runs `csrc/row_norm.cu` under
 each candidate block shape, (threads a block, threads a row): up to 32
 threads a row with many rows a block, or any whole number of warps a row
@@ -58,6 +59,12 @@ def candidates(c: int) -> list:
 def case(shape, mode, gen):
     """(kernel(config), plain()) on inputs as chip_smoke phase 3 makes them."""
     c = shape[-1]
+    if mode == "rmsnorm_rope":  # RoPE in the epilogue, the table as the models slice it
+        x, freqs = chip_smoke.rope_case(shape, gen)
+        g = (1.0 + 0.1 * torch.randn(c, device="cuda", generator=gen)).to(torch.bfloat16)
+        return (lambda cfg: norms._launch(norms.rmsnorm_rope, x, g, None, 1e-6, True, None, cfg,
+                                          rope=(freqs, 128)),
+                lambda: norms.rmsnorm_rope_ref(x, g, 1e-6, freqs, 128))
     if mode.startswith("rmsnorm"):
         x = (chip_smoke._qkv_views(*shape, gen)[0] if len(shape) == 4 else
              torch.randn(shape, device="cuda", generator=gen))

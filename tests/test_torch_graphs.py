@@ -279,8 +279,9 @@ def test_the_card_trace_names_each_hand_written_kernel(name, family):
 
 
 def test_wrapper_counts_fold_into_the_families_the_card_trace_counts():
-    counts = {"flash_attention": 70, "layernorm": 210, "rmsnorm": 5, "fused_finish": 1}
-    want = {"flash_attention": 70, "wide_attention": 0, "row_norm": 215,
+    counts = {"flash_attention": 70, "layernorm": 210, "rmsnorm": 5, "rmsnorm_rope": 4,
+              "fused_finish": 1}
+    want = {"flash_attention": 70, "wide_attention": 0, "row_norm": 219,
             "fused_half_step": 0, "fused_finish": 1}
     assert telemetry.families(counts) == want
     assert telemetry.families(want) == want

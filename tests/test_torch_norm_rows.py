@@ -152,7 +152,9 @@ def test_launch_config_meets_the_kernel_contract(c):
 def recorded(monkeypatch):
     """Every row-norm call of a model forward: (name, shape, strides), each
     checked by `row_geometry` on the way (every model reaches the kernels
-    through models/layers.py, Wan's full-width q / k norm too)."""
+    through models/layers.py, Wan's full-width q / k norm too); a call with
+    RoPE in the epilogue ("rmsnorm_rope") also records its table geometry
+    (`rope_geometry`) as a fourth entry."""
     calls = []
 
     def wrap(name, plain):
@@ -162,8 +164,15 @@ def recorded(monkeypatch):
             return plain(x, *args, **kw)
         return record
 
+    def record_rope(x, gamma, eps, freqs, head_dim):
+        calls.append(("rmsnorm_rope", tuple(x.shape), x.stride(),
+                      tnorms.rope_geometry(x.shape, freqs.shape, freqs.stride(), head_dim)))
+        tnorms.row_geometry(x.shape, x.stride())
+        return tnorms.rmsnorm_rope(x, gamma, eps, freqs, head_dim)
+
     monkeypatch.setattr(layers, "layernorm", wrap("layernorm", tnorms.layernorm))
     monkeypatch.setattr(layers, "rmsnorm", wrap("rmsnorm", tnorms.rmsnorm))
+    monkeypatch.setattr(layers, "rmsnorm_rope", record_rope)
     return calls
 
 
@@ -179,15 +188,21 @@ def test_mmdit_norm_layouts(recorded):
         module(torch.randn((1, 16, 32, 32), generator=gen), torch.tensor([0.7]),
                torch.randn((1, 16, 64), generator=gen), torch.randn((1, 32), generator=gen),
                torch.tensor([3.5]))
-    rms = [(s, st) for n, s, st in recorded if n == "rmsnorm"]
+    assert not [c for c in recorded if c[0] == "rmsnorm"]  # QKNorm takes RoPE in its epilogue
+    rms = [c[1:] for c in recorded if c[0] == "rmsnorm_rope"]
     assert len(rms) == 4 + 2  # q, k of img and txt in the double block; q, k in the single
-    for shape, stride in rms[:4]:  # double block: (1, S, 2, 128) thirds of (1, S, 768)
+    # the table: (1, 16 + 256, 64, 2, 2), token stride 256 elements
+    for (shape, stride, rope), n_tok in zip(rms[:4], (256, 256, 16, 16)):
+        # double block: (1, S, 2, 128) thirds of (1, S, 768), img then txt,
+        # each reading its stream's rows of the table (2 heads a token)
         assert shape[2:] == (2, 128) and stride[1:] == (768, 128, 1)
         assert tnorms.row_geometry(shape, stride) == (shape[1], 2, 768, 128)
-    for shape, stride in rms[4:]:  # single block: linear1 is 3 * 256 + 4 * 256 wide
+        assert rope == (2, n_tok, 0, 256)
+    for shape, stride, rope in rms[4:]:  # single block: linear1 is 3 * 256 + 4 * 256 wide
         assert shape == (1, 256 + 16, 2, 128) and stride[1] == 7 * 256
         assert tnorms.row_geometry(shape, stride) == (272, 2, 7 * 256, 128)
-    ln = [(s, st) for n, s, st in recorded if n == "layernorm"]
+        assert rope == (2, 272, 0, 256)
+    ln = [c[1:] for c in recorded if c[0] == "layernorm"]
     assert ln and all(tnorms.row_geometry(s, st)[0] == 1 for s, st in ln)  # dense rows
 
 
@@ -201,10 +216,13 @@ def test_wan_norm_layouts(recorded):
     with torch.no_grad():
         module(torch.randn((1, 4, 1, 16, 16), generator=gen), torch.tensor([0.7]),
                torch.randn((1, 8, 32), generator=gen))
-    names = [n for n, _, _ in recorded]
-    assert names.count("rmsnorm") == 4  # self q, k; cross q, k
-    for _, shape, stride in recorded:
+    names = [c[0] for c in recorded]
+    assert names.count("rmsnorm") == 2  # cross q, k
+    assert names.count("rmsnorm_rope") == 2  # self q, k, RoPE in the epilogue
+    for _, shape, stride, *rope in recorded:
         assert tnorms.row_geometry(shape, stride) == (1, shape[0] * shape[1], 0, 256)
+        # full-width rows, one token each: the table (1, 64, 64, 2, 2)
+        assert rope in ([], [(1, 64, 0, 256)])
 
 
 def test_unet_norm_layouts(recorded):
@@ -217,7 +235,7 @@ def test_unet_norm_layouts(recorded):
     with torch.no_grad():
         module(torch.randn((1, 4, 16, 16), generator=gen), torch.tensor([500.0]),
                torch.randn((1, 8, 64), generator=gen))
-    assert recorded and {n for n, _, _ in recorded} == {"layernorm"}
+    assert recorded and {c[0] for c in recorded} == {"layernorm"}
     for _, shape, stride in recorded:
         assert tnorms.row_geometry(shape, stride) == (1, shape[0] * shape[1], 0, shape[2])
 

@@ -242,8 +242,9 @@ def test_summary_names_the_four_spans_and_the_launch_counters():
     assert 0 <= host["p50"] <= host["p90"]
     assert s["spans"]["model.forward"]["device_ms"] is None  # no card
     assert sorted(s["launches"]) == sorted([
-        "flash_attention", "wide_attention", "layernorm", "rmsnorm", "fused_half_step",
-        "fused_finish"])
+        "flash_attention", "wide_attention", "layernorm", "rmsnorm", "rmsnorm_rope",
+        "fused_half_step", "fused_finish"])
+    assert s["rope_launches"] == s["launches"]["rmsnorm_rope"]
 
 
 def test_custom_distance_trace_rows_keep_their_step_and_threshold():
