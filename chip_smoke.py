@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py          # from the root of the repository
 
-Seventeen main paths, each with random bf16 weights made on the card from a
-seed, the euler solver, 20 steps (Z-Image's 9, the parallel path's 4),
-outer early stop 1 and a centre mask; 5 think steps but for the video and
-parallel paths' 2:
+Eighteen main paths, each with random bf16 weights made on the card from a
+seed, the euler solver, 20 steps (Z-Image's 9, FLUX.2's and the parallel
+path's 4), outer early stop 1 and a centre mask; 5 think steps but for the
+video, FLUX.2 and parallel paths' 2:
 
 * SDXL-1024: karras, CFG 5 as two sequential passes, the unfused think
   step: (20 - 1) * 6 + 1 = 115 CFG pairs, 230 UNet forwards;
@@ -29,6 +29,12 @@ parallel paths' 2:
 * Flux-dev-1024 (the reference's Flux_Inpaint workflow): "simple", cfg 1
   (cfg_big forced to 1), `use_fused_kernels=True`: 115 MMDiT forwards, 76
   fused half-step and 95 fused finish launches;
+* FLUX.2 [dev] at its published widths (`zoo.build_flux2_dev`, 32.22 B
+  parameters, 64.4 GB) at the benchmark cell's 1248x832 with its reference
+  latent: `api.ksampler`, "simple", cfg 1, guidance 4, 4 steps x 2 think:
+  10 forwards at S = 512 + 4,056 + 4,056 = 8,624, each 56 attention, 81
+  LayerNorm and 128 RoPE row-norm launches, 3 shared modulations and 64
+  SwiGLU calls;
 * Wan2.2 TI2V-5B video (the reference's video workflows through
   `api.inpaint_video` with its defaults): "simple", 2 think steps, CFG 5 as
   two sequential passes, on a random (1, 3, 33, 704, 1280) video (TI2V-5B's
@@ -156,6 +162,9 @@ exits non-zero without printing a result):
    blend overlap from the mask equals the input bit for bit, the repainted
    region moved, and every kernel ran exactly its expected number of times
    (the wide-head attention twice);
+8b. FLUX.2 main path (after phase 9): phase 8's checks on
+   `build_flux2_dev` through `api.ksampler`, its shared modulations and
+   SwiGLU calls counted too; one forward under torch.profiler first;
 9. Flux VAE: one encode-decode round trip of FLUX_VAE_CONFIG (16 latent
    channels, no quant convs) at 1024^2 through the wide-head kernel;
 10. video path (Wan2.2 TI2V-5B and the Wan2.2 VAE): the VAE's encode and
@@ -346,8 +355,8 @@ from lanpaint_tpu_torch import (LanPaintConfig, LanPaintPipeline, LanPaintSample
                                 edit_image, inpaint_image, inpaint_video)
 from lanpaint_tpu_torch.engine import lanpaint_update
 from lanpaint_tpu_torch import parallel, pipeline, samplers, serve, telemetry, text, tokenizers
-from lanpaint_tpu_torch.models import (dit, hidream, hyvideo, layers, load, lora, sd3, textenc,
-                                       unet, vae, video_vae, vision, wan, zimage, zoo)
+from lanpaint_tpu_torch.models import (dit, flux2, hidream, hyvideo, layers, load, lora, sd3,
+                                       textenc, unet, vae, video_vae, vision, wan, zimage, zoo)
 from lanpaint_tpu_torch.native import loader as native_loader
 from lanpaint_tpu_torch.ops import attention, cuda_build, fused, norms
 from lanpaint_tpu_torch.schedule import unify_times
@@ -391,6 +400,12 @@ FORWARDS["parallel"] = (SP_STEPS - EARLY_STOP) * (SP_THINK + 1) + EARLY_STOP  # 
 TP_RANKS, TP_STEPS = 2, 4
 TP_RANK_FORWARDS = (TP_STEPS - EARLY_STOP) * (SP_THINK + 1) + EARLY_STOP  # 10
 FORWARDS["tp"] = TP_RANKS * TP_RANK_FORWARDS  # 20
+# the FLUX.2 path (phase 8b): the benchmark cell's 1248x832 with its
+# reference latent, euler "simple" 4 steps x 2 think, cfg 1
+FLUX2_STEPS = 4
+FLUX2_LATENT = (1, 32, 104, 156)
+FLUX2_TXT, FLUX2_REF = 512, 4056
+FORWARDS["flux2"] = (FLUX2_STEPS - EARLY_STOP) * (VIDEO_THINK + 1) + EARLY_STOP  # 10
 PER_FORWARD = {  # kernel launches per model forward
     "sdxl": {"flash_attention": 70, "layernorm": 210, "rmsnorm": 0},
     # 19 double + 38 single blocks; adaLN norms 4 + 1 per block + 1 final;
@@ -422,6 +437,12 @@ PER_FORWARD["tp"] = PER_FORWARD["sdxl"]
 # LayerNorms, and the ControlNet encoder's transformer_depth (0, 2, 10) and
 # middle 10: 4 blocks at S = 4,096 and 30 at S = 1,024, 3 LayerNorms each
 PER_FORWARD["controlnet"] = {"flash_attention": 104, "layernorm": 312, "rmsnorm": 0}
+# FLUX.2 [dev]: 8 double + 48 single blocks at S = 8,624 (512 text, 4,056
+# target and 4,056 reference tokens); the adaLN pre-norms 4 a double block,
+# 1 a single one and the final one; QKNorm with RoPE 4 a double block, 2 a
+# single one
+PER_FORWARD["flux2"] = {"flash_attention": 56, "layernorm": 81, "rmsnorm": 0,
+                        "rmsnorm_rope": 128}
 # SD1.5 at 512^2: 16 transformer blocks, 3 LayerNorms each; its head dims
 # (40, 80, 160) are not multiples of 64, so its attention stays plain, as
 # the JAX package leaves it to XLA
@@ -465,7 +486,7 @@ PER_RUN["pipeline"] = PER_RUN["sd15"] = PER_RUN["zimage"] = PER_RUN["qwen_small"
 PER_RUN["qwen_edit"] = {"fused_half_step": 0, "fused_finish": 0, "wide_attention": 3}
 PER_RUN["sd35"] = PER_RUN["pixel"]  # the SD3 VAE's encode and decode
 PER_RUN["hidream"] = PER_RUN["hyvideo"] = PER_RUN["controlnet"] = PER_RUN["parallel"] = \
-    PER_RUN["tp"] = PER_RUN["sdxl"]  # latent paths
+    PER_RUN["tp"] = PER_RUN["flux2"] = PER_RUN["sdxl"]  # latent paths
 # each serving batch: the SDXL VAE's encode and decode of the batch
 PER_RUN["serve"] = {"fused_half_step": 0, "fused_finish": 0, "wide_attention": 2 * SERVE_BATCHES}
 BLEND = 9  # MaskBlend overlap of the pixel and video paths
@@ -488,6 +509,7 @@ ATTN_SHAPES = [
     ((1, 4608, 24, 128), {"flux": 57}, SPLASH),
     ((1, 7920, 24, 128), {"video": 30}, SPLASH),  # TI2V-5B at 704x1280 x 33 frames
     ((1, 14040, 40, 128), {"pair": 40}, SPLASH),  # T2V-A14B at 480x832 x 33 frames
+    ((1, 8624, 48, 128), {"flux2": 56}, SPLASH),  # FLUX.2 at 1248x832, linear1's views
     ((2, 1000, 4, 64), {}, None),
     ((2, 1000, 4, 128), {}, None),
     # Wan's cross-attention over its 512 text tokens: the benchmark's
@@ -549,7 +571,28 @@ NORM_SHAPES = [
     ((1, 14040, 5120), "rmsnorm", {"pair": 40}),
     ((1, 14040, 5120), "rmsnorm_rope", {"pair": 80}),
     ((1, 512, 5120), "rmsnorm", {}, {"pair": 160}),
+    # FLUX.2 [dev]: the double blocks' image stream (target and reference
+    # tokens) and text stream, the single blocks' joint sequence, the final
+    # layer on the target's tokens; q / k as strided views of the double
+    # blocks' qkv (3 x 6,144 wide) and of linear1 (55,296 wide)
+    ((1, 8112, 6144), "layernorm_na", {"flux2": 16}),
+    ((1, 512, 6144), "layernorm_na", {"flux2": 16}),
+    ((1, 8624, 6144), "layernorm_na", {"flux2": 48}),
+    ((1, 4056, 6144), "layernorm_na", {"flux2": 1}),
+    ((1, 8112, 48, 128), "rmsnorm_rope", {"flux2": 16}),
+    ((1, 512, 48, 128), "rmsnorm_rope", {"flux2": 16}),
+    ((1, 8624, 48, 128), "rmsnorm_rope", {"flux2": 96}),
 ]
+# the fused projection's row width where q, k and v share it with more
+# columns: FLUX.2's single block reads them from linear1 (3 x 6,144 + 2 x
+# 18,432); any other (B, S, H, D) from a (B, S, 3 * H * D) projection
+QKV_WIDTH = {(1, 8624, 48, 128): 3 * 6144 + 2 * 18432}
+# a 4D RoPE row's table, by shape: (first row, rows, axes, theta) of the
+# joint sequence's table, FLUX.2's four axes at theta 2,000 ([text; image;
+# reference]: the double block's text and image slices, the single block's
+# whole); any other shape Flux's three axes (`rope_case`)
+FLUX2_ROPE = {(1, 512, 48, 128): (0, 8624), (1, 8112, 48, 128): (512, 8624),
+              (1, 8624, 48, 128): (0, 8624)}
 # SDXL, Flux, ragged: whole quads a row, and M % 4 != 0 (quads straddle rows)
 FUSED_SHAPES = [(1, 4 * 128 * 128), (1, 16 * 128 * 128), (2, 1000), (3, 1001)]
 ATTN_TOL = dict(max_abs=2e-2, rel_l2=1e-2)
@@ -767,9 +810,10 @@ def ptxas_counts(log: str) -> dict:
 
 def _qkv_views(b, s, h, d, gen):
     """q, k, v as the main paths hand them over: strided views of one fused
-    projection (B, S, 3 * H * D)."""
-    qkv = torch.randn((b, s, 3 * h * d), device="cuda", generator=gen).to(torch.bfloat16)
-    return [t.unflatten(-1, (h, d)) for t in qkv.chunk(3, dim=-1)]
+    projection (B, S, 3 * H * D, or `QKV_WIDTH`'s width)."""
+    width = QKV_WIDTH.get((b, s, h, d), 3 * h * d)
+    qkv = torch.randn((b, s, width), device="cuda", generator=gen).to(torch.bfloat16)
+    return [qkv[..., i * h * d:(i + 1) * h * d].unflatten(-1, (h, d)) for i in range(3)]
 
 
 def _cross_views(b, s, sk, h, d, gen):
@@ -861,18 +905,23 @@ def rope_case(shape, gen):
     """(x, table) of an RMS norm with the RoPE epilogue at `shape`, as the
     models hand it over: a 4D (B, S, H, 128) q is a strided third of a fused
     projection (Flux's QKNorm) whose rows of the table are, at S = 512 and
-    4,096, the txt and img slices of a double block's 4,608-token table;
-    a 3D (B, S, C) one is Wan's dense full-width rows."""
+    4,096, the txt and img slices of a double block's 4,608-token table
+    (FLUX.2's: `FLUX2_ROPE`); a 3D (B, S, C) one is Wan's dense full-width
+    rows."""
     b, s = shape[:2]
-    if len(shape) == 4:
+    theta = 10000.0
+    if tuple(shape) in FLUX2_ROPE:
+        x = _qkv_views(*shape, gen)[0]
+        (start, total), axes, theta = FLUX2_ROPE[tuple(shape)], (32, 32, 32, 32), 2000.0
+    elif len(shape) == 4:
         x = _qkv_views(*shape, gen)[0]
         start, total = {512: (0, 4608), 4096: (512, 4608)}.get(s, (0, s))
         axes = (16, 56, 56)
     else:
         x = torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
         start, total, axes = 0, s, (44, 42, 42)
-    ids = torch.randint(0, 128, (b, total, 3), device="cuda", generator=gen)
-    return x, layers.rope_freqs(ids, axes)[:, start:start + s]
+    ids = torch.randint(0, 128, (b, total, len(axes)), device="cuda", generator=gen)
+    return x, layers.rope_freqs(ids, axes, theta)[:, start:start + s]
 
 
 def _kernel_norms(gen) -> list:
@@ -1455,9 +1504,9 @@ def _main_path(label, path, smi, den, module, t_init, run, warmup, latent) -> di
     samples, den_hist = out if isinstance(out, tuple) else (out, out)  # ksampler: samples
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    side = latent.shape[-1]
-    known = torch.ones((side, side), dtype=torch.bool, device="cuda")
-    known[side // 4:3 * side // 4, side // 4:3 * side // 4] = False
+    hh, ww = latent.shape[-2:]
+    known = torch.ones((hh, ww), dtype=torch.bool, device="cuda")
+    known[hh // 4:3 * hh // 4, ww // 4:3 * ww // 4] = False
     finite = bool(torch.isfinite(samples).all()) and bool(torch.isfinite(den_hist).all())
     known_err = float((samples - latent)[..., known].abs().max())
     moved = float((samples - latent)[..., ~known].abs().mean())
@@ -1673,6 +1722,49 @@ def phase_flux(smi: str) -> dict:
     return launches
 
 
+def phase_flux2(smi: str) -> dict:
+    """FLUX.2 [dev] at its published widths (64.4 GB of bf16 weights drawn
+    on the card) at the benchmark cell's 1248x832 with its reference
+    latent: one forward under torch.profiler, then `_main_path` through
+    `api.ksampler` (euler "simple", cfg 1, guidance 4, 4 steps x 2 think),
+    its shared modulations (3 a forward) and SwiGLU calls (64) counted."""
+    t0 = time.perf_counter()
+    den, module = zoo.build_flux2_dev(device="cuda", param_dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    latent = torch.randn(FLUX2_LATENT, device="cuda", generator=gen)
+    cond = {"context": torch.randn((1, FLUX2_TXT, 15360), device="cuda", generator=gen),
+            "guidance": torch.tensor([4.0], device="cuda"),
+            "ref_tokens": torch.randn((1, FLUX2_REF, 128), device="cuda", generator=gen)}
+    t_mid = torch.tensor([0.7], device="cuda")
+    prof = profile_forward(lambda: den.apply(latent, t_mid, cond))
+    say(f"phase 8b FLUX.2 forward at t = 0.7 under torch.profiler: {_profile_text(prof)}")
+    hh, ww = (8 * n for n in FLUX2_LATENT[-2:])
+    counted = {}
+
+    def run(steps=FLUX2_STEPS):
+        before = flux2.SharedModulation.calls, flux2.swiglu.calls
+        out = api.ksampler(den, positive=cond, latent=latent, mask=_centre_mask(hh, ww),
+                           steps=steps, **dict(FLOW_KW, num_steps=VIDEO_THINK))
+        counted.update(modulation=flux2.SharedModulation.calls - before[0],
+                       swiglu=flux2.swiglu.calls - before[1])
+        return out
+
+    launches = _main_path(f"phase 8b FLUX.2 main path: ksampler, euler simple {FLUX2_STEPS} x "
+                          f"think {VIDEO_THINK}, cfg 1, {ww}x{hh} with the reference latent "
+                          "(warm-up: 2 steps)", "flux2", smi, den, module, t_init, run,
+                          lambda: run(2), latent)
+    want = {"modulation": 3 * FORWARDS["flux2"], "swiglu": 64 * FORWARDS["flux2"]}
+    ok = counted == want
+    say(f"phase 8b FLUX.2 shared modulations and SwiGLU calls in the timed run: {counted} "
+        f"(want {want}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 8b FLUX.2 counters")
+    del den, module
+    return launches
+
+
 def _self_device_us(event) -> float:
     return getattr(event, "self_device_time_total", None) or getattr(event, "self_cuda_time_total", 0)
 
@@ -1690,7 +1782,10 @@ def profile_forward(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    cuda = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # kernels only: a span's annotation on the kernels' clock (FLUX.2's
+    # `dit.double` / `dit.single` inside the forward) is no kernel
+    cuda = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
     device_ms = sum(_self_device_us(e) for e in cuda) / 1e3
     top = sorted(cuda, key=_self_device_us, reverse=True)[:8]
     classes = {}
@@ -3780,6 +3875,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_flux_vae(smi)
+    launches["flux2"] = phase_flux2(smi)
+    gc.collect()
+    torch.cuda.empty_cache()  # FLUX.2's 64.4 GB go before the video path
     launches["video"] = phase_video(smi)
     gc.collect()
     torch.cuda.empty_cache()  # TI2V-5B's weights go before the pair's 57 GB arrive

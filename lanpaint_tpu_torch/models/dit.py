@@ -80,7 +80,8 @@ class DiTConfig:
 
 
 # The configurations of lanpaint_tpu/models/dit.py, which documents each
-# one's source (the stand-ins' topologies are not all public).
+# one's source (the stand-ins' topologies are not all public); FLUX.2 [dev]
+# at its published architecture is models/flux2.py's.
 FLUX_DEV_CONFIG = DiTConfig()
 FLUX_SCHNELL_CONFIG = DiTConfig(guidance_embed=False)
 QWEN_IMAGE_CONFIG = DiTConfig(
@@ -90,10 +91,6 @@ QWEN_IMAGE_CONFIG = DiTConfig(
 Z_IMAGE_CONFIG = DiTConfig(
     hidden=2304, num_heads=18, depth_double=6, depth_single=30,
     context_dim=2560, vec_dim=0, guidance_embed=False,
-)
-FLUX2_DEV_CONFIG = DiTConfig(
-    hidden=5120, num_heads=40, depth_double=8, depth_single=38,
-    context_dim=5120, vec_dim=0, guidance_embed=True,
 )
 FLUX2_KLEIN_CONFIG = DiTConfig(
     hidden=3584, num_heads=28, depth_double=8, depth_single=28,

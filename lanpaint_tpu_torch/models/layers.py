@@ -530,12 +530,14 @@ class Upsample(nn.Module):
 
 
 class MLPEmbedder(nn.Module):
-    """Two-layer SiLU MLP for time / vector embeddings."""
+    """Two-layer SiLU MLP for time / vector embeddings (FLUX.2's without
+    biases)."""
 
-    def __init__(self, in_dim: int, hidden: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, in_dim: int, hidden: int, dtype: torch.dtype = torch.float32,
+                 bias: bool = True):
         super().__init__()
-        self.in_layer = Linear(in_dim, hidden, compute_dtype=dtype)
-        self.out_layer = Linear(hidden, hidden, compute_dtype=dtype)
+        self.in_layer = Linear(in_dim, hidden, bias=bias, compute_dtype=dtype)
+        self.out_layer = Linear(hidden, hidden, bias=bias, compute_dtype=dtype)
 
     def forward(self, x):
         return self.out_layer(F.silu(self.in_layer(x)))

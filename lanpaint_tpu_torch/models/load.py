@@ -9,8 +9,9 @@ and exporters of the SD UNets (with `fuse_unet_qkv` / `unfuse_unet_qkv`)
 and their ControlNets,
 the AutoencoderKL VAE, CLIP (HF and OpenCLIP layouts), T5 / UMT5, the
 Llama / Qwen text trunk, the Qwen2.5-VL vision tower, the MMDiT (Flux
-layout, Qwen-Image's diffusers layout, the stand-ins' census guard), SD3 /
-SD3.5, HiDream-I1, HunyuanVideo, Z-Image, the Wan DiT and the Wan VAE.
+layout, Qwen-Image's diffusers layout, the stand-ins' census guard), FLUX.2
+(a table of its own, checkpoint key to state_dict key), SD3 / SD3.5,
+HiDream-I1, HunyuanVideo, Z-Image, the Wan DiT and the Wan VAE.
 
 The entry tables are the JAX package's, row for row: (checkpoint key, flax
 path, kind, stack), stack None for a plain tensor or (index, depth) for one
@@ -812,7 +813,7 @@ def import_dit(state, cfg, prefix: str = "") -> dict:
 
 def import_dit_guarded(state, cfg, family: str, prefix: str = "") -> dict:
     """import_dit with a key-census guard for the structural stand-in
-    families (Flux.2-dev / Klein, Krea2, Anima, Ideogram4 —
+    families (Flux.2-Klein, Krea2, Anima, Ideogram4 —
     docs/family_facts.md): their DiTConfig dims are vendored best-effort, so
     a checkpoint whose keys differ from the table fails with the census
     diff (the JAX package's message) instead of a deep shape error."""
@@ -837,6 +838,58 @@ def import_dit_guarded(state, cfg, family: str, prefix: str = "") -> dict:
 
 def export_dit(state_dict, cfg, prefix: str = "") -> dict:
     return _export(state_dict, _dit_entries(cfg), prefix)
+
+
+def _flux2_entries(cfg):
+    """(checkpoint key, state_dict key) pairs of FLUX.2's transformer
+    (`models/flux2.py`): Black Forest Labs' checkpoint layout as recalled
+    offline (Flux.1's `double_blocks` / `single_blocks` names without
+    biases or per-block modulation, the three shared modulations at the top
+    level); no checkpoint was at hand to check it against."""
+    e = [(f"{k}.weight", f"{k}.weight") for k in (
+        "img_in", "txt_in", "time_in.in_layer", "time_in.out_layer", "guidance_in.in_layer",
+        "guidance_in.out_layer", "double_stream_modulation_img.lin",
+        "double_stream_modulation_txt.lin", "single_stream_modulation.lin",
+        "final_layer.linear")]
+    e.append(("final_layer.adaLN_modulation.1.weight", "final_layer.adaLN_modulation.weight"))
+    for i in range(cfg.depth_double):
+        b, m = f"double_blocks.{i}", f"double.{i}"
+        for s in ("img", "txt"):
+            e += [(f"{b}.{s}_attn.qkv.weight", f"{m}.{s}_attn_qkv.weight"),
+                  (f"{b}.{s}_attn.norm.query_norm.scale", f"{m}.{s}_attn_qknorm.query_norm.weight"),
+                  (f"{b}.{s}_attn.norm.key_norm.scale", f"{m}.{s}_attn_qknorm.key_norm.weight"),
+                  (f"{b}.{s}_attn.proj.weight", f"{m}.{s}_attn_proj.weight"),
+                  (f"{b}.{s}_mlp.0.weight", f"{m}.{s}_mlp_0.weight"),
+                  (f"{b}.{s}_mlp.2.weight", f"{m}.{s}_mlp_2.weight")]
+    for i in range(cfg.depth_single):
+        b, m = f"single_blocks.{i}", f"single.{i}"
+        e += [(f"{b}.linear1.weight", f"{m}.linear1.weight"),
+              (f"{b}.linear2.weight", f"{m}.linear2.weight"),
+              (f"{b}.norm.query_norm.scale", f"{m}.qknorm.query_norm.weight"),
+              (f"{b}.norm.key_norm.scale", f"{m}.qknorm.key_norm.weight")]
+    return e
+
+
+def flux2_expected_keys(cfg, prefix: str = ""):
+    """The checkpoint keys FLUX.2's importer consumes."""
+    return {prefix + k for k, _ in _flux2_entries(cfg)}
+
+
+def import_flux2(state, cfg, prefix: str = "") -> dict:
+    """A FLUX.2 checkpoint's tensors as `models/flux2.Flux2`'s state_dict
+    (views of them: the layouts agree).  The key layout is recalled, so a
+    checkpoint whose keys differ from the table raises with the census
+    diff before any tensor is taken."""
+    have = {k for k in state if k.startswith(prefix)}
+    census = key_census(have, flux2_expected_keys(cfg, prefix), "flux2")
+    if not census["ok"]:
+        raise ValueError(
+            f"flux2: the checkpoint's keys do not match the recalled FLUX.2 layout "
+            f"({census['expected']} expected, {census['in_file']} in file): "
+            f"{len(census['missing'])} absent (first: {census['missing'][:4]}), "
+            f"{len(census['leftover'])} left over (first: {census['leftover'][:4]}); "
+            "update `load._flux2_entries` to the file's names")
+    return {m: _tensor(state[prefix + k]) for k, m in _flux2_entries(cfg)}
 
 
 # Qwen-Image's diffusers layout (QwenImageTransformer2DModel): per-stream

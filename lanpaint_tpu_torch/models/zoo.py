@@ -1,6 +1,7 @@
 """Model zoo: packaged Denoisers (the eps- and v-prediction UNets, the
-flow-matching MMDiTs with Qwen-Image and the stand-in families, SD3 /
-SD3.5, HiDream-I1, HunyuanVideo, Z-Image and the Wan video DiTs), the
+flow-matching MMDiTs with Qwen-Image and the stand-in families, FLUX.2
+[dev] at its published architecture, SD3 / SD3.5, HiDream-I1,
+HunyuanVideo, Z-Image and the Wan video DiTs), the
 image and video VAEs, the CLIP, T5 and Llama / Qwen text encoders and the
 Qwen2.5-VL vision tower.
 
@@ -16,13 +17,15 @@ also build one rank's share of a tensor-, expert- or layer-parallel model
 on a `parallel.make_mesh` mesh (`mesh=`, `tp_axis=`, HiDream's
 `expert_axis=`, `layer_axis=`; `_parallel_module`), whose Denoiser returns
 the whole output on every rank, the batch rows split over "data".
-`build_unet`, `build_dit`, `build_sd3`, `build_hidream`, `build_hyvideo`,
-`build_zimage` and `build_wan` return (Denoiser, module),
+`build_unet`, `build_dit`, `build_flux2`, `build_sd3`, `build_hidream`,
+`build_hyvideo`, `build_zimage` and `build_wan` return (Denoiser, module),
 `build_controlled_unet` (Denoiser, (unet, controlnet)); `build_vae`,
 `build_wan_vae`, `build_clip`, `build_t5`, `build_llama` and
 `build_vision` return the module.
 Every `build_*` function builds on the CUDA card unless `device` names
 another (`utils.resolve_device`).
+A state_dict's tensors that already lie on the target device in the
+parameter dtype are the parameters themselves, not copied (`_materialize`).
 Without a state_dict the weights are random, drawn on the target device
 from a seeded generator with the rule of
 `lanpaint_tpu.models.zoo.init_params_host`: kernels N(0, 0.02^2), biases
@@ -49,9 +52,9 @@ from ..schedule import bcast_to
 from ..sigmas import EpsSigmaTable, FlowSigmaTable
 from ..utils import resolve_device
 from .base import Denoiser
-from .dit import (ANIMA_CONFIG, FLUX2_DEV_CONFIG, FLUX2_KLEIN_CONFIG, FLUX_DEV_CONFIG,
-                  FLUX_SCHNELL_CONFIG, KREA2_CONFIG, QWEN_IMAGE_CONFIG, TINY_DIT_CONFIG, DiTConfig,
-                  MMDiT)
+from .dit import (ANIMA_CONFIG, FLUX2_KLEIN_CONFIG, FLUX_DEV_CONFIG, FLUX_SCHNELL_CONFIG,
+                  KREA2_CONFIG, QWEN_IMAGE_CONFIG, TINY_DIT_CONFIG, DiTConfig, MMDiT)
+from .flux2 import FLUX2_DEV_CONFIG, Flux2, Flux2Config
 from .layers import GroupNorm32, LayerNormF32, RMSNorm, ShardedRMSNorm
 from . import textenc
 from .textenc import (CLIP_L_CONFIG, QWEN3_4B_CONFIG, T5_XXL_CONFIG, CLIPTextConfig,
@@ -94,17 +97,41 @@ def init_params_(module: torch.nn.Module, seed: int = 0, scale: float = 0.02):
                 p.normal_(0.0, scale, generator=gen)
 
 
+# A parameter held in place is aligned as a fresh CUDA allocation is: to the
+# largest alignment cuBLAS's kernel heuristics take from an operand's
+# address (256 bytes), so that it runs the GEMMs a copied one would (the
+# kernels' and TMA's loads need 16 bytes of it).
+HELD_ALIGNMENT = 256
+
+
+def _held_in_place(t: torch.Tensor, device: torch.device, dtype: torch.dtype) -> bool:
+    """Whether a state_dict tensor can be a parameter as it is: on `device`,
+    of `dtype`, contiguous, its address `HELD_ALIGNMENT`-byte aligned."""
+    return (t.device == device and t.dtype == dtype and t.is_contiguous()
+            and t.data_ptr() % HELD_ALIGNMENT == 0)
+
+
 def _materialize(cls, config, state_dict, device, param_dtype, seed):
     """`cls(config)` created on the meta device and materialized on `device`
     directly (a full-size model never passes through host memory), with
-    `state_dict`'s weights or random ones."""
+    `state_dict`'s weights or random ones.  A state_dict tensor that
+    `_held_in_place` is the parameter itself (no second copy of a
+    device-resident state, which FLUX.2's 64.4 GB of bf16 would not fit
+    beside); any other is copied to the device and dtype."""
     with torch.device("meta"):
         module = cls(config).to(param_dtype)
-    module = module.to_empty(device=device)
     if state_dict is None:
+        module = module.to_empty(device=device)
         init_params_(module, seed=seed)
     else:
-        module.load_state_dict(state_dict)
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        held = {k: v if _held_in_place(v, device, param_dtype)
+                else v.to(device=device, dtype=param_dtype, copy=True,
+                          memory_format=torch.contiguous_format)
+                for k, v in state_dict.items()}
+        module.load_state_dict(held, assign=True)
     return module.eval().requires_grad_(False)
 
 
@@ -374,6 +401,13 @@ def build_dit(
     rules = _layered(dit_tp_rules(config, tp_axis), layer_axis)
     module = _module_for(MMDiT, config, state_dict, device, param_dtype, seed, mesh, rules,
                          tp_axis=tp_axis, layer_axis=layer_axis)
+    return _flow_denoiser(module, config, shift, is_flux, name, mesh), module
+
+
+def _flow_denoiser(module, config, shift: float, is_flux: bool, name: str, mesh=None):
+    """The flow-velocity Denoiser of an MMDiT-signature `module`
+    (`forward(x, t, context, vec, guidance, extra_tokens)`): x0 = x - t * v,
+    `cond` {"context", "vec", "guidance", "ref_tokens"}."""
 
     @torch.no_grad()
     def apply(x, t, cond):
@@ -383,11 +417,10 @@ def build_dit(
         vel = module(x, t, ctx, *extras)
         return x - bcast_to(t, x.ndim) * vel
 
-    den = Denoiser(apply=_data_rows(mesh, apply), kind=ModelKind.FLOW,
-                   sigma_table=FlowSigmaTable(shift=shift),
-                   is_flux=is_flux, name=name, latent_channels=config.latent_channels,
-                   module=module)
-    return den, module
+    return Denoiser(apply=_data_rows(mesh, apply), kind=ModelKind.FLOW,
+                    sigma_table=FlowSigmaTable(shift=shift),
+                    is_flux=is_flux, name=name, latent_channels=config.latent_channels,
+                    module=module)
 
 
 def build_flux_dev(state_dict=None, **kw):
@@ -405,9 +438,33 @@ def build_qwen_image(state_dict=None, **kw):
                      **kw)
 
 
+def build_flux2(
+    config: Flux2Config,
+    state_dict: Optional[dict] = None,
+    *,
+    shift: float = 1.15,
+    device=None,
+    param_dtype: torch.dtype = torch.float32,
+    seed: int = 0,
+    name: str = "flux2",
+    mesh=None,
+):
+    """Build FLUX.2's transformer (`models/flux2.py`) as a flow Denoiser on
+    `device` (the CUDA card when None) with `param_dtype` parameters: the
+    Flux wrapper of `build_dit` (x0 = x - t * v, cfg_big 1), `cond`
+    {"context", "guidance", "ref_tokens"}.  The tensors of a state_dict
+    that already lie on the device in `param_dtype` become the parameters
+    themselves (`_materialize`).  A mesh build is not ported."""
+    if mesh is not None:
+        raise NotImplementedError("FLUX.2 has no tensor- or layer-parallel build: pass no mesh")
+    module = _materialize(Flux2, config, state_dict, resolve_device(device), param_dtype, seed)
+    return _flow_denoiser(module, config, shift, True, name), module
+
+
 def build_flux2_dev(state_dict=None, **kw):
-    return build_dit(FLUX2_DEV_CONFIG, state_dict, shift=1.15, is_flux=True, name="flux2-dev",
-                     **kw)
+    """FLUX.2 [dev] at its published architecture (FLUX2_DEV_CONFIG, 32.22 B
+    parameters), shift 1.15."""
+    return build_flux2(FLUX2_DEV_CONFIG, state_dict, name="flux2-dev", **kw)
 
 
 def build_flux2_klein(state_dict=None, **kw):
@@ -940,9 +997,11 @@ def family_expected_keys(family: str):
     if family in ("flux-dev", "flux-schnell"):
         cfg = FLUX_DEV_CONFIG if family == "flux-dev" else FLUX_SCHNELL_CONFIG
         return L.expected_keys(L._dit_entries(cfg), "")
-    if family in ("flux2-dev", "flux2-klein", "krea2", "anima"):
-        cfg = {"flux2-dev": FLUX2_DEV_CONFIG, "flux2-klein": FLUX2_KLEIN_CONFIG,
-               "krea2": KREA2_CONFIG, "anima": ANIMA_CONFIG}[family]
+    if family == "flux2-dev":
+        return L.flux2_expected_keys(FLUX2_DEV_CONFIG)
+    if family in ("flux2-klein", "krea2", "anima"):
+        cfg = {"flux2-klein": FLUX2_KLEIN_CONFIG, "krea2": KREA2_CONFIG,
+               "anima": ANIMA_CONFIG}[family]
         return L.expected_keys(L._dit_entries(cfg), "")
     if family == "qwen":
         return L.qwen_expected_keys(QWEN_IMAGE_CONFIG)

@@ -33,6 +33,8 @@ The port's spans:
 | `sampler.step` | the solver's model function (`api`): one a model-function call | no | step |
 | `engine.think_iter` | each Langevin iteration of `engine.lanpaint_update` | yes | i |
 | `model.forward` | each backbone call in `guidance.make_cfg_double_denoiser` | yes | batch |
+| `dit.double` | FLUX.2's forward (`models/flux2.py`), its double-stream blocks | yes | tokens, ref_tokens |
+| `dit.single` | FLUX.2's forward, its single-stream blocks | yes | tokens, ref_tokens |
 
 `model.forward` holds the Denoiser's apply whole: the backbone and the
 model's own input scaling and output conversion.
@@ -43,7 +45,10 @@ caller synchronises first, and an unfinished event pair gives None).
 device ms over the kept jobs, beside the kernel wrappers' launch counters,
 the cross-attention launches of the flash-attention kernel among them
 (`cross_launches`), the row norm's launches with RoPE in their epilogue
-(`rope_launches`, `norms.rmsnorm_rope`) and the UNet's CUDA-graph counters (`models/graphs.py`:
+(`rope_launches`, `norms.rmsnorm_rope`), FLUX.2's shared-modulation
+computations (`modulation_calls`, `flux2.SharedModulation.calls`: 3 a
+forward) and SwiGLU calls (`swiglu_calls`, `flux2.swiglu.calls`: 64 a
+FLUX.2 [dev] forward) and the UNet's CUDA-graph counters (`models/graphs.py`:
 captures, replays and forwards run eagerly; replays over replays plus eager
 is the hit rate).
 The wrappers count the launches the host issues; `card_kernels()` counts
@@ -129,8 +134,10 @@ class Recorder:
         launches among them that were cross-attention
         (`flash_attention.cross_launches`, a key of its own so that
         `families` does not count them twice), the row norm's RoPE
-        launches (`rmsnorm_rope.launches`, also in `launches`) and the
-        CUDA-graph counters (`count_graphs`) beside them."""
+        launches (`rmsnorm_rope.launches`, also in `launches`), FLUX.2's
+        shared modulations and SwiGLU calls and the CUDA-graph counters
+        (`count_graphs`) beside them."""
+        from .models import flux2
         from .ops import attention, norms
 
         kept = self.jobs()
@@ -152,6 +159,8 @@ class Recorder:
                 "launches": launches(),
                 "cross_launches": attention.flash_attention.cross_launches,
                 "rope_launches": norms.rmsnorm_rope.launches,
+                "modulation_calls": flux2.SharedModulation.calls,
+                "swiglu_calls": flux2.swiglu.calls,
                 "graphs": dict(self.graphs)}
 
 

@@ -218,9 +218,16 @@ def test_slice_through_sampler_matches_jax(fused):
 
 def test_port_configs_match_jax():
     """The configurations are data: every field but the compute dtype (and
-    the JAX-only `attention_impl`) equals the JAX package's."""
-    names = [n for n in dir(jdit) if n.endswith("_CONFIG")]
+    the JAX-only `attention_impl`) equals the JAX package's.  FLUX.2 [dev]
+    is the exception: the JAX package keeps a stand-in MMDiT under
+    FLUX2_DEV_CONFIG, the port the published architecture in
+    `models/flux2.py` (`test_torch_flux2.py` holds it to its sizes)."""
+    from lanpaint_tpu_torch.models import flux2
+
+    names = [n for n in dir(jdit) if n.endswith("_CONFIG") and n != "FLUX2_DEV_CONFIG"]
     assert names and sorted(names) == sorted(n for n in dir(tdit) if n.endswith("_CONFIG"))
+    assert isinstance(jdit.FLUX2_DEV_CONFIG, jdit.DiTConfig)
+    assert isinstance(flux2.FLUX2_DEV_CONFIG, flux2.Flux2Config)
     for name in names:
         jc, tc = dataclasses.asdict(getattr(jdit, name)), dataclasses.asdict(getattr(tdit, name))
         for drop in ("dtype", "attention_impl"):

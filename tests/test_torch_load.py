@@ -412,16 +412,37 @@ def test_family_expected_keys_match_jax(family):
 @pytest.mark.parametrize("family", WAITING_FAMILIES + ["nope"])
 def test_family_expected_keys_of_unported_families_raise(family):
     """An unknown family raises the JAX package's ValueError; every family
-    once waiting gives the JAX package's key census."""
+    once waiting gives the JAX package's key census, but flux2-dev: ported
+    at its published architecture (`models/flux2.py`), it names FLUX.2
+    [dev]'s own checkpoint layout (recalled offline), one key a parameter
+    of the module, Flux.1's block names without biases or per-block
+    modulation, and the three shared modulations."""
     if family == "nope":
         with pytest.raises(ValueError) as want:
             jzoo.family_expected_keys(family)
         with pytest.raises(ValueError) as got:
             tzoo.family_expected_keys(family)
         assert str(got.value) == str(want.value)
+    elif family == "flux2-dev":
+        _check_flux2_dev_census()
     else:
         got = tzoo.family_expected_keys(family)
         assert got and got == jzoo.family_expected_keys(family)
+
+
+def _check_flux2_dev_census():
+    from lanpaint_tpu_torch.models import flux2
+
+    keys = tzoo.family_expected_keys("flux2-dev")
+    assert keys == TL.flux2_expected_keys(flux2.FLUX2_DEV_CONFIG)
+    with torch.device("meta"):
+        module = flux2.Flux2(flux2.FLUX2_DEV_CONFIG)
+    assert len(keys) == len(module.state_dict()) == 2 * 8 * 6 + 4 * 48 + 11
+    assert not any(k.endswith(".bias") or ".img_mod." in k or ".modulation." in k
+                   for k in keys)
+    assert {"double_stream_modulation_img.lin.weight", "double_stream_modulation_txt.lin.weight",
+            "single_stream_modulation.lin.weight", "double_blocks.7.img_mlp.0.weight",
+            "single_blocks.47.norm.key_norm.scale"} <= keys
 
 
 def _header_only_file(path, keys):

@@ -258,7 +258,13 @@ def test_import_dit_guarded_matches_jax(case):
                                   "build_krea2", "build_anima"])
 def test_dit_family_builders_match_jax(monkeypatch, name):
     """Each builder hands build_dit the JAX builder's config, shift, flux
-    flag and name (the full-size models are not built here)."""
+    flag and name (the full-size models are not built here).  FLUX.2 [dev]
+    is no longer the JAX package's MMDiT stand-in: `build_flux2_dev` hands
+    `build_flux2` the published architecture (`models/flux2.py`) and its
+    name, at `build_flux2`'s shift 1.15."""
+    if name == "build_flux2_dev":
+        _check_flux2_dev_builder(monkeypatch)
+        return
     calls = {}
 
     def spy(lib):
@@ -275,6 +281,23 @@ def test_dit_family_builders_match_jax(monkeypatch, name):
     j, t = dataclasses.asdict(jcfg), dataclasses.asdict(tcfg)
     j.pop("dtype"), t.pop("dtype"), j.pop("attention_impl", None)
     assert t == j
+
+
+def _check_flux2_dev_builder(monkeypatch):
+    import inspect
+
+    from lanpaint_tpu_torch.models import flux2
+
+    assert inspect.signature(tzoo.build_flux2).parameters["shift"].default == 1.15
+    calls = []
+    monkeypatch.setattr(tzoo, "build_flux2", lambda config, state_dict=None, **kw:
+                        calls.append((config, state_dict, kw)))
+    tzoo.build_flux2_dev(device="cpu")
+    ((config, state, kw),) = calls
+    assert config is flux2.FLUX2_DEV_CONFIG and state is None
+    assert kw == {"name": "flux2-dev", "device": "cpu"}
+    assert (config.depth_double, config.depth_single, config.hidden, config.num_heads,
+            config.context_dim, config.in_channels) == (8, 48, 6144, 48, 15360, 128)
 
 
 def test_qwen_image_config_matches_jax():

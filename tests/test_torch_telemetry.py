@@ -247,6 +247,36 @@ def test_summary_names_the_four_spans_and_the_launch_counters():
     assert s["rope_launches"] == s["launches"]["rmsnorm_rope"]
 
 
+def test_flux2_forwards_open_their_block_spans_inside_the_forward():
+    """A FLUX.2 forward inside a job opens `dit.double` and then
+    `dit.single` inside its `model.forward`, each with the joint sequence's
+    tokens and the reference tokens among them as attrs; `summary()` counts
+    the spans beside the shared-modulation and SwiGLU counters."""
+    from lanpaint_tpu_torch.models import flux2, zoo
+
+    den, _ = zoo.build_flux2(flux2.TINY_FLUX2_CONFIG, device="cpu")
+    gen = torch.Generator().manual_seed(6)
+    cond = {"context": torch.randn((1, 3, 32), generator=gen),
+            "ref_tokens": torch.randn((1, 16, 128), generator=gen)}
+    mask = torch.zeros((64, 64))
+    mask[16:48, 16:48] = 1.0
+    api.ksampler(den, seed=1, steps=2, cfg=1.0, sampler_name="euler", scheduler="simple",
+                 positive=cond, negative=None, latent=torch.randn((1, 32, 8, 8), generator=gen),
+                 mask=mask, num_steps=1)
+    (job,) = telemetry.jobs()
+    spans = job["spans"]
+    forwards = [i for i, s in enumerate(spans) if s["name"] == "model.forward"]
+    blocks = [(i, s) for i, s in enumerate(spans) if s["name"] in ("dit.double", "dit.single")]
+    assert len(forwards) == 3 and len(blocks) == 2 * len(forwards)
+    for (i, double), (j, single) in zip(blocks[::2], blocks[1::2]):
+        assert (double["name"], single["name"]) == ("dit.double", "dit.single")
+        assert double["parent"] == single["parent"] and double["parent"] in forwards
+        assert double["attrs"] == single["attrs"] == {"tokens": 3 + 16 + 16, "ref_tokens": 16}
+    s = telemetry.summary()
+    assert s["spans"]["dit.double"]["count"] == s["spans"]["dit.single"]["count"] == 3
+    assert s["modulation_calls"] >= 9 and s["swiglu_calls"] >= 3 * 6
+
+
 def test_custom_distance_trace_rows_keep_their_step_and_threshold():
     """The trace's step column and the custom distance's threshold are made
     on the latent's device without a host copy; their values stay i + 1 and
